@@ -1,0 +1,16 @@
+"""Hand-written Hopper kernels for the serving hot path.
+
+  flash_chunk_paged  ragged causal attention through per-slot block tables
+  topk_gate          fused softmax + top-k router gate
+  grouped_gemm       dropless segment GEMM over expert-sorted rows
+  policy             KernelPolicy switches (rides on core.partitioner plans)
+  ops                checked wrappers with launch counters
+  ref                plain PyTorch versions (the CPU path and the oracles)
+  build              nvcc build of csrc/ and the ctypes binding
+
+Only ``policy`` is imported eagerly; nothing is compiled at import.
+"""
+
+from repro_torch.kernels.policy import NULL_POLICY, KernelPolicy
+
+__all__ = ["KernelPolicy", "NULL_POLICY"]

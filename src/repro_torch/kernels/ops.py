@@ -1,0 +1,170 @@
+"""Checked wrappers for the hand-written kernels, with launch counters.
+
+Every wrapper validates device, dtype, shape and contiguity, then:
+
+* a CPU tensor goes to the plain PyTorch version in ``ref`` (the CPU tests
+  and the kernels-on CPU path run there);
+* a CUDA tensor launches the kernel from ``build.load()`` on PyTorch's
+  current stream, or raises — there is no fallback.
+
+``counters[name]`` counts kernel launches (CUDA only), one per launch and
+nowhere else; ``reset_counters()`` zeroes them.  A run can read them to show
+that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+counters: collections.Counter = collections.Counter()
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh codes
+
+
+def reset_counters() -> None:
+    counters.clear()
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_same_device(*ts) -> torch.device:
+    dev = ts[0].device
+    _check(all(t.device == dev for t in ts),
+           "all tensors must be on one device, got "
+           + ", ".join(str(t.device) for t in ts))
+    _check(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
+    return dev
+
+
+def _check_float(name: str, *ts) -> None:
+    dt = ts[0].dtype
+    _check(dt in _DTYPES, f"{name}: dtype must be float32 or bfloat16, "
+                          f"got {dt}")
+    _check(all(t.dtype == dt for t in ts),
+           f"{name}: all float inputs must share one dtype")
+
+
+def _check_int32(name: str, *ts) -> None:
+    _check(all(t.dtype == torch.int32 for t in ts),
+           f"{name}: index tensors must be int32")
+
+
+def _check_contiguous(name: str, *ts) -> None:
+    _check(all(t.is_contiguous() for t in ts),
+           f"{name}: inputs must be contiguous")
+
+
+def _launch(fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {rc}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def flash_chunk_paged(q, k_pages, v_pages, block_tables, q_offset, q_len,
+                      kv_len, *, scale=None):
+    """Paged ragged causal attention.  q (B, sq, nq, hd); k_pages
+    (P, page, nkv, hd); v_pages (P, page, nkv, hdv); block_tables
+    (B, max_blocks) int32 (-1 = unallocated); q_offset / q_len / kv_len
+    (B,) int32 -> (B, sq, nq, hdv) in q's dtype.  Contract:
+    ``ref.flash_chunk_paged_ref``."""
+    name = "flash_chunk_paged"
+    dev = _check_same_device(q, k_pages, v_pages, block_tables, q_offset,
+                             q_len, kv_len)
+    _check_float(name, q, k_pages, v_pages)
+    _check_int32(name, block_tables, q_offset, q_len, kv_len)
+    _check_contiguous(name, q, k_pages, v_pages, block_tables, q_offset,
+                      q_len, kv_len)
+    _check(q.dim() == 4 and k_pages.dim() == 4 and v_pages.dim() == 4,
+           f"{name}: q and the pools must be 4-d")
+    b, sq, nq, hd = q.shape
+    n_pages, page, nkv, hdk = k_pages.shape
+    hdv = v_pages.shape[-1]
+    _check(hdk == hd and v_pages.shape[:3] == k_pages.shape[:3],
+           f"{name}: pool shapes {tuple(k_pages.shape)} / "
+           f"{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
+    _check(nkv > 0 and nq % nkv == 0 and nq // nkv <= 64,
+           f"{name}: need nq divisible by nkv with at most 64 query heads "
+           f"per kv head, got nq={nq} nkv={nkv}")
+    _check(hd % 8 == 0 and hdv % 8 == 0 and hd <= 256 and hdv <= 256,
+           f"{name}: head dims must be multiples of 8 up to 256, "
+           f"got {hd}/{hdv}")
+    _check(block_tables.dim() == 2 and block_tables.shape[0] == b
+           and all(t.shape == (b,) for t in (q_offset, q_len, kv_len)),
+           f"{name}: block_tables (B, nb) and (B,) lengths expected")
+    scale = float(hd ** -0.5 if scale is None else scale)
+    if dev.type == "cpu":
+        return ref.flash_chunk_paged_ref(q, k_pages, v_pages, block_tables,
+                                         q_offset, q_len, kv_len, scale)
+    out = torch.empty(b, sq, nq, hdv, dtype=q.dtype, device=dev)
+    _launch(build.load().rt_flash_chunk_paged, q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            q_offset.data_ptr(), q_len.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), b, sq, nq, nkv, hd, hdv, page,
+            block_tables.shape[1], n_pages, scale, _DTYPES[q.dtype],
+            _stream())
+    counters[name] += 1
+    return out
+
+
+def topk_gate(logits, k: int, *, renorm: bool = True):
+    """logits (T, E) -> (weights (T, k) f32, idx (T, k) int32): softmax,
+    top-k with ties to the lowest id, optional renorm.  Contract:
+    ``ref.topk_gate_ref``."""
+    name = "topk_gate"
+    dev = _check_same_device(logits)
+    _check_float(name, logits)
+    _check_contiguous(name, logits)
+    _check(logits.dim() == 2, f"{name}: logits must be (T, E)")
+    t, e = logits.shape
+    _check(1 <= e <= 256 and 1 <= k <= min(e, 32),
+           f"{name}: need E <= 256 and 1 <= k <= min(E, 32), got E={e} k={k}")
+    if dev.type == "cpu":
+        return ref.topk_gate_ref(logits, k, renorm)
+    w = torch.empty(t, k, dtype=torch.float32, device=dev)
+    idx = torch.empty(t, k, dtype=torch.int32, device=dev)
+    _launch(build.load().rt_topk_gate, logits.data_ptr(), w.data_ptr(),
+            idx.data_ptr(), t, e, k, int(bool(renorm)),
+            _DTYPES[logits.dtype], _stream())
+    counters[name] += 1
+    return w, idx
+
+
+def grouped_gemm(x, w, group_offsets):
+    """x (N, H) sorted by expert @ w (E, H, D) with group_offsets (E+1,)
+    int32 -> (N, D) in x's dtype, f32 accumulation; rows at/after
+    ``offsets[-1]`` are exact zeros.  Contract: ``ref.grouped_gemm_ref``."""
+    name = "grouped_gemm"
+    dev = _check_same_device(x, w, group_offsets)
+    _check_float(name, x, w)
+    _check_int32(name, group_offsets)
+    _check_contiguous(name, x, w, group_offsets)
+    _check(x.dim() == 2 and w.dim() == 3 and x.shape[1] == w.shape[1],
+           f"{name}: need x (N, H) and w (E, H, D), got {tuple(x.shape)} "
+           f"and {tuple(w.shape)}")
+    n, h = x.shape
+    e, _, d = w.shape
+    _check(group_offsets.shape == (e + 1,),
+           f"{name}: group_offsets must be (E+1,) = ({e + 1},)")
+    if dev.type == "cpu":
+        return ref.grouped_gemm_ref(x, w, group_offsets)
+    out = torch.empty(n, d, dtype=x.dtype, device=dev)
+    _launch(build.load().rt_grouped_gemm, x.data_ptr(), w.data_ptr(),
+            group_offsets.data_ptr(), out.data_ptr(), n, h, d, e,
+            _DTYPES[x.dtype], _stream())
+    counters[name] += 1
+    return out
+
+
+__all__ = ["flash_chunk_paged", "topk_gate", "grouped_gemm", "counters",
+           "reset_counters"]

@@ -1,0 +1,240 @@
+"""Decoder for the GQA dense and MoE families (the serving main path).
+
+One ``ModelConfig`` + this module = a runnable model for the families the
+port serves so far:
+  dense   GQA attention + dense MLP          (smollm-360m, ...)
+  moe     GQA attention + dropless MoE       (phi3.5-moe-42b)
+
+The reference stacks each homogeneous layer group on a leading axis and
+scans it; the port keeps one parameter dict per layer and loops.  The cache
+is the paged pool (``init_paged_cache``): per group, K/V pools of shape
+``(count, pool_pages, page, nkv, hd)`` plus per-slot ``length`` and
+``block_tables``.  ``forward`` runs the unified mixed prefill/decode step on
+it and updates the pools and ``length`` IN PLACE.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan
+from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models.param import P, init_tree, stack
+
+
+# ---------------------------------------------------------------------------
+# Layer grouping
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    kind: str            # dense | moe
+    count: int           # layers in the group
+
+
+_FAMILIES = ("dense", "vlm", "moe")
+
+
+def layer_plan(cfg: ModelConfig) -> tuple[Group, ...]:
+    if cfg.family == "moe":
+        g = []
+        if cfg.first_dense_layers:
+            g.append(Group("dense", cfg.first_dense_layers))
+        g.append(Group("moe", cfg.n_layers - cfg.first_dense_layers))
+        return tuple(g)
+    if cfg.family in _FAMILIES:
+        return (Group("dense", cfg.n_layers),)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet (ROADMAP A10)")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    layer_plan(cfg)
+    if cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"{cfg.attention} attention is not ported yet (ROADMAP A6)")
+    if cfg.frontend or cfg.mrope:
+        raise NotImplementedError(
+            "frontend / M-RoPE models are not ported yet (ROADMAP A10)")
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def sublayer_spec(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "dense":
+        return {"attn": L.gqa_spec(cfg), "mlp": L.mlp_spec(cfg)}
+    if kind == "moe":
+        return {"attn": L.gqa_spec(cfg), "moe": MOE.moe_spec(cfg)}
+    raise KeyError(kind)
+
+
+def model_spec(cfg: ModelConfig) -> dict:
+    _check_supported(cfg)
+    h, v = cfg.d_model, cfg.padded_vocab
+    spec: dict[str, Any] = {
+        "embed": P((v, h), ("vocab", "embed"), scale=0.02),
+        "final_norm": P((h,), ("embed",), init="zeros"),
+        "groups": [stack(sublayer_spec(cfg, g.kind), g.count)
+                   for g in layer_plan(cfg)],
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = P((h, v), ("embed", "vocab"))
+    return spec
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                dtype=torch.bfloat16, device="cuda"):
+    """Random weights drawn from ``gen`` (a generator on ``device``)."""
+    return init_tree(gen, model_spec(cfg), dtype, device)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    from repro_torch.models.param import param_count
+    return param_count(model_spec(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                     page_size: int, pool_pages: int, dtype=torch.bfloat16,
+                     device="cuda"):
+    """Paged KV cache: per-group K/V *pools* + per-slot block tables.
+
+    Pools are ``(count, pool_pages, page_size, nkv, hd)``; ``block_tables``
+    (batch, max_len // page_size) int32 maps a slot's logical block to its
+    physical page (-1 = unallocated); ``length`` (batch,) int32 holds the
+    per-slot cache offsets.  The host allocator
+    (``serving.kv_cache.PagedKVCache``) owns the tables."""
+    _check_supported(cfg)
+    if max_len % page_size:
+        raise ValueError(f"page_size {page_size} must divide "
+                         f"max_len {max_len}")
+    nkv, hd = cfg.n_kv_heads, cfg.head_dim
+    groups = []
+    for g in layer_plan(cfg):
+        shape = (g.count, pool_pages, page_size, nkv, hd)
+        groups.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return {"groups": groups,
+            "length": torch.zeros(batch, dtype=torch.int32, device=device),
+            "block_tables": torch.full((batch, max_len // page_size), -1,
+                                       dtype=torch.int32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Sub-layer application
+# ---------------------------------------------------------------------------
+
+def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
+                   plan: ShardingPlan, positions, length, q_lens,
+                   block_tables, with_stats: bool = False):
+    """One residual layer of the unified step.  ``c`` holds this layer's
+    K/V pools.  Returns (x, aux, counts): ``counts`` is the per-expert
+    routed-slot vector (zeros for dense layers) when ``with_stats``, else
+    None."""
+    kv = L.KVView(c["k"], c["v"], length, block_tables)
+    a_out, _ = L.gqa_attention(p["attn"], x, cfg, plan, cache=kv,
+                               q_lens=q_lens, positions=positions)
+    x = x + a_out
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    counts = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
+                         device=x.device) if with_stats else None
+    if kind == "moe":
+        r = MOE.moe_block(p["moe"], x, cfg, plan, with_stats=with_stats)
+        m_out, aux = r[0], r[1]
+        if with_stats:
+            counts = r[2]
+        x = x + m_out
+    elif kind == "dense":
+        x = x + L.mlp(p["mlp"], x, cfg, plan)
+    else:
+        raise KeyError(kind)
+    return x, aux, counts
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Output:
+    logits: torch.Tensor
+    cache: Optional[dict]
+    aux: torch.Tensor          # router load-balance loss (0 for non-MoE)
+    # per-expert routed-slot counts summed over MoE layers, (n_experts,)
+    # int32 — only populated by forward(expert_stats=True), else None
+    expert_counts: Optional[torch.Tensor] = None
+
+
+def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
+            tokens, cache, q_lens, last_only: bool = False,
+            expert_stats: bool = False) -> Output:
+    """The unified mixed prefill/decode step on a paged cache.
+
+    tokens  (b, s) int    — slot i's valid rows are tokens[i, :q_lens[i]]
+                            (a prefill chunk, one decode token, or 0 = idle)
+                            at its cache offset ``cache["length"][i]``; rows
+                            past q_lens[i] are inert padding whose cache
+                            writes are dropped (they still flow through the
+                            MoE, which keeps routing count-independent)
+    cache                 — from ``init_paged_cache``; its pools and
+                            ``length`` (advanced by q_lens) are updated IN
+                            PLACE and the same dict is returned
+    q_lens  (b,) int32
+    last_only             apply the LM head only to each slot's last valid
+                          row (q_lens[i] - 1), returning (b, 1, v) logits
+    expert_stats          sum per-expert routed-slot counts over the MoE
+                          layers into ``Output.expert_counts``
+    """
+    if cache is None or q_lens is None or cache.get("block_tables") is None:
+        raise NotImplementedError(
+            "the port's forward runs the paged unified step only "
+            "(a paged cache and q_lens)")
+    length, block_tables = cache["length"], cache["block_tables"]
+    x = params["embed"][tokens.long()]
+    if cfg.tie_embeddings:
+        x = x * math.sqrt(cfg.d_model)
+    b, s, _ = x.shape
+    positions = L.positions_from(length, s)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    counts_total = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
+                               device=x.device) if expert_stats else None
+    for gi, g in enumerate(layer_plan(cfg)):
+        pools = cache["groups"][gi]
+        for li, p_l in enumerate(params["groups"][gi]):
+            c_l = {"k": pools["k"][li], "v": pools["v"][li]}
+            x, a, cnt = apply_sublayer(
+                g.kind, p_l, x, c_l, cfg=cfg, plan=plan, positions=positions,
+                length=length, q_lens=q_lens, block_tables=block_tables,
+                with_stats=expert_stats)
+            aux_total = aux_total + a
+            if expert_stats:
+                counts_total = counts_total + cnt
+
+    if last_only:   # per-slot last valid row; norm/head are per-token ops
+        rows = (q_lens.long() - 1).clamp_min(0)
+        x = x[torch.arange(b, device=x.device), rows][:, None]
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head
+    if cfg.padded_vocab != cfg.vocab_size:   # mask padding columns
+        logits[..., cfg.vocab_size:] = L.NEG_INF
+    length.add_(q_lens)
+    return Output(logits=logits, cache=cache, aux=aux_total,
+                  expert_counts=counts_total)
+
+
+__all__ = ["Group", "layer_plan", "model_spec", "sublayer_spec",
+           "init_params", "count_params", "init_paged_cache",
+           "apply_sublayer", "forward", "Output"]

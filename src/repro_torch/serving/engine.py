@@ -1,0 +1,534 @@
+"""Serving engine: token-budget continuous batching over a paged KV cache.
+
+Every iteration runs ONE unified mixed prefill/decode step:
+
+  forward(params, tokens(B, chunk), q_lens(B,), cache) -> last logits (B, V)
+
+Each slot contributes ``q_lens[i] ∈ {0, 1, …, chunk}`` tokens against the
+fixed (B, chunk) buffer: a decoding slot its 1 sampled token, a prefilling
+slot the next chunk of its pending tokens, an idle slot 0.  Admission is
+bookkeeping (the slot's pending buffer is ``prompt + tokens generated so
+far`` — the recompute-on-resume suffix that makes preemption exact); a long
+prompt never stalls the decode slots.
+
+Robustness: every ``Request`` carries a lifecycle ``state``; ``release`` /
+``cancel`` / ``preempt`` free a slot mid-flight; a NaN/Inf guard on the
+sampled-logits rows quarantines exactly the offending slot (state FAILED);
+a ``FaultInjector`` (``ServeSpec.faults``) injects latency spikes, NaN
+rows, admit failures and clock skew deterministically.
+
+The engine runs on one device (``device=``, default CUDA).  Speculative
+decoding (ROADMAP A7) and the legacy blocking path for recurrent / hybrid /
+frontend families (ROADMAP A10) are not ported: a spec asking for either
+raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from collections import Counter
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cost_model import cap_rows_for
+from repro_torch.models.model import forward
+from repro_torch.serving.faults import FaultInjector, InjectedFault
+from repro_torch.serving.kv_cache import make_kv_cache
+
+
+class PromptTooLongError(ValueError):
+    """Prompt + generation budget cannot fit the cache."""
+
+
+class RequestState:
+    """Request lifecycle.  Terminal states never transition again;
+    PREEMPTED requests re-enter RUNNING when re-admitted (recompute)."""
+
+    QUEUED = "QUEUED"
+    RUNNING = "RUNNING"
+    DONE = "DONE"
+    CANCELLED = "CANCELLED"
+    SHED = "SHED"
+    FAILED = "FAILED"
+    PREEMPTED = "PREEMPTED"
+
+    TERMINAL = frozenset({DONE, CANCELLED, SHED, FAILED})
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (s,) int32 token ids
+    max_new_tokens: int = 32
+    arrival: float = 0.0
+    priority: int = 0                   # higher = more important
+    deadline_s: Optional[float] = None  # seconds after arrival; None = none
+    # filled by the engine / scheduler:
+    state: str = RequestState.QUEUED
+    error: str = ""
+    n_preempted: int = 0
+    out_tokens: list = dataclasses.field(default_factory=list)
+    t_admitted: float = 0.0
+    t_first_token: float = 0.0
+    t_done: float = 0.0
+
+    @property
+    def done(self) -> bool:
+        return len(self.out_tokens) >= self.max_new_tokens
+
+    @property
+    def terminal(self) -> bool:
+        return self.state in RequestState.TERMINAL
+
+    @property
+    def deadline(self) -> float:
+        """Absolute deadline (same clock as ``arrival``); +inf if none."""
+        if self.deadline_s is None:
+            return float("inf")
+        return self.arrival + self.deadline_s
+
+    @property
+    def ttft(self) -> float:
+        return self.t_first_token - self.arrival
+
+    @property
+    def itl(self) -> float:
+        n = len(self.out_tokens)
+        if n <= 1:
+            return 0.0
+        return (self.t_done - self.t_first_token) / (n - 1)
+
+
+MAX_BUCKET = 4096      # hard prompt cap, as in the reference
+
+
+def unified_supported(cfg: ModelConfig) -> bool:
+    """Whether the unified mixed step can serve this config (attention-
+    cached text families only)."""
+    return cfg.family in ("dense", "moe", "vlm") and not cfg.frontend \
+        and not cfg.mrope
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  Never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params, spec=None, *,
+                 dtype=torch.float32, device=None):
+        # ``spec`` (a serving.api.ResolvedServeSpec) is THE configuration
+        # surface: plan, kernels, dispatch, chunk, token budget, the slot
+        # envelope, overload policy and fault plan all ride on it.
+        if spec is None:
+            raise TypeError("Engine needs a resolved spec: Engine(cfg, "
+                            "params, ServeSpec(...).resolve(cfg))")
+        if not unified_supported(cfg):
+            raise NotImplementedError(
+                f"{cfg.name} (family {cfg.family}) needs the legacy blocking "
+                "path, which is not ported yet (ROADMAP A10)")
+        if getattr(spec, "speculation", None) is not None:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP A7)")
+        self.device = resolve_device(device)
+        spec.plan.kernels.check_ported(self.device)
+        self.spec = spec
+        self.cfg, self.params, self.plan = cfg, params, spec.plan
+        self.max_batch, self.max_len = spec.max_batch, spec.max_len
+        self.temperature = spec.temperature
+        # sampling noise: a device generator seeded from the spec (greedy
+        # decoding never draws from it)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(spec.seed)
+        self.chunk = max(1, min(int(spec.chunk), spec.max_len))
+        # debug/oracle mode: keep every row's logits (B, chunk, V) per step
+        self.debug_logits = bool(spec.debug_logits)
+
+        # expert-load observability (MoE only): per-expert routed-slot
+        # counts summed over layers/steps plus the EP-exchange byte ledger
+        self.expert_counts = np.zeros((max(cfg.n_experts, 1),), np.int64)
+        self.a2a_bytes_moved = 0
+        self.a2a_bytes_worst = 0
+
+        self.faults = FaultInjector(getattr(spec, "faults", ()),
+                                    seed=spec.seed)
+        self.events: Counter = Counter()
+        self.kv = make_kv_cache(cfg, getattr(spec, "kv", None),
+                                self.max_batch, self.max_len, dtype,
+                                self.device)
+
+        self.slots: list[Optional[Request]] = [None] * self.max_batch
+        self._pending = [None] * self.max_batch   # tokens to prefill
+        self._prompt_pos = [0] * self.max_batch   # pending tokens written
+        self._last_tok = [0] * self.max_batch     # last sampled token
+        self._admit_seq = [0] * self.max_batch    # admission (prefill FIFO)
+        self._seq = 0
+        self._step_idx = 0                # engine step counter (fault keys)
+        self.n_forward = 0                # unified steps that ran the model
+        self.last_step_tokens = 0         # the watchdog's progress signal
+        self.last_logits = None                # (B, V) of the last step
+        self.step_logits = None                # (B, chunk, V), debug_logits
+        self.dtype = dtype
+
+    # -- KV state --------------------------------------------------------
+    @property
+    def cache(self):
+        """The live device KV dict (owned by ``self.kv``)."""
+        return self.kv.cache
+
+    # -- validation ------------------------------------------------------
+    def validate(self, req: Request) -> None:
+        """Reject a request whose prompt + generation can never fit."""
+        need = len(req.prompt) + max(0, req.max_new_tokens - 1)
+        if len(req.prompt) > MAX_BUCKET or need > self.max_len:
+            raise PromptTooLongError(
+                f"request {req.rid}: prompt of {len(req.prompt)} tokens "
+                f"(+{req.max_new_tokens} new) needs {need} cache positions "
+                f"but max_len={self.max_len} (prompt cap {MAX_BUCKET}) — "
+                "raise max_len, shorten the prompt, or lower max_new_tokens")
+        if self.kv.pool_tokens is not None and need > self.kv.pool_tokens:
+            raise PromptTooLongError(
+                f"request {req.rid}: needs {need} cache positions but the "
+                f"paged KV pool holds {self.kv.pool_tokens} tokens — raise "
+                "ServeSpec.kv pool_pages (or leave kv='auto')")
+
+    # -- the step program --------------------------------------------------
+    def _unified_impl(self, tokens, q_lens):
+        """One mixed token-budget iteration (non-speculative).
+
+        tokens (B, chunk), q_lens (B,) int32 on the device.  Returns
+        (next tokens (B, 1), n_emit (B,), last logits (B, V), step_logits,
+        bad (B,), expert_counts): ``bad[i]`` flags a non-finite
+        sampled-logits row on a scheduled slot."""
+        out = forward(self.params, self.cfg, self.plan, tokens=tokens,
+                      cache=self.cache, q_lens=q_lens,
+                      last_only=not self.debug_logits,
+                      expert_stats=self.cfg.is_moe)
+        if self.debug_logits:
+            rows = (q_lens.long() - 1).clamp_min(0)
+            last = out.logits[torch.arange(tokens.shape[0],
+                                           device=tokens.device), rows]
+            step_logits = out.logits
+        else:
+            last = out.logits[:, 0]
+            step_logits = None
+        bad = (q_lens > 0) & ~torch.isfinite(last).all(-1)
+        if self.temperature > 0:
+            probs = torch.softmax(last.float() / self.temperature, -1)
+            probs = torch.nan_to_num(probs, nan=0.0).clamp_min(0)
+            probs[probs.sum(-1) == 0] = 1.0       # quarantined rows
+            nxt = torch.multinomial(probs, 1, generator=self.gen)[:, 0]
+        else:
+            nxt = torch.argmax(last, -1)
+        emit = (q_lens > 0).to(torch.int32)
+        return (nxt.to(torch.int32)[:, None], emit, last, step_logits, bad,
+                out.expert_counts)
+
+    # -- slot management -------------------------------------------------
+    def free_slots(self) -> list:
+        return [i for i, r in enumerate(self.slots) if r is None]
+
+    def slot_of(self, rid: int) -> Optional[int]:
+        for i, r in enumerate(self.slots):
+            if r is not None and r.rid == rid:
+                return i
+        return None
+
+    def admit(self, req: Request) -> bool:
+        """Admit into a free slot: pure bookkeeping — the slot's pending
+        buffer becomes ``prompt + out_tokens`` and the KV cache matches it
+        against the prefix index.  Raises ``InjectedFault`` when an
+        "admit" fault targets this request (the scheduler sheds it)."""
+        self.validate(req)
+        fault = self.faults.admit_blocked(self._step_idx, req.rid) \
+            if self.faults else None
+        if fault is not None:
+            raise InjectedFault(
+                f"request {req.rid}: injected admission failure "
+                f"({fault.describe()})")
+        free = self.free_slots()
+        if not free:
+            return False
+        slot = free[0]
+        self.slots[slot] = req
+        # resume replays generated-so-far tokens as a prompt suffix
+        self._pending[slot] = np.concatenate(
+            [np.asarray(req.prompt, np.int32),
+             np.asarray(req.out_tokens, np.int32)]) \
+            if req.out_tokens else np.asarray(req.prompt, np.int32)
+        # prefix reuse: prefill starts past the cached leading tokens
+        self._prompt_pos[slot] = self.kv.begin(slot, self._pending[slot])
+        self._last_tok[slot] = 0
+        self._admit_seq[slot] = self._seq
+        self._seq += 1
+        if req.t_admitted == 0.0:
+            req.t_admitted = time.perf_counter()
+        req.state = RequestState.RUNNING
+        return True
+
+    def release(self, slot: int, state: str, error: str = "",
+                reason: str = "") -> Optional[Request]:
+        """Free a slot mid-flight: deadline kill, cancel, fault quarantine.
+        ``reason`` increments the engine's event counter."""
+        req = self.slots[slot]
+        if req is None:
+            return None
+        self.slots[slot] = None
+        self._pending[slot] = None
+        # a quarantined slot's pages may hold the very NaNs we are
+        # quarantining, so they never enter the prefix index
+        self.kv.free(slot, keep_prefix=state != RequestState.FAILED)
+        req.state = state
+        if error:
+            req.error = error
+        if state in RequestState.TERMINAL:
+            req.t_done = time.perf_counter()
+        if reason:
+            self.events[reason] += 1
+        return req
+
+    def cancel(self, rid: int) -> Optional[Request]:
+        """Cancel a RUNNING request; frees its slot immediately."""
+        slot = self.slot_of(rid)
+        if slot is None:
+            return None
+        return self.release(slot, RequestState.CANCELLED, error="cancelled",
+                            reason="cancel")
+
+    def preempt(self, slot: int) -> Optional[Request]:
+        """Evict a slot (recompute-on-resume).  ``kv.free`` parks the
+        victim's computed full pages in the prefix index, so the resume's
+        ``begin`` re-matches them and only the uncached tail is
+        recomputed; the resumed stream matches an uninterrupted run."""
+        req = self.release(slot, RequestState.PREEMPTED, reason="preempt")
+        if req is not None:
+            req.n_preempted += 1
+        return req
+
+    def victim_slot(self, below_priority: int) -> Optional[int]:
+        """Lowest-priority occupied slot strictly below ``below_priority``
+        (youngest admission breaks ties)."""
+        best = None
+        for i, r in enumerate(self.slots):
+            if r is None or r.priority >= below_priority:
+                continue
+            key = (r.priority, -self._admit_seq[i])
+            if best is None or key < best[0]:
+                best = (key, i)
+        return None if best is None else best[1]
+
+    # -- token-budget planning (Sarathi-style, decode-first) -------------
+    def plan_q_lens(self, token_budget: Optional[int] = None) -> np.ndarray:
+        """Per-slot token counts for the next unified step: decode slots
+        get their 1 token first, the remaining budget (default
+        ``max_batch * chunk``) goes to prefill chunks in admission order,
+        each capped at ``chunk`` and at what ``kv.reserve`` grants."""
+        budget = int(token_budget) if token_budget else \
+            self.max_batch * self.chunk
+        q = np.zeros((self.max_batch,), np.int32)
+        prefilling = []
+        for i, r in enumerate(self.slots):
+            if r is None or r.terminal:
+                continue
+            if self._prompt_pos[i] < len(self._pending[i]):
+                prefilling.append(i)
+            elif not r.done:
+                q[i] = self.kv.reserve(i, 1)
+        budget -= int(q.sum())
+        for i in sorted(prefilling, key=lambda j: self._admit_seq[j]):
+            if budget <= 0:
+                break
+            n = min(self.chunk, len(self._pending[i])
+                    - self._prompt_pos[i], budget)
+            n = self.kv.reserve(i, n)
+            q[i] = n
+            budget -= n
+        return q
+
+    # -- stepping --------------------------------------------------------
+    def step(self, token_budget: Optional[int] = None) -> list:
+        """One engine iteration.  Returns retired requests (state DONE, or
+        FAILED for NaN-quarantined slots, or PREEMPTED)."""
+        q = self.plan_q_lens(token_budget)
+        preempted = []
+        # paged-pool deadlock breaker: live slots exist but the pool could
+        # not extend ANY of them — free a victim's pages and replan
+        while (not q.any()
+               and any(r is not None and not r.terminal and not r.done
+                       for r in self.slots)
+               and self.n_active > 1):
+            victim = self.victim_slot(1 << 30)
+            if victim is None:
+                break
+            preempted.append(self.preempt(victim))
+            q = self.plan_q_lens(token_budget)
+        return preempted + self.unified_step(q)
+
+    def _reap(self) -> list:
+        """Sweep slots already retired (terminal state set by cancel/
+        release) or trivially complete (max_new_tokens satisfied)."""
+        retired = []
+        for i, r in enumerate(self.slots):
+            if r is None:
+                continue
+            if r.terminal:
+                retired.append(r)
+            elif r.done:
+                r.state = RequestState.DONE
+                r.t_done = r.t_done or time.perf_counter()
+                retired.append(r)
+            else:
+                continue
+            self.slots[i] = None
+            self._pending[i] = None
+            self.kv.free(i)
+        return retired
+
+    def unified_step(self, q_lens) -> list:
+        """Run the unified step with an explicit per-slot plan."""
+        step_idx = self._step_idx
+        self._step_idx += 1
+        retired = self._reap()
+        q_lens = np.asarray(q_lens, np.int32)
+        self.last_step_tokens = int(q_lens.sum())
+        if self.faults:
+            spike = self.faults.step_latency_s(step_idx)
+            if spike > 0:
+                time.sleep(spike)            # injected straggler
+        if not q_lens.any():
+            return retired
+        toks = np.zeros((self.max_batch, self.chunk), np.int32)
+        for i, r in enumerate(self.slots):
+            n = int(q_lens[i])
+            if r is None or n == 0:
+                continue
+            pos = self._prompt_pos[i]
+            if pos < len(self._pending[i]):
+                toks[i, :n] = self._pending[i][pos:pos + n]
+            else:
+                toks[i, 0] = self._last_tok[i]
+        self.kv.flush()          # push dirty block tables to device
+        self.n_forward += 1
+        dev = self.device
+        (nxt, emit, self.last_logits, self.step_logits, bad,
+         ecnt) = self._unified_impl(torch.from_numpy(toks).to(dev),
+                                    torch.from_numpy(q_lens).to(dev))
+        if ecnt is not None:
+            self.expert_counts += ecnt.cpu().numpy().astype(np.int64)
+            self._account_a2a(int(q_lens.sum()))
+        self.kv.advance(q_lens)  # host length mirror follows the device
+        # one (B, 1) host read per step, for request bookkeeping
+        nxt_host = nxt.cpu().numpy()
+        emit_host = emit.cpu().numpy()
+        bad_host = bad.cpu().numpy().copy()   # fault injection writes here
+        if self.faults:
+            live = {i: r.rid for i, r in enumerate(self.slots)
+                    if r is not None and q_lens[i] > 0}
+            for i in self.faults.nan_slots(step_idx, live):
+                bad_host[i] = True           # injected NaN-logits row
+                self.last_logits[i] = float("nan")
+        now = time.perf_counter()
+        for i, r in enumerate(self.slots):
+            n = int(q_lens[i])
+            if r is None or n == 0:
+                continue
+            if bad_host[i]:
+                # quarantine exactly this slot: non-finite logits never
+                # produce a token, never touch a neighbour
+                retired.append(self.release(
+                    i, RequestState.FAILED, error="non-finite logits",
+                    reason="fault"))
+                continue
+            pos = self._prompt_pos[i]
+            if pos < len(self._pending[i]):            # prefill chunk
+                self._prompt_pos[i] = pos + n
+                if self._prompt_pos[i] < len(self._pending[i]):
+                    continue                           # still prefilling
+                if r.t_first_token == 0.0:
+                    r.t_first_token = now              # prompt done: TTFT
+            if r.done:                                 # zero-token budget:
+                continue                               # reaped next sweep
+            m = min(int(emit_host[i]), r.max_new_tokens - len(r.out_tokens))
+            if m <= 0:
+                continue
+            committed = [int(t) for t in nxt_host[i, :m]]
+            r.out_tokens.extend(committed)
+            self._last_tok[i] = committed[-1]
+            r.t_done = now
+            if r.done:
+                r.state = RequestState.DONE
+                retired.append(r)
+                self.slots[i] = None
+                self._pending[i] = None
+                self.kv.free(i)
+        return retired
+
+    def spec_stats(self) -> dict:
+        """Speculation counters for ServeMetrics (always off here)."""
+        return {"n_spec_steps": 0, "n_spec_drafted": 0,
+                "n_spec_accepted": 0, "spec_accept_rate": 0.0,
+                "spec_tokens_per_step": 0.0}
+
+    # -- expert-load / EP-exchange observability -------------------------
+    def _account_a2a(self, step_tokens: int) -> None:
+        """Price the step's EP exchange into the byte ledger: what the
+        RESOLVED deployment would move (``moved`` under the count-bounded
+        micro-chunked extent, ``worst`` under monolithic worst-case
+        buffers), dispatch + combine over every MoE layer."""
+        cfg, spec = self.cfg, self.spec
+        ep = int(getattr(spec, "moe_ep", 1) or 1)
+        if not cfg.is_moe or step_tokens <= 0 or ep <= 1:
+            return
+        n_moe_layers = cfg.n_layers - cfg.first_dense_layers
+        n_rows = step_tokens * cfg.top_k     # routed slots per MoE layer
+        ovl = getattr(spec, "ep_overlap", None)
+        if ovl is None or getattr(ovl, "chunks", 1) <= 1:
+            rows_moved = ep * n_rows         # monolithic worst-case extent
+        else:
+            chunks = max(1, math.gcd(int(ovl.chunks), step_tokens))
+            n_chunk_rows = (step_tokens // chunks) * cfg.top_k
+            cap = cap_rows_for(n_chunk_rows, ep, ovl)
+            rows_moved = ep * chunks * cap   # count-bounded extent
+        moe_tp = int(getattr(spec, "moe_tp", 1) or 1)
+        width = cfg.d_model
+        if getattr(spec.plan, "comm_algo", "") == "fused":
+            width = cfg.d_model // max(moe_tp, 1)
+        elem = torch.empty((), dtype=self.dtype).element_size()
+        per_row = width * elem * 2 * n_moe_layers      # dispatch + combine
+        self.a2a_bytes_moved += rows_moved * per_row
+        self.a2a_bytes_worst += ep * n_rows * per_row
+
+    def ep_load_stats(self) -> dict:
+        """Expert-load skew bucketed by resolved EP rank + the A2A ledger."""
+        counts = self.expert_counts
+        ep = int(getattr(self.spec, "moe_ep", 1) or 1)
+        if not self.cfg.is_moe or counts.sum() == 0:
+            return {"ep_rank_max_tokens": 0, "ep_rank_mean_tokens": 0.0,
+                    "a2a_bytes_moved": int(self.a2a_bytes_moved),
+                    "a2a_bytes_worst": int(self.a2a_bytes_worst)}
+        if ep <= 1 or counts.shape[0] % ep:
+            ep = 1                      # degenerate bucketing: one rank
+        per_rank = counts.reshape(ep, counts.shape[0] // ep).sum(axis=1)
+        return {"ep_rank_max_tokens": int(per_rank.max()),
+                "ep_rank_mean_tokens": float(per_rank.mean()),
+                "a2a_bytes_moved": int(self.a2a_bytes_moved),
+                "a2a_bytes_worst": int(self.a2a_bytes_worst)}
+
+    @property
+    def n_active(self) -> int:
+        return sum(r is not None for r in self.slots)
+
+
+__all__ = ["Engine", "Request", "RequestState", "PromptTooLongError",
+           "unified_supported", "resolve_device", "MAX_BUCKET"]

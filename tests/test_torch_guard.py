@@ -1,0 +1,121 @@
+"""Guards of the port's boundaries: no JAX or reference import, no silent
+CPU fallback, checked wrappers, and built kernels kept out of git."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [(ln, m) for ln, m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_serving_import_leaves_jax_unloaded():
+    code = ("import sys; import repro_torch.serving.api; "
+            "import repro_torch.kernels.ops, repro_torch.bridge; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_never_fall_back_to_cpu(monkeypatch):
+    """Without a card, the default device raises; only device="cpu" runs."""
+    from repro_torch.serving.api import LLM, ServeSpec
+    from repro_torch.serving.engine import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = ServeSpec(arch="smollm-360m", max_batch=1, max_len=64, chunk=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLM.from_spec(spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_unported_options_raise():
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.serving.api import LLM, ServeSpec
+    with pytest.raises(NotImplementedError, match="B2"):
+        LLM.from_spec(ServeSpec(arch="smollm-360m", kv="dense", max_batch=1,
+                                max_len=64, chunk=8), device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        LLM.from_spec(ServeSpec(arch="smollm-360m", speculation=2,
+                                max_batch=1, max_len=64, chunk=8),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        LLM.from_spec(ServeSpec(arch="rwkv6-1.6b", max_batch=1, max_len=64,
+                                chunk=8, kv="auto"), device="cpu")
+    assert KernelPolicy.auto("cpu") == KernelPolicy()
+    assert KernelPolicy.auto("cuda") == KernelPolicy.parse("on")
+
+
+def test_gitignore_lists_build_outputs():
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_cached_build_reads_back_its_ptxas_report(tmp_path, monkeypatch):
+    """A library found in the build cache still reports each source's
+    ptxas summary, and a loaded library is reused as it is."""
+    import json
+
+    from repro_torch.kernels import build
+
+    class _Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    cached = tmp_path / build.source_hash()
+    cached.mkdir()
+    (cached / build.LIB_NAME).write_bytes(b"")
+    reports = {"topk_gate.cu": "ptxas info : Used 32 registers"}
+    (cached / build.PTXAS_REPORT).write_text(json.dumps(reports))
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "build_info", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: _Lib())
+    lib = build.load()
+    assert build.build_info["ptxas"] == reports
+    assert build.build_info["dir"] == str(cached)
+    assert build.load() is lib
+
+
+def test_chip_smoke_refuses_without_card_or_port(tmp_path):
+    """No result line, non-zero exit: alone in a directory, and (here) on a
+    machine without a CUDA card."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for cwd, script in ((tmp_path, alone), (ROOT, ROOT / "chip_smoke.py")):
+        if cwd == ROOT and torch.cuda.is_available():
+            continue
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

@@ -1,0 +1,98 @@
+"""The port's dropless MoE against the reference's, same inputs.
+
+Ids, dispatch order and routed counts are exact; weights, aux loss and the
+block's output agree to 1e-5 (float32).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_helpers import both_params, jj, tt  # noqa: E402
+from repro.kernels.policy import KernelPolicy as RPolicy  # noqa: E402
+from repro.models import moe as RM  # noqa: E402
+from repro_torch.kernels.policy import KernelPolicy as TPolicy  # noqa: E402
+from repro_torch.models import moe as TM  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def phi():
+    return both_params("phi3.5-moe-42b")
+
+
+def _logits():
+    rng = np.random.default_rng(0)
+    lg = rng.standard_normal((24, 8)).astype(np.float32)
+    lg[0] = 1.0                          # all tied
+    lg[1, 4] = lg[1, 1] = 3.0            # tied top pair
+    return lg
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_route_topk_matches_reference(use_kernel):
+    lg = _logits()
+    ti, tw, taux = TM.route_topk(tt(lg), 2, use_kernel=use_kernel)
+    ri, rw, raux = RM.route_topk(jj(lg), 2, use_kernel=use_kernel)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(tw.numpy(), np.asarray(rw), **TOL)
+    np.testing.assert_allclose(float(taux), float(raux), **TOL)
+    assert ti[0].tolist() == [0, 1] and ti[1].tolist() == [1, 4]
+
+
+def test_make_dropless_order_matches_reference():
+    rng = np.random.default_rng(1)
+    idx = rng.integers(0, 5, (30, 2)).astype(np.int32)
+    idx[:, 1] = np.where(idx[:, 1] == 3, 4, idx[:, 1])
+    w = rng.random((30, 2)).astype(np.float32)
+    t = TM.make_dropless(tt(idx), tt(w), 6)
+    r = RM.make_dropless(jj(idx), jj(w), 6)
+    for f in ("order", "inv", "counts", "offsets"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(r, f)))
+
+
+@pytest.mark.parametrize("kernels", ["off", "gate+gemm"])
+def test_moe_local_matches_reference(phi, kernels):
+    rcfg, rp, tcfg, tp = phi
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((3, 5, rcfg.d_model)).astype(np.float32)
+    on = kernels != "off"
+    r_moe = {k: v[0] for k, v in rp["groups"][0]["moe"].items()}
+    r_out, r_aux, r_cnt = RM.moe_local(
+        r_moe, jj(x), rcfg,
+        policy=RPolicy(topk_gate=on, moe_gemm=on), dispatch="dropless",
+        with_stats=True)
+    t_out, t_aux, t_cnt = TM.moe_local(
+        tp["groups"][0][0]["moe"], tt(x), tcfg,
+        policy=TPolicy(topk_gate=on, moe_gemm=on), dispatch="dropless",
+        with_stats=True)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(r_out), **TOL)
+    np.testing.assert_allclose(float(t_aux), float(r_aux), **TOL)
+    np.testing.assert_array_equal(t_cnt.numpy(), np.asarray(r_cnt))
+
+
+def test_moe_count_independent(phi):
+    """A token's output does not depend on which other rows share the
+    step (dropless: no capacity, so no batch-composition effects)."""
+    _, _, tcfg, tp = phi
+    p = tp["groups"][0][0]["moe"]
+    rng = np.random.default_rng(3)
+    x = tt(rng.standard_normal((1, 9, tcfg.d_model)).astype(np.float32))
+    full, _ = TM.moe_local(p, x, tcfg)
+    part, _ = TM.moe_local(p, x[:, 2:5], tcfg)
+    torch.testing.assert_close(part, full[:, 2:5], rtol=1e-6, atol=1e-6)
+
+
+def test_capacity_and_unported_kernels_raise(phi):
+    _, _, tcfg, tp = phi
+    x = torch.zeros(1, 2, tcfg.d_model)
+    with pytest.raises(NotImplementedError, match="A9"):
+        TM.moe_local(tp["groups"][0][0]["moe"], x, tcfg, dispatch="capacity")
+    for name in ("fused_permute", "flash_decode"):
+        pol = TPolicy(**{name: True})
+        pol.check_ported("cpu")                 # plain bodies on the CPU
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pol.check_ported("cuda")
