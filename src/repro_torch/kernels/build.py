@@ -36,10 +36,17 @@ SIGNATURES = {
     # q, k_pages, v_pages, block_tables, q_offset, q_len, kv_len, out,
     # B, sq, nq, nkv, hd, hdv, page, nb, n_pages, scale, dtype, stream
     "rt_flash_chunk_paged": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+    # q, k, v, q_offset, q_len, kv_len, out,
+    # B, sq, nq, nkv, hd, hdv, S, scale, dtype, stream
+    "rt_flash_chunk": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     # logits, weights, idx, n_rows, E, k, renorm, dtype, stream
     "rt_topk_gate": [_P] * 3 + [_I] * 5 + [_P],
     # x, w, offsets, out, N, H, D, E, dtype, stream
     "rt_grouped_gemm": [_P] * 4 + [_I] * 5 + [_P],
+    # x, src, out, N, T, h, element bytes, stream
+    "rt_permute_tokens": [_P] * 3 + [_I] * 4 + [_P],
+    # buf, slot, weights, out, T, k, h, M, dtype, stream
+    "rt_unpermute_tokens": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -71,6 +71,76 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _check_attention(name, q, k, v, lengths) -> tuple:
+    """The checks the dense and paged attention wrappers share: q and the
+    K/V buffers 4-d with matching leading dims, a head layout and head dims
+    the kernel takes, (B,) int32 lengths.  Returns (nkv, hd, hdv)."""
+    _check_float(name, q, k, v)
+    _check_int32(name, *lengths)
+    _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+           f"{name}: q and the K/V buffers must be 4-d")
+    b, _, nq, hd = q.shape
+    nkv, hdv = k.shape[2], v.shape[3]
+    _check(k.shape[3] == hd and v.shape[:3] == k.shape[:3],
+           f"{name}: K/V shapes {tuple(k.shape)} / {tuple(v.shape)} do not "
+           f"match q {tuple(q.shape)}")
+    _check(nkv > 0 and nq % nkv == 0,
+           f"{name}: need nq divisible by nkv, got nq={nq} nkv={nkv}")
+    _check(hd % 8 == 0 and hdv % 8 == 0 and 0 < hd <= 768
+           and 0 < hdv <= 512,
+           f"{name}: head dims must be multiples of 8, keys up to 768 and "
+           f"values up to 512, got {hd}/{hdv}")
+    _check(all(t.shape == (b,) for t in lengths),
+           f"{name}: (B,) = ({b},) lengths expected")
+    return nkv, hd, hdv
+
+
+def flash_chunk(q, k, v, q_offset, q_len, kv_len, *, scale=None):
+    """Ragged causal attention on a dense cache.  q (B, sq, nq, hd);
+    k (B, S, nkv, hd); v (B, S, nkv, hdv); q_offset / q_len / kv_len (B,)
+    int32 -> (B, sq, nq, hdv) in q's dtype.  Contract:
+    ``ref.flash_chunk_ref``."""
+    name = "flash_chunk"
+    lengths = (q_offset, q_len, kv_len)
+    dev = _check_same_device(q, k, v, *lengths)
+    _check_contiguous(name, q, k, v, *lengths)
+    nkv, hd, hdv = _check_attention(name, q, k, v, lengths)
+    b, sq, nq, _ = q.shape
+    _check(k.shape[0] == b, f"{name}: K/V batch {k.shape[0]} != q batch {b}")
+    scale = float(hd ** -0.5 if scale is None else scale)
+    if dev.type == "cpu":
+        return ref.flash_chunk_ref(q, k, v, q_offset, q_len, kv_len, scale)
+    out = torch.empty(b, sq, nq, hdv, dtype=q.dtype, device=dev)
+    _launch(build.load().rt_flash_chunk, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), q_offset.data_ptr(), q_len.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), b, sq, nq, nkv, hd, hdv,
+            k.shape[1], scale, _DTYPES[q.dtype], _stream())
+    counters[name] += 1
+    return out
+
+
+def flash_decode(q, k, v, lengths, *, scale=None):
+    """Single-token decode attention.  q (B, nq, hd); k (B, S, nkv, hd);
+    v (B, S, nkv, hdv); lengths (B,) int32 -> (B, nq, hdv).
+
+    No kernel of its own: ``flash_chunk`` at sq == 1 under the decode
+    invariant (``q_offset = lengths - 1``, ``q_len = min(lengths, 1)``), so
+    a slot with ``lengths == 0`` gives an exact-zero row.  ``counters``
+    counts these calls under ``flash_decode`` beside the ``flash_chunk``
+    launch each makes.  Contract: ``ref.flash_decode_ref``."""
+    name = "flash_decode"
+    dev = _check_same_device(q, k, v, lengths)
+    _check(q.dim() == 3, f"{name}: q must be (B, nq, hd)")
+    _check_contiguous(name, q, k, v, lengths)
+    _check_attention(name, q[:, None], k, v, (lengths,))
+    if dev.type == "cpu":
+        return ref.flash_decode_ref(q, k, v, lengths, scale)
+    out = flash_chunk(q[:, None], k, v, (lengths - 1).clamp_min(0),
+                      lengths.clamp_max(1), lengths, scale=scale)[:, 0]
+    counters["flash_decode"] += 1
+    return out
+
+
 def flash_chunk_paged(q, k_pages, v_pages, block_tables, q_offset, q_len,
                       kv_len, *, scale=None):
     """Paged ragged causal attention.  q (B, sq, nq, hd); k_pages
@@ -79,29 +149,15 @@ def flash_chunk_paged(q, k_pages, v_pages, block_tables, q_offset, q_len,
     (B,) int32 -> (B, sq, nq, hdv) in q's dtype.  Contract:
     ``ref.flash_chunk_paged_ref``."""
     name = "flash_chunk_paged"
-    dev = _check_same_device(q, k_pages, v_pages, block_tables, q_offset,
-                             q_len, kv_len)
-    _check_float(name, q, k_pages, v_pages)
-    _check_int32(name, block_tables, q_offset, q_len, kv_len)
-    _check_contiguous(name, q, k_pages, v_pages, block_tables, q_offset,
-                      q_len, kv_len)
-    _check(q.dim() == 4 and k_pages.dim() == 4 and v_pages.dim() == 4,
-           f"{name}: q and the pools must be 4-d")
-    b, sq, nq, hd = q.shape
-    n_pages, page, nkv, hdk = k_pages.shape
-    hdv = v_pages.shape[-1]
-    _check(hdk == hd and v_pages.shape[:3] == k_pages.shape[:3],
-           f"{name}: pool shapes {tuple(k_pages.shape)} / "
-           f"{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
-    _check(nkv > 0 and nq % nkv == 0 and nq // nkv <= 64,
-           f"{name}: need nq divisible by nkv with at most 64 query heads "
-           f"per kv head, got nq={nq} nkv={nkv}")
-    _check(hd % 8 == 0 and hdv % 8 == 0 and hd <= 256 and hdv <= 256,
-           f"{name}: head dims must be multiples of 8 up to 256, "
-           f"got {hd}/{hdv}")
-    _check(block_tables.dim() == 2 and block_tables.shape[0] == b
-           and all(t.shape == (b,) for t in (q_offset, q_len, kv_len)),
-           f"{name}: block_tables (B, nb) and (B,) lengths expected")
+    lengths = (q_offset, q_len, kv_len)
+    dev = _check_same_device(q, k_pages, v_pages, block_tables, *lengths)
+    _check_int32(name, block_tables)
+    _check_contiguous(name, q, k_pages, v_pages, block_tables, *lengths)
+    nkv, hd, hdv = _check_attention(name, q, k_pages, v_pages, lengths)
+    b, sq, nq, _ = q.shape
+    n_pages, page = k_pages.shape[:2]
+    _check(block_tables.dim() == 2 and block_tables.shape[0] == b,
+           f"{name}: block_tables (B, nb) expected")
     scale = float(hd ** -0.5 if scale is None else scale)
     if dev.type == "cpu":
         return ref.flash_chunk_paged_ref(q, k_pages, v_pages, block_tables,
@@ -166,5 +222,56 @@ def grouped_gemm(x, w, group_offsets):
     return out
 
 
-__all__ = ["flash_chunk_paged", "topk_gate", "grouped_gemm", "counters",
+def permute_tokens(x, src_tok):
+    """x (T, h), src_tok (N,) int32 -> (N, h); ``src_tok[i] < 0`` yields a
+    zero row.  Contract: ``ref.permute_tokens_ref``."""
+    name = "permute_tokens"
+    dev = _check_same_device(x, src_tok)
+    _check_float(name, x)
+    _check_int32(name, src_tok)
+    _check_contiguous(name, x, src_tok)
+    _check(x.dim() == 2 and src_tok.dim() == 1,
+           f"{name}: need x (T, h) and src_tok (N,)")
+    if dev.type == "cpu":
+        return ref.permute_tokens_ref(x, src_tok)
+    t, h = x.shape
+    n = src_tok.shape[0]
+    out = torch.empty(n, h, dtype=x.dtype, device=dev)
+    _launch(build.load().rt_permute_tokens, x.data_ptr(), src_tok.data_ptr(),
+            out.data_ptr(), n, t, h, x.element_size(), _stream())
+    counters[name] += 1
+    return out
+
+
+def unpermute_tokens(buf, src_slot, weights):
+    """buf (M, h), src_slot (T, k) int32, weights (T, k) -> (T, h) in buf's
+    dtype: each token's k expert rows weighted and summed in float32, in
+    slot order; ``src_slot < 0`` adds 0.  The weights are cast to float32
+    here, as the reference wrapper does.  Contract:
+    ``ref.unpermute_tokens_ref``."""
+    name = "unpermute_tokens"
+    dev = _check_same_device(buf, src_slot, weights)
+    _check_float(name, buf)
+    _check_int32(name, src_slot)
+    _check(weights.is_floating_point(), f"{name}: weights must be float")
+    weights = weights.float().contiguous()
+    _check_contiguous(name, buf, src_slot)
+    _check(buf.dim() == 2 and src_slot.dim() == 2
+           and weights.shape == src_slot.shape,
+           f"{name}: need buf (M, h), src_slot and weights (T, k)")
+    if dev.type == "cpu":
+        return ref.unpermute_tokens_ref(buf, src_slot, weights)
+    m, h = buf.shape
+    t, k = src_slot.shape
+    _check(m > 0 or t == 0, f"{name}: empty buf with {t} tokens to combine")
+    out = torch.empty(t, h, dtype=buf.dtype, device=dev)
+    _launch(build.load().rt_unpermute_tokens, buf.data_ptr(),
+            src_slot.data_ptr(), weights.data_ptr(), out.data_ptr(), t, k, h,
+            m, _DTYPES[buf.dtype], _stream())
+    counters[name] += 1
+    return out
+
+
+__all__ = ["flash_chunk", "flash_decode", "flash_chunk_paged", "topk_gate",
+           "grouped_gemm", "permute_tokens", "unpermute_tokens", "counters",
            "reset_counters"]

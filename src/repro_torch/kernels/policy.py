@@ -1,26 +1,19 @@
 """KernelPolicy — which hand-written kernels the serving hot path uses.
 
 The policy rides on the ``ShardingPlan`` (core.partitioner) so it reaches
-every layer the plan reaches: ``models.layers.gqa_attention``
-(``flash_chunk``: the paged ragged attention kernel) and
-``models.moe.moe_local`` (``topk_gate``, ``moe_gemm`` = the dropless grouped
-GEMM).
+every layer the plan reaches: ``models.layers`` attention (``flash_chunk``:
+the paged kernel for GQA, the dense kernel for MLA's gathered latent view;
+``flash_decode``: the dense kernel at one query row) and
+``models.moe.moe_local`` (``topk_gate``; ``moe_gemm`` = the dropless grouped
+GEMM; ``fused_permute`` = the permute / unpermute kernels).
 
-``KernelPolicy.auto(device)`` turns the ported kernels on exactly when the
+``KernelPolicy.auto(device)`` turns every kernel on exactly when the
 engine's device is CUDA; on the CPU every stage runs its plain PyTorch body.
-``fused_permute`` and ``flash_decode`` have no Hopper kernel yet: asking for
-either on CUDA raises ``NotImplementedError`` instead of running a stand-in.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-# kernels with a Hopper port, and the ROADMAP item of each one still missing
-PORTED = ("flash_chunk", "topk_gate", "moe_gemm")
-NOT_PORTED = {"fused_permute": "ROADMAP B5/B6 (permute_tokens, "
-                               "unpermute_tokens)",
-              "flash_decode": "ROADMAP B2 (flash_chunk / flash_decode)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +21,7 @@ class KernelPolicy:
     """Per-kernel opt-in switches for the serving hot path."""
 
     flash_decode: bool = False    # single-token decode attention
-    flash_chunk: bool = False     # ragged mixed-chunk (paged) attention
+    flash_chunk: bool = False     # ragged mixed-chunk attention
     topk_gate: bool = False       # fused softmax+top-k router gate
     moe_gemm: bool = False        # dropless grouped expert GEMM
     fused_permute: bool = False   # fused token permute / unpermute+combine
@@ -40,8 +33,8 @@ class KernelPolicy:
 
     @classmethod
     def all_on(cls) -> "KernelPolicy":
-        """Every kernel that has a Hopper port."""
-        return cls(**{f: True for f in PORTED})
+        return cls(flash_decode=True, flash_chunk=True, topk_gate=True,
+                   moe_gemm=True, fused_permute=True)
 
     @classmethod
     def off(cls) -> "KernelPolicy":
@@ -70,16 +63,6 @@ class KernelPolicy:
             f"kernel policy must be 'auto'/'on'/'off' or a KernelPolicy, "
             f"got {value!r}")
 
-    def check_ported(self, device) -> None:
-        """Raise for a switch whose kernel has no Hopper port on CUDA."""
-        import torch
-        if torch.device(device).type != "cuda":
-            return
-        for name, item in NOT_PORTED.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"kernel {name!r} has no Hopper port yet: {item}")
-
     def describe(self) -> str:
         """Compact provenance-report form: all-on / off / the enabled set."""
         on = [f.name for f in dataclasses.fields(self)
@@ -91,4 +74,4 @@ class KernelPolicy:
 
 NULL_POLICY = KernelPolicy()
 
-__all__ = ["KernelPolicy", "NULL_POLICY", "PORTED", "NOT_PORTED"]
+__all__ = ["KernelPolicy", "NULL_POLICY"]

@@ -57,6 +57,45 @@ def grouped_gemm_ref(x, w, group_offsets):
     return out
 
 
+def flash_chunk_ref(q, k, v, q_offset, q_len, kv_len, scale=None):
+    """Ragged mixed-chunk attention on a dense cache.  q (B, sq, nq, hd);
+    k (B, S, nkv, hd); v (B, S, nkv, hdv); q_offset / q_len / kv_len (B,)
+    -> (B, sq, nq, hdv) in q's dtype.
+
+    Row r of slot i is a real query iff ``r < q_len[i]``, sits at position
+    ``q_offset[i] + r`` and sees keys ``pos <= q_offset[i] + r`` with
+    ``pos < kv_len[i]``.  Rows past ``q_len`` and rows with no visible key
+    are exact zeros.  ``scale`` defaults to ``hd ** -0.5``.  Arithmetic in
+    float32."""
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.reshape(b, sq, nkv, g, hd).float() * scale
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg, k.float())
+    row = torch.arange(sq, device=q.device)[None, :, None]
+    pos = torch.arange(skv, device=q.device)[None, None, :]
+    mask = ((row < q_len.long()[:, None, None])
+            & (pos < kv_len.long()[:, None, None])
+            & (pos <= q_offset.long()[:, None, None] + row))   # (b, sq, S)
+    s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1).masked_fill(~mask[:, None, None], 0.0)
+    o = torch.einsum("bhgqs,bshd->bqhgd", p, v.float())
+    return o.reshape(b, sq, nq, v.shape[-1]).to(q.dtype)
+
+
+def flash_decode_ref(q, k, v, lengths, scale=None):
+    """Single-token decode attention.  q (B, nq, hd); k (B, S, nkv, hd);
+    v (B, S, nkv, hdv); lengths (B,) -> (B, nq, hdv).
+
+    ``flash_chunk_ref`` at sq == 1 under the decode invariant: the query
+    sits at ``lengths - 1`` and sees ``lengths`` keys.  A slot with
+    ``lengths == 0`` gives an exact-zero row."""
+    lengths = lengths.to(torch.int32)
+    return flash_chunk_ref(q[:, None], k, v, (lengths - 1).clamp_min(0),
+                           lengths.clamp_max(1), lengths, scale)[:, 0]
+
+
 def flash_chunk_paged_ref(q, k_pages, v_pages, block_tables, q_offset,
                           q_len, kv_len, scale=None):
     """Paged ragged mixed-chunk attention.  q (B, sq, nq, hd);
@@ -64,32 +103,16 @@ def flash_chunk_paged_ref(q, k_pages, v_pages, block_tables, q_offset,
     block_tables (B, max_blocks) int32 (-1 = unallocated);
     q_offset / q_len / kv_len (B,) -> (B, sq, nq, hdv) in q's dtype.
 
-    Row r of slot i is a real query iff ``r < q_len[i]``, sits at position
-    ``q_offset[i] + r`` and sees keys ``pos <= q_offset[i] + r`` with
-    ``pos < kv_len[i]``; logical key ``t`` lives at
+    Logical key ``t`` of slot i lives at
     ``pages[block_tables[i, t // page], t % page]`` (-1 reads page 0, whose
-    keys lie past ``kv_len``).  Rows past ``q_len`` and rows with no visible
-    key are exact zeros.  Arithmetic in float32."""
-    b, sq, nq, hd = q.shape
+    keys lie past ``kv_len``); the gathered slot-major view then goes
+    through ``flash_chunk_ref``."""
+    b, nb = block_tables.shape
     n_pages, page = k_pages.shape[0], k_pages.shape[1]
-    nkv = k_pages.shape[2]
-    nb = block_tables.shape[1]
-    g = nq // nkv
-    scale = hd ** -0.5 if scale is None else scale
     bt = block_tables.long().clamp(0, n_pages - 1)
-    k = k_pages[bt].reshape(b, nb * page, nkv, hd).float()
-    v = v_pages[bt].reshape(b, nb * page, nkv, v_pages.shape[-1]).float()
-    qg = q.reshape(b, sq, nkv, g, hd).float() * scale
-    s = torch.einsum("bqhgd,bshd->bhgqs", qg, k)
-    row = torch.arange(sq, device=q.device)[None, :, None]
-    pos = torch.arange(nb * page, device=q.device)[None, None, :]
-    mask = ((row < q_len.long()[:, None, None])
-            & (pos < kv_len.long()[:, None, None])
-            & (pos <= q_offset.long()[:, None, None] + row))   # (b, sq, S)
-    s = s.masked_fill(~mask[:, None, None], NEG_INF)
-    p = torch.softmax(s, dim=-1).masked_fill(~mask[:, None, None], 0.0)
-    o = torch.einsum("bhgqs,bshd->bqhgd", p, v)
-    return o.reshape(b, sq, nq, v.shape[-1]).to(q.dtype)
+    k = k_pages[bt].reshape(b, nb * page, *k_pages.shape[2:])
+    v = v_pages[bt].reshape(b, nb * page, *v_pages.shape[2:])
+    return flash_chunk_ref(q, k, v, q_offset, q_len, kv_len, scale)
 
 
 def permute_tokens_ref(x, src_tok):
@@ -110,5 +133,5 @@ def unpermute_tokens_ref(buf, src_slot, weights):
 
 
 __all__ = ["top_k_first", "topk_gate_ref", "grouped_gemm_ref",
-           "flash_chunk_paged_ref", "permute_tokens_ref",
-           "unpermute_tokens_ref"]
+           "flash_chunk_ref", "flash_decode_ref", "flash_chunk_paged_ref",
+           "permute_tokens_ref", "unpermute_tokens_ref"]

@@ -1,13 +1,20 @@
-"""Transformer layer substrate (GQA subset): norms, RoPE, attention, MLP.
+"""Transformer layer substrate: norms, RoPE, attention (GQA and MLA), MLP.
 
 The cache-backed attention here is the paged unified step: slot ``i``
 contributes its first ``q_lens[i]`` query rows at cache offset
-``length[i]``, its K/V rows are written into the page pools through its
-block table, and attention reads the pools through the same table — with
-``KernelPolicy.flash_chunk`` via the hand-written ``flash_chunk_paged``
-kernel, otherwise via the plain ``chunked_attention`` /
-``decode_attention`` bodies on a gathered slot-major view (the reference's
-kernels-off routing, kept so the two packages compare like for like).
+``length[i]``, its new cache rows are written into the page pools through
+its block table, and attention reads the pools through the same table.
+
+* GQA (``gqa_attention``): with ``KernelPolicy.flash_chunk`` via the
+  hand-written ``flash_chunk_paged`` kernel, otherwise via the plain
+  ``chunked_attention`` / ``decode_attention`` bodies on a gathered
+  slot-major view (the reference's kernels-off routing, kept so the two
+  packages compare like for like).
+* MLA (``mla_attention``): the latent pools ``(P, page, r)`` and
+  ``(P, page, rd)`` are gathered into a slot-major view, as the reference
+  does, and attention runs on it through ``chunked_attention`` (policy
+  ``flash_chunk``: the dense ``flash_chunk`` kernel) or, for a width-1 step
+  in the absorbed regime, ``decode_attention`` (policy ``flash_decode``).
 
 Layouts follow the reference at every public function: activations
 ``(b, s, ...)``, ``wq (h, nq, hd)``, ``wo (nq, hd, h)``, pools
@@ -99,14 +106,26 @@ def _masked_softmax_av(q, k, v, mask, scale):
 
 
 def chunked_attention(q, k, v, *, q_offset, kv_len, causal: bool = True,
-                      scale: Optional[float] = None):
+                      scale: Optional[float] = None,
+                      policy: Optional[KernelPolicy] = None):
     """q (b, sq, nq, hd); k, v (b, skv, nkv, hd[v]); ``q_offset``/``kv_len``
     (b,) per-slot vectors (the unified mixed step).  Row r of slot i sits at
     position ``q_offset[i] + r`` and sees keys ``pos < kv_len[i]`` (and
-    ``pos <= q_offset[i] + r`` when causal)."""
+    ``pos <= q_offset[i] + r`` when causal).
+
+    ``policy.flash_chunk`` routes the causal case through the dense
+    ``flash_chunk`` kernel with ``q_len = kv_len - q_offset``; its rows
+    past ``q_len`` come back as exact zeros instead of finite garbage."""
     b, sq, _, hd = q.shape
     skv = k.shape[1]
     scale = scale if scale is not None else hd ** -0.5
+    if policy is not None and policy.flash_chunk and causal:
+        from repro_torch.kernels import ops as _kops
+        off = q_offset.to(torch.int32).contiguous()
+        lens = kv_len.to(torch.int32).contiguous()
+        return _kops.flash_chunk(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), off, lens - off, lens,
+                                 scale=float(scale))
     q_pos = q_offset[:, None].long() + torch.arange(sq, device=q.device)
     k_pos = torch.arange(skv, device=q.device)
     mask = (k_pos[None, None, :] < kv_len[:, None, None].long()) \
@@ -121,13 +140,19 @@ def decode_attention(q, k, v, *, kv_len, q_positions,
                      policy: Optional[KernelPolicy] = None):
     """One-step attention: q (b, 1, nq, hd) vs cache k/v (b, S, nkv, hd[v]);
     ``kv_len`` (b,) masks slots >= length, ``q_positions`` (b, 1) gives the
-    query's absolute position.  ``policy.flash_decode`` has no Hopper port
-    yet: on CUDA it raises instead of running a stand-in."""
-    if policy is not None and policy.flash_decode and q.is_cuda:
-        raise NotImplementedError(
-            "flash_decode has no Hopper port yet: ROADMAP B2")
+    query's absolute position.
+
+    ``policy.flash_decode`` routes through ``ops.flash_decode`` (the dense
+    ``flash_chunk`` kernel at one row), whose length mask assumes the
+    decode invariant ``q_position == kv_len - 1`` that the callers keep; a
+    slot with ``kv_len == 0`` comes back as an exact-zero row."""
     skv = k.shape[1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if policy is not None and policy.flash_decode and q.shape[1] == 1:
+        from repro_torch.kernels import ops as _kops
+        return _kops.flash_decode(
+            q[:, 0].contiguous(), k.contiguous(), v.contiguous(),
+            kv_len.to(torch.int32).contiguous(), scale=float(scale))[:, None]
     k_pos = torch.arange(skv, device=q.device)
     mask = (k_pos[None, None, :] < kv_len[:, None, None].long()) \
         & (k_pos[None, None, :] <= q_positions[:, :, None])
@@ -249,6 +274,107 @@ def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
 
 
 # ---------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention) — DeepSeek-V2 / MiniCPM3, paged latent
+# ---------------------------------------------------------------------------
+
+def mla_spec(cfg: ModelConfig) -> dict:
+    h, nh, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    r, qr, rd, vd = (cfg.kv_lora_rank, cfg.q_lora_rank or cfg.d_model,
+                     cfg.rope_head_dim, cfg.v_head_dim)
+    return {
+        "w_dq": P((h, qr), ("embed", "qk")),
+        "q_norm": P((qr,), ("qk",), init="zeros"),
+        "w_uq": P((qr, nh, hd + rd), ("qk", "heads", "head_dim")),
+        "w_dkv": P((h, r), ("embed", "qk")),
+        "kv_norm": P((r,), ("qk",), init="zeros"),
+        "w_kr": P((h, rd), ("embed", None)),
+        "w_uk": P((r, nh, hd), ("qk", "heads", "head_dim")),
+        "w_uv": P((r, nh, vd), ("qk", "heads", "head_dim")),
+        "wo": P((nh, vd, h), ("heads", "head_dim", "embed")),
+        "norm": P((h,), ("embed",), init="zeros"),
+    }
+
+
+def _mla_qkr(p, x, cfg: ModelConfig, positions):
+    """Shared query path + rope'd latent key: (q_nope (b, s, nh, hd),
+    q_rope (b, s, nh, rd), latent c (b, s, r), k_rope (b, s, rd))."""
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    ql = rms_norm(xn @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = _proj_heads(ql, p["w_uq"])
+    q_nope, q_rope = q[..., :cfg.head_dim], q[..., cfg.head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c = rms_norm(xn @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope((xn @ p["w_kr"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c, k_rope
+
+
+def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
+                  cache, q_lens, block_table, positions=None,
+                  absorb: Optional[bool] = None):
+    """MLA attention on the paged unified step.  x (b, s, h); ``cache`` =
+    (c_pool (P, page, r), kr_pool (P, page, rd), length (b,)); slot i
+    contributes the first q_lens[i] of its s rows at offset ``length[i]``.
+    Returns (out (b, s, h), (c_pool, kr_pool)) — the pools are updated in
+    place.
+
+    The latent pools are gathered into a slot-major view through
+    ``block_table`` (the latent is rank-r compressed, so the gather is
+    cheap).  ``absorb=None`` auto-selects the regime, as the reference does:
+      s > 1   expanded — K/V up-projected per head from the whole latent
+              view, standard attention (hd + rd keys, vd values per head)
+      s == 1  absorbed — w_uk folded into q and w_uv into the output, so
+              attention runs in the latent space: one kv head of r + rd
+              key dims and r value dims shared by every query head.
+    Both regimes use scale ``(hd + rd) ** -0.5``."""
+    if cache is None or block_table is None or q_lens is None:
+        raise NotImplementedError(
+            "the port's MLA serves the paged unified step only (latent "
+            "pools with block tables + q_lens)")
+    b, s, h = x.shape
+    nh, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    if absorb is None:
+        absorb = s == 1
+    c_pool, kr_pool, idx = cache
+    if positions is None:
+        positions = positions_from(idx, s)
+    q_nope, q_rope, c, k_rope = _mla_qkr(p, x, cfg, positions)
+    cc = write_cache_paged(c_pool, c, idx, block_table, q_lens)
+    krc = write_cache_paged(kr_pool, k_rope, idx, block_table, q_lens)
+    src_c = gather_pages(cc, block_table)          # (b, skv, r)
+    src_kr = gather_pages(krc, block_table)        # (b, skv, rd)
+    skv = src_c.shape[1]
+    kv_len = idx + q_lens
+    scale = (hd + rd) ** -0.5
+    pol = plan.kernels
+    if not absorb:
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([_proj_heads(src_c, p["w_uk"]),
+                       src_kr[:, :, None].expand(b, skv, nh, rd)], dim=-1)
+        v = _proj_heads(src_c, p["w_uv"])
+        out = chunked_attention(q, k, v, q_offset=idx, kv_len=kv_len,
+                                causal=True, scale=scale, policy=pol)
+    else:
+        q_lat = torch.einsum("bsnd,rnd->bsnr", q_nope, p["w_uk"])
+        q_full = torch.cat([q_lat, q_rope], dim=-1)      # (b, s, nh, r+rd)
+        # latent "keys" = [c ; k_rope], latent "values" = c (one kv head)
+        k_lat = torch.cat([src_c, src_kr], dim=-1)[:, :, None]
+        v_lat = src_c[:, :, None]
+        if s == 1:
+            o_lat = decode_attention(q_full, k_lat, v_lat, kv_len=kv_len,
+                                     q_positions=positions_from(idx, s),
+                                     scale=scale, policy=pol)
+        else:
+            o_lat = chunked_attention(q_full, k_lat, v_lat, q_offset=idx,
+                                      kv_len=kv_len, causal=True,
+                                      scale=scale, policy=pol)
+        out = torch.einsum("bsnr,rnd->bsnd", o_lat, p["w_uv"])
+    nv = out.shape[2] * out.shape[3]
+    out = (out.reshape(b * s, nv) @ p["wo"].reshape(nv, h)).reshape(b, s, h)
+    return plan.constrain(out, "batch", "seq_resid", "embed"), (cc, krc)
+
+
+# ---------------------------------------------------------------------------
 # Dense MLP (SwiGLU / GeGLU / GELU)
 # ---------------------------------------------------------------------------
 
@@ -276,6 +402,6 @@ def mlp(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN):
 __all__ = [
     "rms_norm", "activate", "rope_freqs", "apply_rope", "positions_from",
     "chunked_attention", "decode_attention", "write_cache_paged",
-    "gather_pages", "KVView", "gqa_spec", "gqa_attention", "mlp_spec", "mlp",
-    "NEG_INF",
+    "gather_pages", "KVView", "gqa_spec", "gqa_attention", "mla_spec",
+    "mla_attention", "mlp_spec", "mlp", "NEG_INF",
 ]

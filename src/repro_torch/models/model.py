@@ -1,16 +1,18 @@
-"""Decoder for the GQA dense and MoE families (the serving main path).
+"""Decoder for the dense and MoE families (the serving main path).
 
 One ``ModelConfig`` + this module = a runnable model for the families the
-port serves so far:
-  dense   GQA attention + dense MLP          (smollm-360m, ...)
-  moe     GQA attention + dropless MoE       (phi3.5-moe-42b)
+port serves so far, each with GQA or MLA attention:
+  dense   attention + dense MLP          (smollm-360m, minicpm3-4b, ...)
+  moe     attention + dropless MoE       (phi3.5-moe-42b, deepseek-v2-236b)
 
 The reference stacks each homogeneous layer group on a leading axis and
 scans it; the port keeps one parameter dict per layer and loops.  The cache
-is the paged pool (``init_paged_cache``): per group, K/V pools of shape
-``(count, pool_pages, page, nkv, hd)`` plus per-slot ``length`` and
-``block_tables``.  ``forward`` runs the unified mixed prefill/decode step on
-it and updates the pools and ``length`` IN PLACE.
+is the paged pool (``init_paged_cache``): per group, pools with a leading
+``(count, pool_pages, page)`` — K/V ``(..., nkv, hd)`` for GQA, the latent
+``c (..., kv_lora_rank)`` and ``kr (..., rope_head_dim)`` for MLA — plus
+per-slot ``length`` and ``block_tables``.  ``forward`` runs the unified
+mixed prefill/decode step on it and updates the pools and ``length`` IN
+PLACE.
 """
 
 from __future__ import annotations
@@ -56,9 +58,9 @@ def layer_plan(cfg: ModelConfig) -> tuple[Group, ...]:
 
 def _check_supported(cfg: ModelConfig) -> None:
     layer_plan(cfg)
-    if cfg.attention != "gqa":
+    if cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.attention} attention is not ported yet (ROADMAP A6)")
+            f"{cfg.attention} attention is not ported yet (ROADMAP A10)")
     if cfg.frontend or cfg.mrope:
         raise NotImplementedError(
             "frontend / M-RoPE models are not ported yet (ROADMAP A10)")
@@ -69,10 +71,11 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def sublayer_spec(cfg: ModelConfig, kind: str) -> dict:
+    attn = L.mla_spec(cfg) if cfg.attention == "mla" else L.gqa_spec(cfg)
     if kind == "dense":
-        return {"attn": L.gqa_spec(cfg), "mlp": L.mlp_spec(cfg)}
+        return {"attn": attn, "mlp": L.mlp_spec(cfg)}
     if kind == "moe":
-        return {"attn": L.gqa_spec(cfg), "moe": MOE.moe_spec(cfg)}
+        return {"attn": attn, "moe": MOE.moe_spec(cfg)}
     raise KeyError(kind)
 
 
@@ -108,9 +111,11 @@ def count_params(cfg: ModelConfig) -> int:
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      page_size: int, pool_pages: int, dtype=torch.bfloat16,
                      device="cuda"):
-    """Paged KV cache: per-group K/V *pools* + per-slot block tables.
+    """Paged KV cache: per-group *pools* + per-slot block tables.
 
-    Pools are ``(count, pool_pages, page_size, nkv, hd)``; ``block_tables``
+    Pools are ``k``/``v`` ``(count, pool_pages, page_size, nkv, hd)`` for
+    GQA, the latent ``c`` ``(count, pool_pages, page_size, kv_lora_rank)``
+    and ``kr`` ``(..., rope_head_dim)`` for MLA; ``block_tables``
     (batch, max_len // page_size) int32 maps a slot's logical block to its
     physical page (-1 = unallocated); ``length`` (batch,) int32 holds the
     per-slot cache offsets.  The host allocator
@@ -119,12 +124,13 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     if max_len % page_size:
         raise ValueError(f"page_size {page_size} must divide "
                          f"max_len {max_len}")
-    nkv, hd = cfg.n_kv_heads, cfg.head_dim
-    groups = []
-    for g in layer_plan(cfg):
-        shape = (g.count, pool_pages, page_size, nkv, hd)
-        groups.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    if cfg.attention == "mla":
+        tails = {"c": (cfg.kv_lora_rank,), "kr": (cfg.rope_head_dim,)}
+    else:
+        tails = {n: (cfg.n_kv_heads, cfg.head_dim) for n in ("k", "v")}
+    groups = [{n: torch.zeros((g.count, pool_pages, page_size) + tail,
+                              dtype=dtype, device=device)
+               for n, tail in tails.items()} for g in layer_plan(cfg)]
     return {"groups": groups,
             "length": torch.zeros(batch, dtype=torch.int32, device=device),
             "block_tables": torch.full((batch, max_len // page_size), -1,
@@ -139,12 +145,18 @@ def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
                    plan: ShardingPlan, positions, length, q_lens,
                    block_tables, with_stats: bool = False):
     """One residual layer of the unified step.  ``c`` holds this layer's
-    K/V pools.  Returns (x, aux, counts): ``counts`` is the per-expert
-    routed-slot vector (zeros for dense layers) when ``with_stats``, else
-    None."""
-    kv = L.KVView(c["k"], c["v"], length, block_tables)
-    a_out, _ = L.gqa_attention(p["attn"], x, cfg, plan, cache=kv,
-                               q_lens=q_lens, positions=positions)
+    pools (K/V, or MLA's latent c/kr).  Returns (x, aux, counts): ``counts``
+    is the per-expert routed-slot vector (zeros for dense layers) when
+    ``with_stats``, else None."""
+    if cfg.attention == "mla":
+        a_out, _ = L.mla_attention(p["attn"], x, cfg, plan,
+                                   cache=(c["c"], c["kr"], length),
+                                   q_lens=q_lens, block_table=block_tables,
+                                   positions=positions)
+    else:
+        kv = L.KVView(c["k"], c["v"], length, block_tables)
+        a_out, _ = L.gqa_attention(p["attn"], x, cfg, plan, cache=kv,
+                                   q_lens=q_lens, positions=positions)
     x = x + a_out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     counts = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
@@ -213,7 +225,7 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     for gi, g in enumerate(layer_plan(cfg)):
         pools = cache["groups"][gi]
         for li, p_l in enumerate(params["groups"][gi]):
-            c_l = {"k": pools["k"][li], "v": pools["v"][li]}
+            c_l = {n: pool[li] for n, pool in pools.items()}
             x, a, cnt = apply_sublayer(
                 g.kind, p_l, x, c_l, cfg=cfg, plan=plan, positions=positions,
                 length=length, q_lens=q_lens, block_tables=block_tables,

@@ -10,10 +10,10 @@ count-independent).
 
 Kernels (``KernelPolicy`` on the plan): ``topk_gate`` runs the router's
 softmax + top-k as one kernel, ``moe_gemm`` the three grouped GEMMs
-(``w_in``, ``w_gate``, ``w_out``).  The gather into expert order and the
-weighted combine run as plain tensor code; their fused kernels
-(``fused_permute``) are not ported yet and raise on CUDA.  Capacity
-dispatch and the multi-device EP paths are later slices (ROADMAP A8, A9).
+(``w_in``, ``w_gate``, ``w_out``), ``fused_permute`` the gather into expert
+order (``permute_tokens``) and the weighted combine (``unpermute_tokens``).
+Capacity dispatch and the multi-device EP paths are later slices (ROADMAP
+A8, A9).
 """
 
 from __future__ import annotations
@@ -121,23 +121,20 @@ def make_dropless(idx, weights, n_experts: int) -> DroplessInfo:
                         weights=weights.reshape(-1))
 
 
-def _no_fused_permute(x, use_kernel: bool):
-    if use_kernel and x.is_cuda:
-        raise NotImplementedError(
-            "fused permute/unpermute have no Hopper port yet: "
-            "ROADMAP B5/B6")
-
-
 def gather_rows(x, src, use_kernel: bool = False):
     """x (M, h), src (N,) int32 -> (N, h); src < 0 yields a 0 row."""
-    _no_fused_permute(x, use_kernel)
+    if use_kernel:
+        from repro_torch.kernels import ops as _kops
+        return _kops.permute_tokens(x, src)
     return _kref.permute_tokens_ref(x, src)
 
 
 def combine_rows(buf, src_slot, weights, use_kernel: bool = False):
     """buf (M, h), src_slot (T, k), weights (T, k) -> (T, h) weighted sum,
     accumulated in float32."""
-    _no_fused_permute(buf, use_kernel)
+    if use_kernel:
+        from repro_torch.kernels import ops as _kops
+        return _kops.unpermute_tokens(buf, src_slot, weights)
     return _kref.unpermute_tokens_ref(buf, src_slot, weights)
 
 

@@ -142,7 +142,6 @@ class Engine:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP A7)")
         self.device = resolve_device(device)
-        spec.plan.kernels.check_ported(self.device)
         self.spec = spec
         self.cfg, self.params, self.plan = cfg, params, spec.plan
         self.max_batch, self.max_len = spec.max_batch, spec.max_len

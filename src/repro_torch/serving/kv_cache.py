@@ -20,8 +20,8 @@ The device tensors are defined by ``repro_torch.models.model``
 
 The device state is updated in place: ``begin``/``free`` write the slot's
 ``length`` entry, ``flush`` copies the host block tables to the device only
-when they changed.  The dense per-slot backend waits for the dense
-attention kernel (ROADMAP B2): ``kv="dense"`` raises.
+when they changed.  The dense per-slot backend is not ported yet (ROADMAP
+A5): ``kv="dense"`` raises.
 """
 
 from __future__ import annotations
@@ -270,8 +270,8 @@ def make_kv_cache(cfg: ModelConfig, kv: Optional[KVConfig], batch: int,
     """Construct the backend a resolved ``ServeSpec.kv`` asks for."""
     if kv is None or kv.backend == "dense":
         raise NotImplementedError(
-            "kv='dense' needs the dense flash_chunk kernel, not ported yet "
-            "(ROADMAP B2) — use kv='paged' or kv='auto'")
+            "kv='dense' (the per-slot dense backend) is not ported yet "
+            "(ROADMAP A5) — use kv='paged' or kv='auto'")
     ps = kv.page_size           # resolver-matching fallback: halve until
     while ps > 1 and max_len % ps:     # the page divides max_len
         ps //= 2

@@ -5,8 +5,8 @@ only the port is installed:
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: float32 to 1e-4; bf16 to one bf16 rounding step of the f32
-result (atol 1e-2, rtol 1.6e-2); top-k ids exactly; every exact-zero
-contract exactly.
+result (atol 1e-2, rtol 1.6e-2); top-k ids, permuted rows and every
+exact-zero contract exactly; dense and paged attention bitwise equal.
 """
 
 import pytest
@@ -88,3 +88,101 @@ def test_wrapper_refuses_mixed_devices(dev):
     w = torch.randn(2, 16, 4)
     with pytest.raises(ValueError, match="one device"):
         ops.grouped_gemm(x, w, torch.tensor([0, 3, 8], dtype=torch.int32))
+
+
+# (name, B, sq, nq, nkv, hd, hdv): GQA, MLA expanded (g = 1, hd != hdv) and
+# MLA absorbed (nkv = 1, g = 128 split across CTAs, hd 576 / hdv 512)
+ATTN_CASES = [("gqa", 4, 8, 12, 4, 64, 64),
+              ("mla_expanded", 4, 8, 4, 4, 192, 128),
+              ("mla_absorbed", 4, 3, 128, 1, 576, 512)]
+
+
+def _dense_case(dev, dt, b, sq, nq, nkv, hd, hdv, skv=40):
+    """A mixed step: mid-prompt chunk, decode, idle slot (q_len 0), live
+    rows with kv_len 0."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    q = torch.randn(b, sq, nq, hd, generator=g).to(dev, dt)
+    k = torch.randn(b, skv, nkv, hd, generator=g).to(dev, dt)
+    v = torch.randn(b, skv, nkv, hdv, generator=g).to(dev, dt)
+    i32 = dict(dtype=torch.int32, device=dev)
+    q_off = torch.tensor([30, 37, 0, 0], **i32)[:b]
+    q_len = torch.tensor([sq, 1, 0, 2], **i32)[:b]
+    kv_len = torch.tensor([30 + sq, 38, 0, 0], **i32)[:b]
+    return q, k, v, q_off, q_len, kv_len
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
+def test_flash_chunk_on_card(dev, dtype, case):
+    dt = getattr(torch, dtype)
+    args = _dense_case(dev, dt, *case[1:])
+    ops.reset_counters()
+    got = ops.flash_chunk(*args, scale=0.07)
+    want = ref.flash_chunk_ref(*args, 0.07)
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    q_len = args[4].tolist()
+    for i, n in enumerate(q_len):
+        assert (got[i, n:] == 0).all()
+    assert (got[3] == 0).all()                   # kv_len == 0
+    assert ops.counters["flash_chunk"] == 1
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
+def test_flash_chunk_paged_equals_dense_bitwise(dev, case):
+    """The paged pools gathered through the tables are the dense cache: one
+    device body, so the two outputs are equal bit for bit."""
+    _, b, sq, nq, nkv, hd, hdv = case
+    q, k, v, q_off, q_len, kv_len = _dense_case(dev, torch.bfloat16, b, sq,
+                                                nq, nkv, hd, hdv, skv=48)
+    page, nb = 16, 3
+    perm = torch.randperm(b * nb, generator=torch.Generator().manual_seed(2))
+    bt = perm.reshape(b, nb).to(dev, torch.int32)
+    kp = torch.empty(b * nb, page, nkv, hd, dtype=k.dtype, device=dev)
+    vp = torch.empty(b * nb, page, nkv, hdv, dtype=v.dtype, device=dev)
+    kp[bt.long()] = k.reshape(b, nb, page, nkv, hd)
+    vp[bt.long()] = v.reshape(b, nb, page, nkv, hdv)
+    dense = ops.flash_chunk(q, k, v, q_off, q_len, kv_len)
+    paged = ops.flash_chunk_paged(q, kp, vp, bt, q_off, q_len, kv_len)
+    assert torch.equal(dense, paged)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_on_card(dev, dtype):
+    """The absorbed MLA shape; a slot of length 0 is an exact-zero row."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn(3, 128, 576, generator=g).to(dev, dt)
+    k = torch.randn(3, 64, 1, 576, generator=g).to(dev, dt)
+    v = k[..., :512].contiguous()
+    lens = torch.tensor([64, 0, 17], dtype=torch.int32, device=dev)
+    ops.reset_counters()
+    got = ops.flash_decode(q, k, v, lens, scale=192 ** -0.5)
+    want = ref.flash_decode_ref(q, k, v, lens, 192 ** -0.5)
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert (got[1] == 0).all()
+    assert ops.counters["flash_decode"] == ops.counters["flash_chunk"] == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [5120, 36])   # 16-byte rows; element-wise
+def test_permute_and_unpermute_on_card(dev, dtype, h):
+    dt = getattr(torch, dtype)
+    x = torch.randn(50, h, device=dev).to(dt)
+    src = torch.randint(0, 50, (120,), dtype=torch.int32, device=dev)
+    src[::7] = -1
+    got = ops.permute_tokens(x, src)
+    assert torch.equal(got, ref.permute_tokens_ref(x, src))
+    assert (got[::7] == 0).all()
+    slot = torch.randint(0, 120, (50, 6), dtype=torch.int32, device=dev)
+    slot[::5, 2] = -1
+    w = torch.rand(50, 6, device=dev).to(dt)
+    out = ops.unpermute_tokens(got, slot, w)
+    want = ref.unpermute_tokens_ref(got, slot, w)
+    atol, rtol = (1e-5, 1e-5) if dt == torch.float32 else _tol(dt)
+    assert out.dtype == dt
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)

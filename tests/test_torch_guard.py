@@ -61,7 +61,7 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 def test_unported_options_raise():
     from repro_torch.kernels.policy import KernelPolicy
     from repro_torch.serving.api import LLM, ServeSpec
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(NotImplementedError, match="A5"):
         LLM.from_spec(ServeSpec(arch="smollm-360m", kv="dense", max_batch=1,
                                 max_len=64, chunk=8), device="cpu")
     with pytest.raises(NotImplementedError, match="A7"):

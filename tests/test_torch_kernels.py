@@ -1,5 +1,7 @@
 """The port's kernels: plain versions against the reference's oracles and
-its interpret-mode Pallas kernels, and the wrappers' checks.  The CUDA
+its interpret-mode Pallas kernels (flash_chunk_paged, flash_chunk,
+flash_decode, topk_gate, grouped_gemm, permute_tokens, unpermute_tokens),
+and the wrappers' checks.  The CUDA
 kernels themselves are held against these plain versions on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 
@@ -111,6 +113,122 @@ def test_permute_and_combine_plain_match_reference():
         rtol=RTOL, atol=ATOL)
 
 
+def _dense_case(b, sq, nq, nkv, hd, hdv, skv=20, seed=0):
+    """A mixed step on a dense cache: slot 0 prefills mid-prompt, slot 1
+    decodes, slot 2 is idle (q_len 0), slot 3 has live rows but kv_len 0."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, nq, hd)).astype(np.float32)
+    k = rng.standard_normal((b, skv, nkv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, skv, nkv, hdv)).astype(np.float32)
+    q_off = np.array([9, 15, 0, 0], np.int32)[:b]
+    q_len = np.array([sq, 1, 0, 2], np.int32)[:b]
+    kv_len = np.array([9 + sq, 16, 0, 0], np.int32)[:b]
+    return q, k, v, q_off, q_len, kv_len
+
+
+# (B, sq, nq, nkv, hd, hdv): GQA (g = 3); MLA absorbed-like (nkv = 1,
+# hd != hdv); MLA expanded-like (g = 1, hd != hdv)
+DENSE_CASES = {"gqa": (4, 6, 6, 2, 16, 16),
+               "absorbed": (4, 3, 8, 1, 24, 16),
+               "expanded": (4, 6, 4, 4, 24, 16)}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_CASES))
+def test_flash_chunk_plain_matches_reference(case):
+    args = _dense_case(*DENSE_CASES[case])
+    got = ref.flash_chunk_ref(*map(tt, args), 0.3).numpy()
+    want_ref = np.asarray(rref.flash_chunk_ref(*map(jj, args), 0.3))
+    want_ker = np.asarray(rops.flash_chunk(*map(jj, args), scale=0.3,
+                                           bq=4, bs=8))
+    np.testing.assert_allclose(got, want_ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, want_ker, rtol=RTOL, atol=ATOL)
+    q_len = args[4]
+    for i in range(len(q_len)):
+        assert (got[i, q_len[i]:] == 0).all()      # rows past q_len
+    assert (got[3] == 0).all()                     # kv_len == 0
+
+
+@pytest.mark.parametrize("case", ["gqa", "absorbed"])
+def test_flash_decode_plain_matches_reference(case):
+    """The decode wrapper's contract on lengths (a 0 gives an exact-zero
+    row, as the reference's kernel does; its jnp oracle has no such row)."""
+    b, _, nq, nkv, hd, hdv = DENSE_CASES[case]
+    q, k, v, *_ = _dense_case(b, 1, nq, nkv, hd, hdv, seed=1)
+    q = q[:, 0]
+    lens = np.array([20, 0, 1, 7], np.int32)
+    got = ref.flash_decode_ref(tt(q), tt(k), tt(v), tt(lens)).numpy()
+    want_ker = np.asarray(rops.flash_decode(jj(q), jj(k), jj(v), jj(lens),
+                                            bs=8))
+    want_ref = np.asarray(rref.flash_decode_ref(jj(q), jj(k), jj(v),
+                                                jj(lens)))
+    np.testing.assert_allclose(got, want_ker, rtol=RTOL, atol=ATOL)
+    live = lens > 0
+    np.testing.assert_allclose(got[live], want_ref[live], rtol=RTOL,
+                               atol=ATOL)
+    assert (got[1] == 0).all()
+
+
+def test_dense_and_decode_wrappers_cpu_are_plain_and_uncounted():
+    args = tuple(map(tt, _dense_case(*DENSE_CASES["absorbed"])))
+    ops.reset_counters()
+    got = ops.flash_chunk(*args, scale=0.25)
+    torch.testing.assert_close(got, ref.flash_chunk_ref(*args, 0.25),
+                               rtol=0, atol=0)
+    q, k, v = args[0][:, 0].contiguous(), args[1], args[2]
+    lens = torch.tensor([5, 0, 20, 1], dtype=torch.int32)
+    torch.testing.assert_close(ops.flash_decode(q, k, v, lens),
+                               ref.flash_decode_ref(q, k, v, lens),
+                               rtol=0, atol=0)
+    assert not ops.counters
+
+
+def test_flash_chunk_paged_plain_is_dense_on_gathered_pages():
+    """The paged contract is the dense one on the gathered slot view."""
+    q, kp, vp, bt, q_off, q_len, kv_len = map(tt, _flash_case(2))
+    n_pages, page = kp.shape[:2]
+    b, nb = bt.shape
+    idx = bt.long().clamp(0, n_pages - 1)
+    k = kp[idx].reshape(b, nb * page, *kp.shape[2:])
+    v = vp[idx].reshape(b, nb * page, *vp.shape[2:])
+    torch.testing.assert_close(
+        ref.flash_chunk_paged_ref(q, kp, vp, bt, q_off, q_len, kv_len),
+        ref.flash_chunk_ref(q, k, v, q_off, q_len, kv_len), rtol=0, atol=0)
+
+
+def test_permute_and_combine_plain_match_reference_kernels():
+    """Against the reference's interpret-mode Pallas kernels, with -1
+    entries in both index vectors."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((7, 16)).astype(np.float32)
+    src = np.array([6, -1, 0, 2, 2, -1, 5, 1, 3], np.int32)
+    got = ref.permute_tokens_ref(tt(x), tt(src)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(rops.permute_tokens(jj(x), jj(src), bn=4)))
+    assert (got[[1, 5]] == 0).all()
+    slot = np.array([[0, 8, 3], [1, -1, 4], [-1, -1, -1], [7, 2, 6]],
+                    np.int32)
+    wts = rng.random((4, 3)).astype(np.float32)
+    out = ref.unpermute_tokens_ref(tt(got), tt(slot), tt(wts)).numpy()
+    np.testing.assert_allclose(
+        out, np.asarray(rops.unpermute_tokens(jj(got), jj(slot), jj(wts),
+                                              bn=2)), rtol=RTOL, atol=ATOL)
+    assert (out[2] == 0).all()
+
+
+def test_permute_wrappers_cpu_are_plain_and_uncounted():
+    x = torch.randn(5, 8)
+    src = torch.tensor([4, -1, 0], dtype=torch.int32)
+    slot = torch.tensor([[0, 2], [1, -1]], dtype=torch.int32)
+    w = torch.rand(2, 2, dtype=torch.float64)
+    ops.reset_counters()
+    assert torch.equal(ops.permute_tokens(x, src),
+                       ref.permute_tokens_ref(x, src))
+    got = ops.unpermute_tokens(x, slot, w.to(torch.bfloat16))
+    want = ref.unpermute_tokens_ref(x, slot, w.to(torch.bfloat16).float())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.dtype == x.dtype and not ops.counters
+
+
 @pytest.mark.parametrize("case", ["dtype", "layout", "index_dtype"])
 def test_wrappers_reject_unsupported_inputs(case):
     x = torch.randn(8, 16)
@@ -133,3 +251,23 @@ def test_wrappers_reject_unsupported_inputs(case):
         q, kp, vp, bt, qo, ql, kl = map(tt, _flash_case())
         with pytest.raises(ValueError, match="int32"):
             ops.flash_chunk_paged(q, kp, vp, bt.long(), qo, ql, kl)
+        with pytest.raises(ValueError, match="int32"):
+            ops.permute_tokens(x, torch.tensor([1, 0]))
+        with pytest.raises(ValueError, match="int32"):
+            ops.unpermute_tokens(x, off.long()[:, None], torch.ones(3, 1))
+
+
+def test_attention_wrappers_reject_shapes_outside_the_kernel():
+    q, k, v, qo, ql, kl = map(tt, _dense_case(4, 2, 4, 1, 776, 512))
+    with pytest.raises(ValueError, match="up to 768"):
+        ops.flash_chunk(q, k, v, qo, ql, kl)
+    q, k, v, qo, ql, kl = map(tt, _dense_case(4, 2, 6, 4, 16, 16))
+    with pytest.raises(ValueError, match="divisible"):
+        ops.flash_chunk(q, k, v, qo, ql, kl)
+    with pytest.raises(ValueError, match=r"\(B,\)"):
+        ops.flash_chunk(q[:, :, :4].contiguous(), k, v, qo, ql, kl[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_chunk(q[:, :, :4], k, v, qo, ql, kl)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.permute_tokens(torch.zeros(3, 4, dtype=torch.float16),
+                           torch.tensor([0], dtype=torch.int32))

@@ -54,21 +54,46 @@ def test_make_dropless_order_matches_reference():
                                       np.asarray(getattr(r, f)))
 
 
-@pytest.mark.parametrize("kernels", ["off", "gate+gemm"])
+@pytest.fixture(scope="module")
+def deepseek():
+    return both_params("deepseek-v2-236b")
+
+
+POLICIES = {"off": {}, "gate+gemm": dict(topk_gate=True, moe_gemm=True),
+            "fused_permute": dict(fused_permute=True),
+            "all-on": dict(topk_gate=True, moe_gemm=True,
+                           fused_permute=True)}
+
+
+def _moe_pair(params, kernels, seed=2, shape=(3, 5)):
+    rcfg, rp, tcfg, tp = params
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape + (rcfg.d_model,)).astype(np.float32)
+    gi = len(rp["groups"]) - 1                  # the MoE group
+    r_moe = {k: v[0] for k, v in rp["groups"][gi]["moe"].items()}
+    pol = POLICIES[kernels]
+    r = RM.moe_local(r_moe, jj(x), rcfg, policy=RPolicy(**pol),
+                     dispatch="dropless", with_stats=True)
+    t = TM.moe_local(tp["groups"][gi][0]["moe"], tt(x), tcfg,
+                     policy=TPolicy(**pol), dispatch="dropless",
+                     with_stats=True)
+    return r, t
+
+
+@pytest.mark.parametrize("kernels", sorted(POLICIES))
 def test_moe_local_matches_reference(phi, kernels):
-    rcfg, rp, tcfg, tp = phi
-    rng = np.random.default_rng(2)
-    x = rng.standard_normal((3, 5, rcfg.d_model)).astype(np.float32)
-    on = kernels != "off"
-    r_moe = {k: v[0] for k, v in rp["groups"][0]["moe"].items()}
-    r_out, r_aux, r_cnt = RM.moe_local(
-        r_moe, jj(x), rcfg,
-        policy=RPolicy(topk_gate=on, moe_gemm=on), dispatch="dropless",
-        with_stats=True)
-    t_out, t_aux, t_cnt = TM.moe_local(
-        tp["groups"][0][0]["moe"], tt(x), tcfg,
-        policy=TPolicy(topk_gate=on, moe_gemm=on), dispatch="dropless",
-        with_stats=True)
+    (r_out, r_aux, r_cnt), (t_out, t_aux, t_cnt) = _moe_pair(phi, kernels)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(r_out), **TOL)
+    np.testing.assert_allclose(float(t_aux), float(r_aux), **TOL)
+    np.testing.assert_array_equal(t_cnt.numpy(), np.asarray(r_cnt))
+
+
+@pytest.mark.parametrize("kernels", ["off", "all-on"])
+def test_moe_local_deepseek_matches_reference(deepseek, kernels):
+    """Top-k of more experts plus a shared expert on every token."""
+    assert deepseek[0].n_shared_experts and deepseek[0].first_dense_layers
+    (r_out, r_aux, r_cnt), (t_out, t_aux, t_cnt) = _moe_pair(
+        deepseek, kernels, seed=4, shape=(2, 7))
     np.testing.assert_allclose(t_out.numpy(), np.asarray(r_out), **TOL)
     np.testing.assert_allclose(float(t_aux), float(r_aux), **TOL)
     np.testing.assert_array_equal(t_cnt.numpy(), np.asarray(r_cnt))
@@ -87,12 +112,15 @@ def test_moe_count_independent(phi):
 
 
 def test_capacity_and_unported_kernels_raise(phi):
+    """Capacity dispatch is still unported and raises; every kernel switch
+    is ported, so ``all_on`` is the reference's, switch by switch."""
     _, _, tcfg, tp = phi
     x = torch.zeros(1, 2, tcfg.d_model)
     with pytest.raises(NotImplementedError, match="A9"):
         TM.moe_local(tp["groups"][0][0]["moe"], x, tcfg, dispatch="capacity")
-    for name in ("fused_permute", "flash_decode"):
-        pol = TPolicy(**{name: True})
-        pol.check_ported("cpu")                 # plain bodies on the CPU
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pol.check_ported("cuda")
+    import dataclasses
+    on_t, on_r = TPolicy.all_on(), RPolicy.all_on()
+    assert dataclasses.asdict(on_t) == dataclasses.asdict(on_r)
+    assert all(dataclasses.asdict(on_t).values())
+    assert TPolicy.auto("cuda") == on_t and TPolicy.auto("cpu") == TPolicy()
+    assert on_t.describe() == on_r.describe() == "all-on"
