@@ -13,26 +13,33 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
   1 build    nvcc build of every kernel source (seconds, ptxas summary)
   2 kernels  each hand-written kernel against its plain PyTorch version at
              the shapes each serve phase below resolves to (phi3.5-moe-42b
-             and deepseek-v2-236b, full width), bf16 and f32, plus its
-             contract cases; CUDA-event times beside the plain version, the
-             bound and, where one exists, a single PyTorch call
-  3 parity   f32, full width, 2 layers: the engine with kernels "on" against
-             kernels "off" on the card — phi3.5 (chunk 32), deepseek with
-             expanded MLA (chunk 32) and with absorbed MLA (chunk 1);
-             first-step logits within 1e-3, greedy streams equal
+             and deepseek-v2-236b, full width, dropless and capacity
+             dispatch), bf16 and f32, plus its contract cases; CUDA-event
+             times beside the plain version, the bound and, where one
+             exists, a single PyTorch call
+  3 parity   f32, full width: capacity-dispatch moe_local with kernels on
+             against off on one input, with drops; then the engine (2
+             layers) with kernels "on" against kernels "off" on the card —
+             phi3.5 (chunk 32), deepseek with expanded MLA (chunk 32) and
+             with absorbed MLA (chunk 1), and both models in capacity mode
+             with a capacity factor at which nothing drops; first-step
+             logits within 1e-3, greedy streams equal
   4 serve    bf16, full width: LLM.from_spec(...) submit + stream (what
              LLM.generate runs), kernel launch counters read from each run
              only, exact per step:
                phi3.5, 8 of 32 layers (the 32-layer model is ~84 GB, over
                the card's 80 GB): 8 prompts of 64-1024 tokens, 4 sharing a
-               512-token prefix, 32 new tokens each;
+               512-token prefix, 32 new tokens each; dropless, then the
+               same prompts with dispatch="capacity" on the same weights;
                deepseek-v2, 4 of 60 layers (1 dense + 3 MoE; 60 layers are
                ~470 GB): 6 prompts of 64-512 tokens, 3 sharing a 256-token
                prefix, 16 new tokens each (expanded MLA, dense flash_chunk);
                then 2 prompts of 16-24 tokens at chunk=1, 4 new tokens
-               (absorbed MLA, flash_decode);
+               (absorbed MLA, flash_decode); then the first serve's prompts
+               with dispatch="capacity";
              a torch.profiler window on each long serve's engine for the
-             device-time breakdown
+             device-time breakdown (phi3.5 dropless and capacity, deepseek
+             dropless)
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -64,6 +72,7 @@ KERNELS = [
     ("topk_gate", CSRC + "topk_gate.cu", "src/repro/kernels/topk_gate.py:45"),
     ("grouped_gemm", CSRC + "grouped_gemm.cu",
      "src/repro/kernels/moe_gemm.py:151"),
+    ("moe_gemm", CSRC + "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:51"),
     ("permute_tokens", CSRC + "permute.cu",
      "src/repro/kernels/permute.py:60"),
     ("unpermute_tokens", CSRC + "permute.cu",
@@ -76,7 +85,8 @@ PROFILE_GROUPS = [("unpermute_kernel", "unpermute_tokens"),
                   ("PagedKV", "flash_chunk_paged"),
                   ("DenseKV", "flash_chunk"),
                   ("topk_gate_kernel", "topk_gate"),
-                  ("grouped_gemm_kernel", "grouped_gemm")]
+                  ("grouped_gemm_kernel", "grouped_gemm"),
+                  ("moe_gemm_kernel", "moe_gemm")]
 
 
 class SmokeError(RuntimeError):
@@ -553,6 +563,153 @@ def check_grouped_gemm(torch, rng, res, T, E, K, H, D, label, dev, primary):
             free_memory(torch)
 
 
+def _bmm_ms(torch, x, w, want):
+    """torch.bmm on the same bf16 inputs: one PyTorch call for the batched
+    expert GEMM, held to the plain version before it is timed."""
+    got = torch.bmm(x, w)
+    torch.cuda.synchronize()
+    if not within(torch, got, want, 1e-2, 1.6e-2):
+        print("[kernels] moe_gemm yardstick: torch.bmm result differs; not "
+              "used")
+        return None
+    return cuda_ms(torch, lambda: torch.bmm(x, w), 20)
+
+
+def check_moe_gemm(torch, rng, res, E, C, H, D, label, dev, primary):
+    """The capacity path's expert GEMMs at a serve's (E, C): w_in / w_gate
+    (H -> D, timed) and w_out (D -> H).  One expert's buffer is all zero,
+    as an expert no slot was routed to is, and gives exact zeros."""
+    import numpy as np
+    ops, ref = _ops()
+    for h_in, d_out, part in ((H, D, ""), (D, H, " w_out")):
+        for dtype in (torch.bfloat16, torch.float32):
+            d = dname(dtype)
+            x = torch.from_numpy(rng.standard_normal((E, C, h_in),
+                                                     np.float32))
+            x[E // 2] = 0
+            x = x.to(dev, dtype)
+            w = (torch.randn(E, h_in, d_out, device=dev) * h_in ** -0.5) \
+                .to(dtype)
+            got = ops.moe_gemm(x, w)
+            want = ref.moe_gemm_ref(x, w)
+            torch.cuda.synchronize()
+            ok = (got.shape == (E, C, d_out)
+                  and within(torch, got, want, *TOL[d])
+                  and bool((got[E // 2] == 0).all()))
+            rec = {"label": f"{label} {d}{part}",
+                   "max_err": max_err(torch, got, want),
+                   "tol": list(TOL[d]), "ok": ok,
+                   "shape": f"x {tuple(x.shape)} w {tuple(w.shape)} "
+                            f"zero expert {E // 2}"}
+            if dtype == torch.bfloat16 and not part:
+                rec["kernel_ms"] = cuda_ms(torch, lambda: ops.moe_gemm(x, w),
+                                           20)
+                rec["plain_ms"] = cuda_ms(
+                    torch, lambda: ref.moe_gemm_ref(x, w), 3)
+                rec["library_ms"] = _bmm_ms(torch, x, w, want)
+                rec.update(bytes=(x.numel() + w.numel() + got.numel()) * 2,
+                           flops=2 * E * C * h_in * d_out, peak="bf16",
+                           primary=primary)
+            res.add("moe_gemm", rec, "disagrees with its plain version")
+            del x, w, got, want
+            free_memory(torch)
+
+
+def check_moe_gemm_contracts(torch, dev):
+    """A ragged C (13 rows: one 16-row tile) and C = 70 (two row tiles),
+    H and D off the tiles and not multiples of 8 (the element-wise loads),
+    an all-zero expert and an all-zero row: exact zeros, output exactly
+    (E, C, D)."""
+    ops, ref = _ops()
+    ok = True
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, h, d in ((13, 264, 200), (13, 100, 75), (70, 264, 200)):
+            x = torch.randn(5, c, h, device=dev)
+            x[2] = 0
+            x[4, 3] = 0
+            x = x.to(dtype)
+            w = (torch.randn(5, h, d, device=dev) * h ** -0.5).to(dtype)
+            got = ops.moe_gemm(x, w)
+            ok &= got.shape == (5, c, d)
+            ok &= within(torch, got, ref.moe_gemm_ref(x, w),
+                         *TOL[dname(dtype)])
+            ok &= bool((got[2] == 0).all()) and bool((got[4, 3] == 0).all())
+    print(f"[kernels] moe_gemm contracts (ragged C 13 and 70, H/D off the "
+          f"tiles and off 8, zero expert, zero row): ok={ok}")
+    check(ok, "moe_gemm contract case failed")
+
+
+def check_permute_capacity(torch, rng, res, T, E, K, H, C, label, dev):
+    """permute_tokens into the (E*C, h) capacity buffers and
+    unpermute_tokens back, on a real capacity dispatch of T skewed routed
+    tokens: cells no slot fills are -1 in src (expert 7 gets none), slots
+    past C are -1 in slot (expert 0 is overloaded)."""
+    import numpy as np
+    from repro_torch.models import moe
+    ops, ref = _ops()
+    logits = rng.standard_normal((T, E))
+    logits[:, 0] += 3.0
+    logits[:, 7] = -np.inf
+    ids = np.argsort(-logits, axis=1, kind="stable")[:, :K]
+    idx = _i32(torch, ids, dev)
+    wts = torch.rand(T, K, device=dev)
+    d = moe.make_dispatch(idx, wts, E, C)
+    src = moe.dispatch_src_tok(d, E, T)
+    slot, w = moe.dispatch_src_slot(d, T)
+    n_drop, n_empty = int((slot < 0).sum()), int((src < 0).sum())
+    check(n_drop > 0 and n_empty > 0, f"permute capacity case has "
+                                      f"{n_drop} drops, {n_empty} empty cells")
+    live = src[src >= 0]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = dname(dtype)
+        x = torch.randn(T, H, device=dev).to(dtype)
+        got = ops.permute_tokens(x, src)
+        want = ref.permute_tokens_ref(x, src)
+        torch.cuda.synchronize()
+        rec = {"label": f"{label} capacity {dn}",
+               "max_err": max_err(torch, got, want), "tol": [0.0, 0.0],
+               "ok": torch.equal(got, want) and bool(
+                   (got[src < 0] == 0).all()),
+               "shape": f"x {tuple(x.shape)} src ({E * C},), {n_empty} "
+                        f"empty cells"}
+        if dtype == torch.bfloat16:
+            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.permute_tokens(
+                x, src), 100)
+            rec["plain_ms"] = cuda_ms(torch, lambda: ref.permute_tokens_ref(
+                x, src), 50)
+            rec["library_ms"] = None
+            rec.update(bytes=(int(live.unique().numel()) + E * C) * H * 2
+                       + 4 * E * C, flops=0, peak="bf16", primary=False)
+        res.add("permute_tokens", rec, "differs from its plain version")
+
+        buf = torch.randn(E * C, H, device=dev).to(dtype)
+        out = ops.unpermute_tokens(buf, slot, w)
+        want = ref.unpermute_tokens_ref(buf, slot, w)
+        torch.cuda.synchronize()
+        ok = within(torch, out, want, *UNPERMUTE_TOL[dn])
+        rec = {"label": f"{label} capacity {dn}",
+               "max_err": max_err(torch, out, want),
+               "tol": list(UNPERMUTE_TOL[dn]), "ok": ok,
+               "shape": f"buf {tuple(buf.shape)} slot {tuple(slot.shape)}, "
+                        f"{n_drop} dropped slots"}
+        if dtype == torch.bfloat16:
+            want32 = ref.unpermute_tokens_ref(buf.float(), slot, w)
+            rec.update(max_err_vs_f32=max_err(torch, out, want32),
+                       tol_vs_f32=list(UNPERMUTE_TOL_VS_F32))
+            rec["ok"] = ok and within(torch, out, want32,
+                                      *UNPERMUTE_TOL_VS_F32)
+            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.unpermute_tokens(
+                buf, slot, w), 100)
+            rec["plain_ms"] = cuda_ms(
+                torch, lambda: ref.unpermute_tokens_ref(buf, slot, w), 50)
+            rec["library_ms"] = None
+            kept = slot[slot >= 0]
+            rec.update(bytes=(int(kept.unique().numel()) + T) * H * 2
+                       + 8 * T * K, flops=2 * int(kept.numel()) * H,
+                       peak="f32", primary=False)
+        res.add("unpermute_tokens", rec, "disagrees with its plain version")
+
+
 def check_permute(torch, rng, res, T, E, K, H, label, dev, primary):
     """permute_tokens on the step's T tokens into expert order (N = T*k
     rows, no -1 entries, as on the dropless path) and unpermute_tokens
@@ -647,7 +804,8 @@ def _ops():
 
 def phase_kernels(torch, phi, ds, ds1):
     """phi / ds / ds1: the resolved shapes of the phi3.5 serve, the
-    deepseek serve and the deepseek chunk=1 serve."""
+    deepseek serve and the deepseek chunk=1 serve, each with the capacity
+    ``C`` its capacity-dispatch serve gives."""
     import numpy as np
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -667,6 +825,17 @@ def phase_kernels(torch, phi, ds, ds1):
     check_permute(torch, rng, res, t_ds, 160, 6, 5120, "deepseek", dev,
                   False)
     check_permute_contracts(torch, dev)
+    check_moe_gemm(torch, rng, res, 16, phi["C"], 4096, 6400, "phi3.5", dev,
+                   True)
+    check_moe_gemm(torch, rng, res, 160, ds["C"], 5120, 1536, "deepseek",
+                   dev, False)
+    check_moe_gemm(torch, rng, res, 160, ds1["C"], 5120, 1536,
+                   "deepseek chunk=1", dev, False)
+    check_moe_gemm_contracts(torch, dev)
+    check_permute_capacity(torch, rng, res, t_phi, 16, 2, 4096, phi["C"],
+                           "phi3.5", dev)
+    check_permute_capacity(torch, rng, res, t_ds, 160, 6, 5120, ds["C"],
+                           "deepseek", dev)
     # grouped_gemm contracts: rows past offsets[-1] exactly zero, boundary
     # inside a tile
     ops, ref = _ops()
@@ -732,7 +901,8 @@ def _parity(torch, cfg, params, knobs, lens, new, expect):
     live = torch.from_numpy(q > 0).cuda()
     err = max_err(torch, first["on"][1][live], first["off"][1][live])
     equal = streams["on"] == streams["off"]
-    print(f"[parity] {cfg.name} f32 full width, chunk {knobs['chunk']}: "
+    print(f"[parity] {cfg.name} f32 full width, chunk {knobs['chunk']}, "
+          f"dispatch {knobs.get('dispatch', 'auto')}: "
           f"first-step logits max err {err:.3e} (tol 1e-3), greedy streams "
           f"equal: {equal}; kernels-on launches {launches['on']}")
     check(err <= 1e-3, f"parity: first-step logits differ by {err}")
@@ -745,27 +915,93 @@ def _parity(torch, cfg, params, knobs, lens, new, expect):
     return {"logits_max_err": err, "streams_equal": equal}
 
 
+def phase_capacity_module(torch, phi, ds):
+    """Capacity-dispatch moe_local at full width, f32, on one input of a
+    serve step's rows (pad rows included), at the config's capacity factor:
+    kernels on against off.  Slots drop; the drop count, from the routed
+    counts and C, must be > 0 and equal in both runs."""
+    import repro_torch.configs as C
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.models import moe
+    from repro_torch.models.param import init_tree
+    gen = torch.Generator(device="cuda")
+    out = {}
+    for arch, sh in (("phi3.5-moe-42b", phi), ("deepseek-v2-236b", ds)):
+        cfg = C.get(arch)
+        t = sh["max_batch"] * sh["chunk"]
+        p = init_tree(gen.manual_seed(5), moe.moe_spec(cfg), torch.float32,
+                      "cuda")
+        # a direction every row shares, as real hidden states do, skews
+        # the routing so that the busiest experts overflow C
+        x = (torch.randn(1, t, cfg.d_model, generator=gen, device="cuda")
+             + torch.randn(cfg.d_model, generator=gen, device="cuda"))
+        runs = {}
+        for kern, pol in (("on", KernelPolicy.all_on()),
+                          ("off", KernelPolicy.off())):
+            ops.reset_counters()
+            y, _, counts = moe.moe_local(p, x, cfg, policy=pol,
+                                         dispatch="capacity",
+                                         with_stats=True)
+            torch.cuda.synchronize()
+            runs[kern] = (y, int((counts - sh["C"]).clamp_min(0).sum()),
+                          dict(ops.counters))
+        (y_on, d_on, l_on), (y_off, d_off, l_off) = runs["on"], runs["off"]
+        err = max_err(torch, y_on, y_off)
+        ok = within(torch, y_on, y_off, *TOL["float32"])
+        want = {"topk_gate": 1, "permute_tokens": 1, "moe_gemm": 3,
+                "unpermute_tokens": 1}
+        print(f"[parity] {arch} capacity moe_local f32 full width, T {t}, "
+              f"cf {cfg.capacity_factor}, C {sh['C']}: max err {err:.3e} "
+              f"(tol {TOL['float32']}), dropped slots on {d_on} / off "
+              f"{d_off} of {t * cfg.top_k}; launches on {l_on}")
+        check(ok, f"capacity moe_local {arch}: kernels on and off differ "
+                  f"by {err}")
+        check(d_on == d_off > 0, f"capacity moe_local {arch}: dropped "
+                                 f"slots on {d_on}, off {d_off}")
+        check(l_on == want and not l_off,
+              f"capacity moe_local {arch}: launches on {l_on}, off {l_off}")
+        out[arch] = {"max_err": err, "dropped": d_on}
+        del p, x, runs, y_on, y_off
+        free_memory(torch)
+    return out
+
+
+def _no_drop(cfg):
+    """The config with a capacity factor of at least E / k, so C >= T and
+    no slot drops: kernels on and off then see the same buffers whatever
+    the pad rows route to."""
+    return dataclasses.replace(
+        cfg, capacity_factor=float(math.ceil(cfg.n_experts / cfg.top_k)))
+
+
 def phase_parity(torch):
     from repro_torch.models.model import init_params
     gen = torch.Generator(device="cuda")
     long_knobs = dict(max_len=256, chunk=32, prompt_len=200)
+    cap_knobs = dict(long_knobs, dispatch="capacity")
     moe = ("topk_gate", "grouped_gemm", "permute_tokens", "unpermute_tokens")
+    cap = ("topk_gate", "moe_gemm", "permute_tokens", "unpermute_tokens")
+    lens = (40, 100, 200, 150)
     out = {}
     cfg = _cut("phi3.5-moe-42b", 2)
     params = init_params(gen.manual_seed(1), cfg, torch.float32, "cuda")
-    out["phi3.5"] = _parity(torch, cfg, params, long_knobs,
-                            (40, 100, 200, 150), 8,
+    out["phi3.5"] = _parity(torch, cfg, params, long_knobs, lens, 8,
                             ("flash_chunk_paged",) + moe)
+    out["phi3.5 capacity"] = _parity(torch, _no_drop(cfg), params, cap_knobs,
+                                     lens, 8, ("flash_chunk_paged",) + cap)
     del params
     free_memory(torch)
     cfg = _cut("deepseek-v2-236b", 2)
     params = init_params(gen.manual_seed(1), cfg, torch.float32, "cuda")
-    out["deepseek expanded"] = _parity(torch, cfg, params, long_knobs,
-                                       (40, 100, 200, 150), 8,
-                                       ("flash_chunk",) + moe)
+    out["deepseek expanded"] = _parity(torch, cfg, params, long_knobs, lens,
+                                       8, ("flash_chunk",) + moe)
     out["deepseek absorbed"] = _parity(
         torch, cfg, params, dict(max_len=64, chunk=1, prompt_len=24),
         (20, 12, 16, 9), 4, ("flash_decode", "flash_chunk") + moe)
+    out["deepseek expanded capacity"] = _parity(
+        torch, _no_drop(cfg), params, cap_knobs, lens, 8,
+        ("flash_chunk",) + cap)
     del params
     free_memory(torch)
     return out
@@ -802,7 +1038,7 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label):
           f"{max(ttft) * 1e3:.0f} ms, ITL mean {np.mean(itl) * 1e3:.1f} ms, "
           f"prefix hits {hits}, max_memory_allocated {mem:.1f} GiB "
           f"[{card_line}]")
-    want = {k: v * steps for k, v in per_step.items()}
+    want = {k: v * steps for k, v in per_step.items() if v}
     print(f"[serve] {label}: kernel launches {launches} (expect per step "
           f"{per_step})")
     check(all(len(outs.get(r, [])) == new for r in t_sub),
@@ -819,6 +1055,49 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label):
                        "max_len": eng.max_len, "pool_pages": eng.kv.n_pages}}
 
 
+def _serve_capacity(torch, llm, prompts, new, per_step, card_line, label):
+    """``_serve`` on a capacity-dispatch engine, counting the slots each
+    MoE layer drops: its routed counts (which the engine asks every layer
+    for) over C.  Inside the timed stream the hook only keeps a reference
+    to each layer's counts and row count (no device work); the drop
+    arithmetic runs after the stream ends."""
+    from repro_torch.models import moe
+    eng, cfg = llm.engine, llm.cfg
+    check(llm.spec.dispatch == "capacity"
+          and eng.plan.dispatch_mode == "capacity",
+          f"serve {label}: dispatch resolved to {llm.spec.dispatch}")
+    sink = []
+    block = moe.moe_block
+
+    def counted(p, x, cfg, plan, **kw):
+        r = block(p, x, cfg, plan, **kw)
+        sink.append((x.shape[0] * x.shape[1], r[2]))
+        return r
+    torch.cuda.reset_peak_memory_stats()
+    moe.moe_block = counted
+    try:
+        out = _serve(torch, llm, prompts, new, per_step, card_line, label)
+    finally:
+        moe.moe_block = block
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    check(len(sink) == out["steps"] * n_moe,
+          f"serve {label}: {len(sink)} MoE layer runs in {out['steps']} "
+          f"steps")
+    dropped = int(sum(
+        (n - moe.capacity_for(t, cfg.top_k, cfg.n_experts,
+                              cfg.capacity_factor)).clamp_min(0).sum()
+        for t, n in sink))
+    routed = sum(t for t, _ in sink) * cfg.top_k
+    c = moe.capacity_for(eng.max_batch * eng.chunk, cfg.top_k, cfg.n_experts,
+                         cfg.capacity_factor)
+    print(f"[serve] {label}: C {c}, dropped slots {dropped} of {routed} "
+          f"routed ({dropped / routed:.4f}, pad rows included), "
+          f"{dropped / out['steps']:.1f} per step")
+    out.update(dropped=dropped, routed=routed,
+               dropped_per_step=dropped / out["steps"])
+    return out
+
+
 def _load(torch, spec, cfg, card_line):
     from repro_torch.serving.api import LLM
     torch.cuda.reset_peak_memory_stats()
@@ -833,6 +1112,7 @@ def _load(torch, spec, cfg, card_line):
 
 def phase_serve_phi(torch, card_line):
     import numpy as np
+    from repro_torch.serving.api import LLM
     cfg = _cut("phi3.5-moe-42b", 8)
     rng = np.random.default_rng(2)
     shared = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
@@ -846,11 +1126,22 @@ def phase_serve_phi(torch, card_line):
     llm = _load(torch, phi_spec(), cfg, card_line)
     per_step = {"flash_chunk_paged": 8, "topk_gate": 8, "permute_tokens": 8,
                 "unpermute_tokens": 8, "grouped_gemm": 24}
-    out = _serve(torch, llm, prompts, 32, per_step, card_line,
-                 f"{cfg.name} (8 of 32 layers)")
+    label = f"{cfg.name} (8 of 32 layers)"
+    out = _serve(torch, llm, prompts, 32, per_step, card_line, label)
     check(out["prefix_hits"] >= 1, "serve: no prefix hit")
-    phase_profile(torch, llm, rng, f"{cfg.name} (8 of 32 layers)")
-    return out
+    phase_profile(torch, llm, rng, label)
+    # capacity dispatch: the same prompts on the same weights
+    params = llm.params
+    del llm
+    free_memory(torch)
+    cap = LLM.from_spec(phi_spec("capacity"), cfg=cfg, params=params,
+                        device="cuda", dtype=torch.bfloat16)
+    per_step.update(grouped_gemm=0, moe_gemm=24)
+    capacity = _serve_capacity(torch, cap, prompts, 32, per_step, card_line,
+                               label + " capacity")
+    check(capacity["prefix_hits"] >= 1, "capacity serve: no prefix hit")
+    phase_profile(torch, cap, rng, label + " capacity")
+    return out, capacity
 
 
 def phase_serve_deepseek(torch, card_line):
@@ -881,7 +1172,17 @@ def phase_serve_deepseek(torch, card_line):
                       {"flash_decode": 4, "flash_chunk": 4, **moe},
                       card_line,
                       f"{cfg.name} (4 of 60 layers, absorbed MLA, chunk=1)")
-    return out, absorbed
+    # capacity dispatch: the first serve's prompts on the same weights
+    del small
+    free_memory(torch)
+    cap = LLM.from_spec(ds_spec("capacity"), cfg=cfg, params=params,
+                        device="cuda", dtype=torch.bfloat16)
+    capacity = _serve_capacity(
+        torch, cap, prompts, 16,
+        {"flash_chunk": 4, **moe, "grouped_gemm": 0, "moe_gemm": 9},
+        card_line, label + " capacity")
+    check(capacity["prefix_hits"] >= 1, "capacity serve: no prefix hit")
+    return out, absorbed, capacity
 
 
 def phase_profile(torch, llm, rng, label):
@@ -966,12 +1267,12 @@ def _spec(**kw):
                      seed=0, **kw)
 
 
-def phi_spec():
-    return _spec(prompt_len=1024, max_new_tokens=32)
+def phi_spec(dispatch="auto"):
+    return _spec(prompt_len=1024, max_new_tokens=32, dispatch=dispatch)
 
 
-def ds_spec():
-    return _spec(prompt_len=512, max_new_tokens=16)
+def ds_spec(dispatch="auto"):
+    return _spec(prompt_len=512, max_new_tokens=16, dispatch=dispatch)
 
 
 def ds1_spec():
@@ -982,6 +1283,14 @@ def _shapes(spec, cfg):
     res = spec.resolve(cfg, device="cuda")
     return {"max_batch": res.max_batch, "chunk": res.chunk,
             "max_len": res.max_len, "pool_pages": res.kv.pool_pages}
+
+
+def _capacity(sh, cfg):
+    """The C that capacity dispatch gives a step of the envelope's
+    max_batch * chunk rows (pad rows take capacity slots too)."""
+    from repro_torch.models.moe import capacity_for
+    return capacity_for(sh["max_batch"] * sh["chunk"], cfg.top_k,
+                        cfg.n_experts, cfg.capacity_factor)
 
 
 def main() -> int:
@@ -1002,20 +1311,29 @@ def main() -> int:
     phase_build()
     # the serve phases' envelopes fix the kernel shapes; resolve them first
     # (cheap, host only) so phase 2 times exactly what phase 4 launches
-    phi = _shapes(phi_spec(), _cut("phi3.5-moe-42b", 8))
-    ds = _shapes(ds_spec(), _cut("deepseek-v2-236b", 4))
-    ds1 = _shapes(ds1_spec(), _cut("deepseek-v2-236b", 4))
+    phi_cfg, ds_cfg = _cut("phi3.5-moe-42b", 8), _cut("deepseek-v2-236b", 4)
+    phi = _shapes(phi_spec(), phi_cfg)
+    ds = _shapes(ds_spec(), ds_cfg)
+    ds1 = _shapes(ds1_spec(), ds_cfg)
+    check(_shapes(phi_spec("capacity"), phi_cfg) == phi
+          and _shapes(ds_spec("capacity"), ds_cfg) == ds,
+          "capacity dispatch resolved another envelope than dropless")
+    for sh, cfg in ((phi, phi_cfg), (ds, ds_cfg), (ds1, ds_cfg)):
+        sh["C"] = _capacity(sh, cfg)
     print(f"[shapes] phi3.5 {phi} | deepseek {ds} | deepseek chunk=1 {ds1}")
     kres = phase_kernels(torch, phi, ds, ds1)
+    phase_capacity_module(torch, phi, ds)
     phase_parity(torch)
-    serve_phi = phase_serve_phi(torch, card_line)
+    serve_phi, cap_phi = phase_serve_phi(torch, card_line)
     free_memory(torch)
-    serve_ds, serve_ds1 = phase_serve_deepseek(torch, card_line)
-    for got, want in ((serve_phi, phi), (serve_ds, ds), (serve_ds1, ds1)):
+    serve_ds, serve_ds1, cap_ds = phase_serve_deepseek(torch, card_line)
+    for got, want in ((serve_phi, phi), (cap_phi, phi), (serve_ds, ds),
+                      (serve_ds1, ds1), (cap_ds, ds)):
+        want = {k: v for k, v in want.items() if k != "C"}
         check(got["shapes"] == want,
               f"serve ran {got['shapes']}, kernels were checked at {want}")
     launches: dict = {}
-    for s in (serve_phi, serve_ds, serve_ds1):
+    for s in (serve_phi, cap_phi, serve_ds, serve_ds1, cap_ds):
         for k, v in s["launches"].items():
             launches[k] = launches.get(k, 0) + v
     rec = kernels_record(kres, launches)

@@ -3,6 +3,7 @@
   flash_chunk_paged  ragged causal attention through per-slot block tables
   topk_gate          fused softmax + top-k router gate
   grouped_gemm       dropless segment GEMM over expert-sorted rows
+  moe_gemm           capacity-mode batched expert GEMM over (E, C, H) buffers
   policy             KernelPolicy switches (rides on core.partitioner plans)
   ops                checked wrappers with launch counters
   ref                plain PyTorch versions (the CPU path and the oracles)

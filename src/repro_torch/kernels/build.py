@@ -43,6 +43,8 @@ SIGNATURES = {
     "rt_topk_gate": [_P] * 3 + [_I] * 5 + [_P],
     # x, w, offsets, out, N, H, D, E, dtype, stream
     "rt_grouped_gemm": [_P] * 4 + [_I] * 5 + [_P],
+    # x, w, out, E, C, H, D, dtype, stream
+    "rt_moe_gemm": [_P] * 3 + [_I] * 5 + [_P],
     # x, src, out, N, T, h, element bytes, stream
     "rt_permute_tokens": [_P] * 3 + [_I] * 4 + [_P],
     # buf, slot, weights, out, T, k, h, M, dtype, stream

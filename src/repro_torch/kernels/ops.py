@@ -196,6 +196,30 @@ def topk_gate(logits, k: int, *, renorm: bool = True):
     return w, idx
 
 
+def moe_gemm(x, w):
+    """Capacity-mode batched expert GEMM.  x (E, C, H) @ w (E, H, D) ->
+    (E, C, D) in x's dtype, float32 accumulation; an all-zero row of x gives
+    an exact-zero row.  Contract: ``ref.moe_gemm_ref``."""
+    name = "moe_gemm"
+    dev = _check_same_device(x, w)
+    _check_float(name, x, w)
+    _check_contiguous(name, x, w)
+    _check(x.dim() == 3 and w.dim() == 3 and x.shape[0] == w.shape[0]
+           and x.shape[2] == w.shape[1],
+           f"{name}: need x (E, C, H) and w (E, H, D), got "
+           f"{tuple(x.shape)} and {tuple(w.shape)}")
+    e, c, h = x.shape
+    d = w.shape[2]
+    _check(e <= 65535, f"{name}: at most 65535 experts, got {e}")
+    if dev.type == "cpu":
+        return ref.moe_gemm_ref(x, w)
+    out = torch.empty(e, c, d, dtype=x.dtype, device=dev)
+    _launch(build.load().rt_moe_gemm, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), e, c, h, d, _DTYPES[x.dtype], _stream())
+    counters[name] += 1
+    return out
+
+
 def grouped_gemm(x, w, group_offsets):
     """x (N, H) sorted by expert @ w (E, H, D) with group_offsets (E+1,)
     int32 -> (N, D) in x's dtype, f32 accumulation; rows at/after
@@ -273,5 +297,5 @@ def unpermute_tokens(buf, src_slot, weights):
 
 
 __all__ = ["flash_chunk", "flash_decode", "flash_chunk_paged", "topk_gate",
-           "grouped_gemm", "permute_tokens", "unpermute_tokens", "counters",
-           "reset_counters"]
+           "moe_gemm", "grouped_gemm", "permute_tokens", "unpermute_tokens",
+           "counters", "reset_counters"]

@@ -4,8 +4,9 @@ The policy rides on the ``ShardingPlan`` (core.partitioner) so it reaches
 every layer the plan reaches: ``models.layers`` attention (``flash_chunk``:
 the paged kernel for GQA, the dense kernel for MLA's gathered latent view;
 ``flash_decode``: the dense kernel at one query row) and
-``models.moe.moe_local`` (``topk_gate``; ``moe_gemm`` = the dropless grouped
-GEMM; ``fused_permute`` = the permute / unpermute kernels).
+``models.moe.moe_local`` (``topk_gate``; ``moe_gemm`` = both expert GEMMs,
+the dropless ``grouped_gemm`` and the capacity-mode ``moe_gemm``, as in the
+reference; ``fused_permute`` = the permute / unpermute kernels).
 
 ``KernelPolicy.auto(device)`` turns every kernel on exactly when the
 engine's device is CUDA; on the CPU every stage runs its plain PyTorch body.
@@ -23,7 +24,7 @@ class KernelPolicy:
     flash_decode: bool = False    # single-token decode attention
     flash_chunk: bool = False     # ragged mixed-chunk attention
     topk_gate: bool = False       # fused softmax+top-k router gate
-    moe_gemm: bool = False        # dropless grouped expert GEMM
+    moe_gemm: bool = False        # expert GEMMs: grouped (dropless) + capacity
     fused_permute: bool = False   # fused token permute / unpermute+combine
 
     @property

@@ -42,6 +42,13 @@ def topk_gate_ref(logits, k: int, renorm: bool = True):
     return w, idx
 
 
+def moe_gemm_ref(x, w):
+    """Capacity-mode batched expert GEMM.  x (E, C, H) @ w (E, H, D) ->
+    (E, C, D) in x's dtype: each expert's product accumulated in float32
+    and rounded once."""
+    return torch.einsum("ech,ehd->ecd", x.float(), w.float()).to(x.dtype)
+
+
 def grouped_gemm_ref(x, w, group_offsets):
     """Dropless segment GEMM.  x (N, H) sorted by expert, w (E, H, D),
     group_offsets (E+1,) prefix sum -> (N, D) in x's dtype: rows
@@ -132,6 +139,7 @@ def unpermute_tokens_ref(buf, src_slot, weights):
     return out.to(buf.dtype)
 
 
-__all__ = ["top_k_first", "topk_gate_ref", "grouped_gemm_ref",
-           "flash_chunk_ref", "flash_decode_ref", "flash_chunk_paged_ref",
-           "permute_tokens_ref", "unpermute_tokens_ref"]
+__all__ = ["top_k_first", "topk_gate_ref", "moe_gemm_ref",
+           "grouped_gemm_ref", "flash_chunk_ref", "flash_decode_ref",
+           "flash_chunk_paged_ref", "permute_tokens_ref",
+           "unpermute_tokens_ref"]

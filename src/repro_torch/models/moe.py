@@ -1,24 +1,34 @@
-"""MoE block — the local (single-device) dropless path.
+"""MoE block — the local (single-device) paths, dropless and capacity.
 
-Dropless dispatch sorts the (token, k) slots by expert into a ragged
-``(T*k, h)`` buffer with an ``offsets`` (E+1,) prefix sum and runs the
-expert FFN as a grouped GEMM over the segments.  No capacity, no drops: a
-token's output depends only on its own row and its experts, so MoE outputs
-do not change with batch composition (pad rows of the unified step's
-``(B, chunk)`` buffer ride through too, which is what keeps routing
-count-independent).
+Two dispatch modes (``ShardingPlan.dispatch_mode`` / the ``dispatch``
+argument; "auto" resolves to dropless, the inference default):
+
+  dropless   sort the (token, k) slots by expert into a ragged ``(T*k, h)``
+             buffer with an ``offsets`` (E+1,) prefix sum and run the expert
+             FFN as a grouped GEMM over the segments.  No capacity, no
+             drops: a token's output depends only on its own row and its
+             experts, so MoE outputs do not change with batch composition
+             (pad rows of the unified step's ``(B, chunk)`` buffer ride
+             through too, which is what keeps routing count-independent).
+  capacity   fixed ``(E, C, h)`` buffers, ``C = capacity_for(T, k, E, cf)``
+             with ``cf = cfg.capacity_factor``; a slot ranked past C within
+             its expert is dropped.  C depends on the TOTAL row count (pad
+             rows included), so a token's output can change with batch
+             composition.  Served only where the user asks for it
+             (``ServeSpec(dispatch="capacity")``).
 
 Kernels (``KernelPolicy`` on the plan): ``topk_gate`` runs the router's
-softmax + top-k as one kernel, ``moe_gemm`` the three grouped GEMMs
-(``w_in``, ``w_gate``, ``w_out``), ``fused_permute`` the gather into expert
+softmax + top-k as one kernel, ``moe_gemm`` the three expert GEMMs
+(``w_in``, ``w_gate``, ``w_out``: ``grouped_gemm`` when dropless,
+``moe_gemm`` on capacity buffers), ``fused_permute`` the gather into expert
 order (``permute_tokens``) and the weighted combine (``unpermute_tokens``).
-Capacity dispatch and the multi-device EP paths are later slices (ROADMAP
-A8, A9).
+The multi-device EP paths are a later slice (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -85,15 +95,127 @@ def route_topk(logits, k: int, renorm: bool = True,
     return top_i, top_p, aux
 
 
+# ---------------------------------------------------------------------------
+# Capacity dispatch (fixed (E, C, h) buffers)
+# ---------------------------------------------------------------------------
+
+def positions_in_expert(flat_e, n_experts: int):
+    """Rank of each (token, k) slot within its expert, by a stable sort: a
+    slot's rank counts the earlier slots routed to the same expert."""
+    n = flat_e.shape[0]
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    ar = torch.arange(n, dtype=torch.int32, device=flat_e.device)
+    new_seg = torch.ones(n, dtype=torch.bool, device=flat_e.device)
+    new_seg[1:] = sorted_e[1:] != sorted_e[:-1]
+    seg_start = torch.cummax(torch.where(new_seg, ar, 0), 0).values
+    pos = torch.zeros(n, dtype=torch.int32, device=flat_e.device)
+    pos[order] = ar - seg_start
+    return pos
+
+
+def capacity_for(tokens: int, k: int, n_experts: int, cf: float) -> int:
+    """Per-expert buffer capacity: ceil(T * k * cf / E), at least 1, and
+    rounded up to a multiple of 8 only once past 8 (the reference's rule;
+    it decides which slots drop, so it is kept exactly)."""
+    c = int(math.ceil(tokens * k * cf / max(n_experts, 1)))
+    if c <= 8:
+        return max(1, c)
+    return -(-c // 8) * 8
+
+
+@dataclasses.dataclass
+class DispatchInfo:
+    flat_e: torch.Tensor   # (T*k,) expert id per slot
+    pos: torch.Tensor      # (T*k,) clipped position within expert buffer
+    keep: torch.Tensor     # (T*k,) bool, False => dropped (over capacity)
+    weights: torch.Tensor  # (T*k,)
+    capacity: int
+
+
+def make_dispatch(idx, weights, n_experts: int, capacity: int) \
+        -> DispatchInfo:
+    flat_e = idx.reshape(-1)
+    pos = positions_in_expert(flat_e, n_experts)
+    return DispatchInfo(flat_e=flat_e, pos=pos.clamp_max(capacity - 1),
+                        keep=pos < capacity, weights=weights.reshape(-1),
+                        capacity=capacity)
+
+
+def dispatch_src_tok(d: DispatchInfo, n_experts: int, t: int):
+    """(E*C,) int32: the source token of flat buffer cell (e, c), or -1.
+
+    Kept slots occupy distinct cells, so a plain indexed write inverts the
+    map exactly.  Every dropped slot is parked on one extra cell, which is
+    sliced off: which of them wins that write does not matter."""
+    k = d.flat_e.shape[0] // t
+    cells = d.flat_e.long() * d.capacity + d.pos.long()
+    cells = torch.where(d.keep, cells, n_experts * d.capacity)
+    inv = torch.full((n_experts * d.capacity + 1,), -1, dtype=torch.int32,
+                     device=cells.device)
+    inv[cells] = torch.div(torch.arange(d.flat_e.shape[0], dtype=torch.int32,
+                                        device=cells.device),
+                           k, rounding_mode="floor")
+    return inv[:-1]
+
+
+def dispatch_src_slot(d: DispatchInfo, t: int):
+    """(T, k) int32 flat buffer cell of each token's slots (-1 = dropped),
+    and the matching (T, k) weights."""
+    k = d.flat_e.shape[0] // t
+    cell = d.flat_e.long() * d.capacity + d.pos.long()
+    cell = torch.where(d.keep, cell, -1).reshape(t, k).to(torch.int32)
+    return cell, d.weights.reshape(t, k)
+
+
+def scatter_to_buffers(x, d: DispatchInfo, n_experts: int,
+                       use_kernel: bool = False):
+    """x (T, h) -> (E, C, h) capacity buffers; dropped slots contribute 0.
+
+    ``use_kernel=True`` is one gather through the permute kernel over the
+    int32 inverse map, instead of the (T*k, h) repeat and scatter-add."""
+    t, h = x.shape
+    if use_kernel:
+        src = dispatch_src_tok(d, n_experts, t)
+        return gather_rows(x, src, use_kernel=True) \
+            .reshape(n_experts, d.capacity, h)
+    k = d.flat_e.shape[0] // t
+    vals = x.repeat_interleave(k, 0) * d.keep[:, None].to(x.dtype)
+    buf = torch.zeros(n_experts, d.capacity, h, dtype=x.dtype,
+                      device=x.device)
+    # dropped slots add their zero row onto a clipped (real) cell
+    return buf.index_put_((d.flat_e.long(), d.pos.long()), vals,
+                          accumulate=True)
+
+
+def gather_from_buffers(buf, d: DispatchInfo, t: int,
+                        use_kernel: bool = False):
+    """buf (E, C, h) -> (T, h) weighted combine.  The plain body sums in the
+    buffer's dtype; the unpermute kernel accumulates in float32 and rounds
+    once."""
+    if use_kernel:
+        slot, w = dispatch_src_slot(d, t)
+        return combine_rows(buf.reshape(-1, buf.shape[-1]), slot, w,
+                            use_kernel=True)
+    vals = buf[d.flat_e.long(), d.pos.long()]
+    vals = vals * (d.weights * d.keep.to(d.weights.dtype))[:, None]
+    k = d.flat_e.shape[0] // t
+    return vals.reshape(t, k, -1).sum(1)
+
+
+# ---------------------------------------------------------------------------
+# Dropless (ragged, count-independent) dispatch
+# ---------------------------------------------------------------------------
+
 def resolve_dispatch(mode: Optional[str]) -> str:
-    """"auto"/None -> "dropless"; "capacity" is not ported yet."""
-    if mode in (None, "auto", "dropless"):
+    """"auto"/None -> "dropless" (the inference default); validates the
+    others."""
+    if mode in (None, "auto"):
         return "dropless"
-    if mode == "capacity":
-        raise NotImplementedError(
-            "capacity dispatch is not ported yet (ROADMAP A9)")
-    raise ValueError(f"unknown dispatch mode {mode!r} "
-                     "(want 'auto' | 'capacity' | 'dropless')")
+    if mode not in ("capacity", "dropless"):
+        raise ValueError(f"unknown dispatch mode {mode!r} "
+                         "(want 'auto' | 'capacity' | 'dropless')")
+    return mode
 
 
 @dataclasses.dataclass
@@ -154,6 +276,25 @@ def grouped_ffn(p, xs, offsets, cfg: ModelConfig, use_kernel: bool = False):
     return gg(mid, p["w_out"], offsets)
 
 
+def expert_ffn(p, buf, cfg: ModelConfig, use_kernel: bool = False):
+    """Expert FFN on capacity buffers.  buf (E, C, h) -> (E, C, h).
+
+    ``use_kernel=True`` runs the three GEMMs through the ``moe_gemm``
+    kernel; the plain body is an einsum in the buffer's dtype."""
+    if use_kernel:
+        from repro_torch.kernels import ops as _kops
+        mm = _kops.moe_gemm
+    else:
+        def mm(a, b):
+            return torch.einsum("ech,ehd->ecd", a, b)
+    up = mm(buf, p["w_in"])
+    if "w_gate" in p:
+        mid = activate(mm(buf, p["w_gate"]), up, cfg.activation)
+    else:
+        mid = activate(up, up, cfg.activation)
+    return mm(mid, p["w_out"])
+
+
 def shared_expert_ffn(p, x, cfg: ModelConfig):
     """Shared experts on every token."""
     up = x @ p["shared_in"]
@@ -168,35 +309,53 @@ def shared_expert_ffn(p, x, cfg: ModelConfig):
 # Local (single-device) block
 # ---------------------------------------------------------------------------
 
-def moe_local(p, x, cfg: ModelConfig, policy: Optional[KernelPolicy] = None,
+def moe_local(p, x, cfg: ModelConfig,
+              policy: Optional[KernelPolicy] = None,
               dispatch: Optional[str] = None, with_stats: bool = False):
     """x: (b, s, h).  Returns (out, aux_loss)
-    [+ per-expert routed counts (E,) int32 when ``with_stats``]."""
+    [+ per-expert routed counts (E,) int32, before any drop, when
+    ``with_stats``].  ``dispatch`` ("auto" -> dropless) picks the buffer
+    scheme; capacity mode sizes its buffers by ``cfg.capacity_factor``
+    (0.0 is a real, degenerate factor: C = 1)."""
     policy = NULL_POLICY if policy is None else policy
-    resolve_dispatch(dispatch)
+    dispatch = resolve_dispatch(dispatch)
     b, s, h = x.shape
     tok = rms_norm(x, p["norm"], cfg.norm_eps).reshape(-1, h)
     t, k = tok.shape[0], cfg.top_k
     idx, w, aux = route_topk(tok @ p["router"], k,
                              use_kernel=policy.topk_gate)
-    dl = make_dropless(idx, w, cfg.n_experts)
-    xs = gather_rows(tok, torch.div(dl.order, k, rounding_mode="floor"),
-                     use_kernel=policy.fused_permute)      # (T*k, h) sorted
-    ys = grouped_ffn(p, xs, dl.offsets, cfg, use_kernel=policy.moe_gemm)
-    out = combine_rows(ys, dl.inv.reshape(t, k), w.reshape(t, k),
-                       use_kernel=policy.fused_permute)
+    if dispatch == "dropless":
+        dl = make_dropless(idx, w, cfg.n_experts)
+        xs = gather_rows(tok, torch.div(dl.order, k, rounding_mode="floor"),
+                         use_kernel=policy.fused_permute)  # (T*k, h) sorted
+        ys = grouped_ffn(p, xs, dl.offsets, cfg, use_kernel=policy.moe_gemm)
+        out = combine_rows(ys, dl.inv.reshape(t, k), w.reshape(t, k),
+                           use_kernel=policy.fused_permute)
+        counts = dl.counts
+    else:
+        cap = capacity_for(t, k, cfg.n_experts, cfg.capacity_factor)
+        d = make_dispatch(idx, w, cfg.n_experts, cap)
+        buf = scatter_to_buffers(tok, d, cfg.n_experts,
+                                 use_kernel=policy.fused_permute)
+        out_buf = expert_ffn(p, buf, cfg, use_kernel=policy.moe_gemm)
+        out = gather_from_buffers(out_buf, d, t,
+                                  use_kernel=policy.fused_permute)
+        counts = torch.bincount(idx.reshape(-1).long(),
+                                minlength=cfg.n_experts).to(torch.int32) \
+            if with_stats else None
     if cfg.n_shared_experts:
         out = out + shared_expert_ffn(p, tok, cfg)
     out = out.reshape(b, s, h).to(x.dtype)
     if with_stats:
-        return out, aux, dl.counts
+        return out, aux, counts
     return out, aux
 
 
 def moe_block(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
               dispatch: Optional[str] = None, with_stats: bool = False):
     """The MoE block on one device.  x: (b, s, h) -> (out, aux_loss)
-    [+ per-expert routed counts (E,) int32 when ``with_stats``]."""
+    [+ per-expert routed counts (E,) int32 when ``with_stats``].
+    ``dispatch`` overrides ``plan.dispatch_mode``."""
     mode = dispatch if dispatch is not None \
         else getattr(plan, "dispatch_mode", None)
     if plan.enabled:
@@ -207,5 +366,8 @@ def moe_block(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
 
 
 __all__ = ["moe_spec", "moe_block", "moe_local", "route_topk",
+           "make_dispatch", "scatter_to_buffers", "gather_from_buffers",
+           "expert_ffn", "capacity_for", "positions_in_expert",
+           "DispatchInfo", "dispatch_src_tok", "dispatch_src_slot",
            "resolve_dispatch", "DroplessInfo", "make_dropless", "gather_rows",
            "combine_rows", "grouped_ffn", "shared_expert_ffn"]

@@ -83,6 +83,33 @@ def test_grouped_gemm_on_card(dev, dtype):
     assert (out[150:] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [1, 13, 16, 40, 70])
+@pytest.mark.parametrize("hd", [(264, 200), (100, 75)],
+                         ids=["16-byte rows", "element-wise"])
+def test_moe_gemm_on_card(dev, dtype, c, hd):
+    """Every row-tile size (C 1-16, 32, 48, 64 and two 64-row tiles), H and
+    D off the tiles; an all-zero expert and an all-zero row give exact
+    zeros; the output is exactly (E, C, D)."""
+    dt = getattr(torch, dtype)
+    h, d = hd
+    g = torch.Generator(device="cpu").manual_seed(c)
+    x = torch.randn(5, c, h, generator=g)
+    x[2] = 0
+    x[4, c // 2] = 0
+    w = torch.randn(5, h, d, generator=g) * h ** -0.5
+    x, w = x.to(dev, dt), w.to(dev, dt)
+    ops.reset_counters()
+    out = ops.moe_gemm(x, w)
+    want = ref.moe_gemm_ref(x, w)
+    assert out.shape == (5, c, d) and out.dtype == dt
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert (out[2] == 0).all() and (out[4, c // 2] == 0).all()
+    assert ops.counters["moe_gemm"] == 1
+
+
 def test_wrapper_refuses_mixed_devices(dev):
     x = torch.randn(8, 16, device=dev)
     w = torch.randn(2, 16, 4)

@@ -112,12 +112,17 @@ def test_moe_count_independent(phi):
 
 
 def test_capacity_and_unported_kernels_raise(phi):
-    """Capacity dispatch is still unported and raises; every kernel switch
-    is ported, so ``all_on`` is the reference's, switch by switch."""
+    """Capacity dispatch runs (it is ported) and an unknown mode raises;
+    every kernel switch is ported, so ``all_on`` is the reference's,
+    switch by switch."""
     _, _, tcfg, tp = phi
     x = torch.zeros(1, 2, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TM.moe_local(tp["groups"][0][0]["moe"], x, tcfg, dispatch="capacity")
+    out, aux = TM.moe_local(tp["groups"][0][0]["moe"], x, tcfg,
+                            dispatch="capacity")
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert TM.resolve_dispatch("capacity") == "capacity"
+    with pytest.raises(ValueError, match="unknown dispatch mode"):
+        TM.resolve_dispatch("bogus")
     import dataclasses
     on_t, on_r = TPolicy.all_on(), RPolicy.all_on()
     assert dataclasses.asdict(on_t) == dataclasses.asdict(on_r)
