@@ -14,9 +14,12 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
   2 kernels  each hand-written kernel against its plain PyTorch version at
              the shapes each serve phase below resolves to (phi3.5-moe-42b
              and deepseek-v2-236b, full width, dropless and capacity
-             dispatch), bf16 and f32, plus its contract cases; CUDA-event
-             times beside the plain version, the bound and, where one
-             exists, a single PyTorch call
+             dispatch; one rank of the distributed serve: its router
+             gate, and its EP exchange's gathers, grouped GEMMs and
+             combine at the row cap and at the worst-case extent), bf16
+             and f32, plus its contract cases;
+             CUDA-event times beside the plain version, the bound and,
+             where one exists, a single PyTorch call
   3 parity   f32, full width: capacity-dispatch moe_local with kernels on
              against off on one input, with drops; then the engine (2
              layers) with kernels "on" against kernels "off" on the card —
@@ -40,6 +43,23 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              a torch.profiler window on each long serve's engine for the
              device-time breakdown (phi3.5 dropless and capacity, deepseek
              dropless)
+  5 dist     MixServe's sharded MoE on 4 ranks, a 2x2 (data, model) mesh:
+             4 processes on this card over gloo (with 4 cards, one rank per
+             card over NCCL), the kernel library built once above and only
+             loaded by the ranks.
+             (a) f32, phi3.5 2 layers, full width: moe_block and
+                 LLM.generate under mixserve fused, mixserve unfused,
+                 dp_ep and pure_tp, dropless and capacity (no-drop
+                 factor), plus the micro-chunked exchange with the auto
+                 row cap and an 8-row cap that overflows, each against the
+                 unsharded run on the same weights (moe_block to 1e-4,
+                 greedy streams equal);
+             (b) bf16, phi3.5 8 layers, full width, mixserve fused,
+                 dropless, the resolved ep_overlap: 4 prompts of 64-512
+                 tokens (2 sharing a prefix), 16 new tokens; streams equal
+                 on every rank, exact launch counts per step and exchange
+                 chunk, ep_load_stats and the A2A byte ledger; times
+                 labelled as ranks sharing one card
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -75,12 +95,15 @@ KERNELS = [
     ("moe_gemm", CSRC + "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:51"),
     ("permute_tokens", CSRC + "permute.cu",
      "src/repro/kernels/permute.py:60"),
+    ("permute_tokens_ragged", CSRC + "permute.cu",
+     "src/repro/kernels/permute.py:118"),
     ("unpermute_tokens", CSRC + "permute.cu",
      "src/repro/kernels/permute.py:183"),
 ]
 
 # profiler kernel-name pattern -> kernel family (first match wins)
 PROFILE_GROUPS = [("unpermute_kernel", "unpermute_tokens"),
+                  ("permute_ragged_kernel", "permute_tokens_ragged"),
                   ("permute_kernel", "permute_tokens"),
                   ("PagedKV", "flash_chunk_paged"),
                   ("DenseKV", "flash_chunk"),
@@ -523,13 +546,15 @@ def check_topk(torch, rng, res, T, E, K, label, dev, primary):
                                   "weights)")
 
 
-def check_grouped_gemm(torch, rng, res, T, E, K, H, D, label, dev, primary):
-    """The w_in / w_gate GEMM of the step (N = T*k rows, H -> D) and the
-    w_out GEMM (D -> H); timed at the first."""
+def check_grouped_gemm(torch, rng, res, offs, n, H, D, label, dev,
+                       primary):
+    """The w_in / w_gate GEMM of n rows whose expert segments are the
+    (E+1,) offsets ``offs`` (H -> D) and the w_out GEMM (D -> H); timed at
+    the first.  Rows past offs[-1] come back zero."""
     import numpy as np
     ops, ref = _ops()
-    n = T * K
-    offs, _ = _routing(rng, T, E, K, empty=7)
+    E = len(offs) - 1
+    empty = [int(i) for i in np.flatnonzero(np.diff(offs) == 0)]
     for h_in, d_out, part in ((H, D, ""), (D, H, " w_out")):
         for dtype in (torch.bfloat16, torch.float32):
             d = dname(dtype)
@@ -537,7 +562,7 @@ def check_grouped_gemm(torch, rng, res, T, E, K, H, D, label, dev, primary):
                 .to(dev, dtype)
             w = (torch.randn(E, h_in, d_out, device=dev) * h_in ** -0.5) \
                 .to(dtype)
-            off = torch.from_numpy(offs).to(dev)
+            off = _i32(torch, offs, dev)
             got = ops.grouped_gemm(x, w, off)
             want = ref.grouped_gemm_ref(x, w, off)
             torch.cuda.synchronize()
@@ -545,8 +570,9 @@ def check_grouped_gemm(torch, rng, res, T, E, K, H, D, label, dev, primary):
                    "max_err": max_err(torch, got, want),
                    "tol": list(TOL[d]),
                    "ok": within(torch, got, want, *TOL[d]),
-                   "shape": f"x {tuple(x.shape)} w {tuple(w.shape)} "
-                            f"empty expert 7"}
+                   "shape": f"x {tuple(x.shape)} w {tuple(w.shape)}, "
+                            f"{int(offs[-1])} routed rows, empty experts "
+                            f"{empty}"}
             if dtype == torch.bfloat16 and not part:
                 rec["kernel_ms"] = cuda_ms(torch, lambda: ops.grouped_gemm(
                     x, w, off), 10)
@@ -554,7 +580,7 @@ def check_grouped_gemm(torch, rng, res, T, E, K, H, D, label, dev, primary):
                     x, w, off), 3)
                 rec["library_ms"] = _grouped_mm_ms(torch, x, w, off, want)
                 used = int((np.diff(offs) > 0).sum())
-                rec.update(bytes=(x.numel() + used * h_in * d_out
+                rec.update(bytes=(int(offs[-1]) * h_in + used * h_in * d_out
                                   + n * d_out) * 2 + 4 * (E + 1),
                            flops=2 * int(offs[-1]) * h_in * d_out,
                            peak="bf16", primary=primary)
@@ -646,7 +672,6 @@ def check_permute_capacity(torch, rng, res, T, E, K, H, C, label, dev):
     past C are -1 in slot (expert 0 is overloaded)."""
     import numpy as np
     from repro_torch.models import moe
-    ops, ref = _ops()
     logits = rng.standard_normal((T, E))
     logits[:, 0] += 3.0
     logits[:, 7] = -np.inf
@@ -659,115 +684,25 @@ def check_permute_capacity(torch, rng, res, T, E, K, H, C, label, dev):
     n_drop, n_empty = int((slot < 0).sum()), int((src < 0).sum())
     check(n_drop > 0 and n_empty > 0, f"permute capacity case has "
                                       f"{n_drop} drops, {n_empty} empty cells")
-    live = src[src >= 0]
-    for dtype in (torch.bfloat16, torch.float32):
-        dn = dname(dtype)
-        x = torch.randn(T, H, device=dev).to(dtype)
-        got = ops.permute_tokens(x, src)
-        want = ref.permute_tokens_ref(x, src)
-        torch.cuda.synchronize()
-        rec = {"label": f"{label} capacity {dn}",
-               "max_err": max_err(torch, got, want), "tol": [0.0, 0.0],
-               "ok": torch.equal(got, want) and bool(
-                   (got[src < 0] == 0).all()),
-               "shape": f"x {tuple(x.shape)} src ({E * C},), {n_empty} "
-                        f"empty cells"}
-        if dtype == torch.bfloat16:
-            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.permute_tokens(
-                x, src), 100)
-            rec["plain_ms"] = cuda_ms(torch, lambda: ref.permute_tokens_ref(
-                x, src), 50)
-            rec["library_ms"] = None
-            rec.update(bytes=(int(live.unique().numel()) + E * C) * H * 2
-                       + 4 * E * C, flops=0, peak="bf16", primary=False)
-        res.add("permute_tokens", rec, "differs from its plain version")
-
-        buf = torch.randn(E * C, H, device=dev).to(dtype)
-        out = ops.unpermute_tokens(buf, slot, w)
-        want = ref.unpermute_tokens_ref(buf, slot, w)
-        torch.cuda.synchronize()
-        ok = within(torch, out, want, *UNPERMUTE_TOL[dn])
-        rec = {"label": f"{label} capacity {dn}",
-               "max_err": max_err(torch, out, want),
-               "tol": list(UNPERMUTE_TOL[dn]), "ok": ok,
-               "shape": f"buf {tuple(buf.shape)} slot {tuple(slot.shape)}, "
-                        f"{n_drop} dropped slots"}
-        if dtype == torch.bfloat16:
-            want32 = ref.unpermute_tokens_ref(buf.float(), slot, w)
-            rec.update(max_err_vs_f32=max_err(torch, out, want32),
-                       tol_vs_f32=list(UNPERMUTE_TOL_VS_F32))
-            rec["ok"] = ok and within(torch, out, want32,
-                                      *UNPERMUTE_TOL_VS_F32)
-            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.unpermute_tokens(
-                buf, slot, w), 100)
-            rec["plain_ms"] = cuda_ms(
-                torch, lambda: ref.unpermute_tokens_ref(buf, slot, w), 50)
-            rec["library_ms"] = None
-            kept = slot[slot >= 0]
-            rec.update(bytes=(int(kept.unique().numel()) + T) * H * 2
-                       + 8 * T * K, flops=2 * int(kept.numel()) * H,
-                       peak="f32", primary=False)
-        res.add("unpermute_tokens", rec, "disagrees with its plain version")
+    _check_gather(torch, res, f"{label} capacity", T, H, src, None, None,
+                  dev, False)
+    _check_combine(torch, res, f"{label} capacity", E * C, H, slot, w, dev,
+                   False)
 
 
 def check_permute(torch, rng, res, T, E, K, H, label, dev, primary):
     """permute_tokens on the step's T tokens into expert order (N = T*k
     rows, no -1 entries, as on the dropless path) and unpermute_tokens
     combining the N rows back with f32 weights."""
-    ops, ref = _ops()
     n = T * K
     _, order = _routing(rng, T, E, K, empty=7)
     src = _i32(torch, order // K, dev)
     inv = torch.empty_like(src)
     inv[src.new_tensor(order).long()] = torch.arange(
         n, dtype=torch.int32, device=dev)
-    slot = inv.reshape(T, K)
-    for dtype in (torch.bfloat16, torch.float32):
-        d = dname(dtype)
-        x = torch.randn(T, H, device=dev).to(dtype)
-        got = ops.permute_tokens(x, src)
-        want = ref.permute_tokens_ref(x, src)
-        torch.cuda.synchronize()
-        rec = {"label": f"{label} {d}", "max_err": max_err(torch, got, want),
-               "tol": [0.0, 0.0], "ok": torch.equal(got, want),
-               "shape": f"x {tuple(x.shape)} src ({n},)"}
-        if dtype == torch.bfloat16:
-            src_long = src.long()
-            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.permute_tokens(
-                x, src), 100)
-            rec["plain_ms"] = cuda_ms(torch, lambda: ref.permute_tokens_ref(
-                x, src), 50)
-            check(torch.equal(torch.index_select(x, 0, src_long), want),
-                  "permute yardstick index_select differs")
-            rec["library_ms"] = cuda_ms(
-                torch, lambda: torch.index_select(x, 0, src_long), 100)
-            rec.update(bytes=(T + n) * H * 2 + 4 * n, flops=0, peak="bf16",
-                       primary=primary)
-        res.add("permute_tokens", rec, "differs from its plain version")
-
-        buf = torch.randn(n, H, device=dev).to(dtype)
-        w = torch.rand(T, K, device=dev)
-        got = ops.unpermute_tokens(buf, slot, w)
-        want = ref.unpermute_tokens_ref(buf, slot, w)
-        torch.cuda.synchronize()
-        ok = within(torch, got, want, *UNPERMUTE_TOL[d])
-        rec = {"label": f"{label} {d}", "max_err": max_err(torch, got, want),
-               "tol": list(UNPERMUTE_TOL[d]), "ok": ok,
-               "shape": f"buf {tuple(buf.shape)} slot {tuple(slot.shape)}"}
-        if dtype == torch.bfloat16:
-            want32 = ref.unpermute_tokens_ref(buf.float(), slot, w)
-            rec.update(max_err_vs_f32=max_err(torch, got, want32),
-                       tol_vs_f32=list(UNPERMUTE_TOL_VS_F32))
-            rec["ok"] = ok and within(torch, got, want32,
-                                      *UNPERMUTE_TOL_VS_F32)
-            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.unpermute_tokens(
-                buf, slot, w), 100)
-            rec["plain_ms"] = cuda_ms(
-                torch, lambda: ref.unpermute_tokens_ref(buf, slot, w), 50)
-            rec["library_ms"] = None
-            rec.update(bytes=(n + T) * H * 2 + 8 * n, flops=2 * n * H,
-                       peak="f32", primary=primary)
-        res.add("unpermute_tokens", rec, "disagrees with its plain version")
+    _check_gather(torch, res, label, T, H, src, None, None, dev, primary)
+    _check_combine(torch, res, label, n, H, inv.reshape(T, K),
+                   torch.rand(T, K, device=dev), dev, primary)
 
 
 def check_permute_contracts(torch, dev):
@@ -797,15 +732,229 @@ def check_permute_contracts(torch, dev):
     check(ok, "permute / unpermute contract case failed")
 
 
+def _ep_exchange(rng, dsh, S):
+    """One rank's side of the distributed serve's dropless EP exchange at
+    extent S, laid out as ``moe._moe_shard_dropless_fn`` lays it out: ep
+    sources each route t_c tokens (top-k, expert-sorted, the last expert
+    unused); this rank is EP index 0 and holds experts [0, e_local).
+    Returns numpy int64 arrays: source 0's dispatch buffer (``send_src``
+    (ep*S,), ``send_tot`` (ep,)), the received rows regrouped by local
+    expert (``comb_src`` (ep*S,), ``m_real`` of them valid, segments
+    ``off_local`` (e_local+1,)), the return gather (``out_src`` (ep*S,))
+    and source 0's combine rows (``slot`` (t_c, k))."""
+    import numpy as np
+    t_c, e, k, ep = (dsh[n] for n in ("t_c", "E", "k", "ep"))
+    el = e // ep
+    routes = [_routing(rng, t_c, e, k, empty=e - 1) for _ in range(ep)]
+    # source s sends this rank its experts-[0, el) segment cut at S rows
+    csum = np.stack([np.minimum(np.cumsum(np.diff(off)[:el]), S)
+                     for off, _ in routes])                   # (ep, el)
+    cnt = np.diff(csum, axis=1, prepend=0)
+    comb = [s * S + i for le in range(el) for s in range(ep)
+            for i in range(csum[s, le] - cnt[s, le], csum[s, le])]
+    m_real = len(comb)
+    comb_src = np.full(ep * S, -1)
+    comb_src[:m_real] = comb
+    out_src = np.full(ep * S, -1)
+    out_src[comb] = np.arange(m_real)
+    off0, order0 = routes[0]
+    rank_off = off0[::el].astype(np.int64)
+    send_tot = np.minimum(np.diff(rank_off), S)
+    send_src = np.full((ep, S), -1)
+    for r in range(ep):
+        send_src[r, :send_tot[r]] = \
+            order0[rank_off[r]:rank_off[r] + send_tot[r]] // k
+    inv = np.empty(order0.size, np.int64)
+    inv[order0] = np.arange(order0.size)
+    r_of = (rank_off[None, 1:] <= inv[:, None]).sum(1)
+    slot = r_of * S + np.minimum(inv - rank_off[r_of], S - 1)
+    return {"send_src": send_src.reshape(-1), "send_tot": send_tot,
+            "comb_src": comb_src, "m_real": m_real, "out_src": out_src,
+            "off_local": np.concatenate([[0], np.cumsum(cnt.sum(0))]),
+            "slot": slot.reshape(t_c, k)}
+
+
+def _index_select_ms(torch, x, src, want):
+    """One PyTorch call for the same rows: index_select over x with a zero
+    row appended, -1 mapped onto it (the mapping is set-up, untimed)."""
+    xz = torch.cat([x, x.new_zeros(1, x.shape[1])])
+    idx = torch.where(src >= 0, src, x.shape[0]).long()
+    check(torch.equal(torch.index_select(xz, 0, idx), want),
+          "gather yardstick index_select differs")
+    return cuda_ms(torch, lambda: torch.index_select(xz, 0, idx), 100)
+
+
+def _check_gather(torch, res, label, n_x, width, src, tot, stride, dev,
+                  primary):
+    """permute_tokens_ragged (``tot`` given) or permute_tokens of random
+    (n_x, width) rows by ``src``, bitwise against the plain version, -1
+    rows zero; timed in bf16 beside index_select."""
+    ops, ref = _ops()
+    ragged = tot is not None
+    name = "permute_tokens_ragged" if ragged else "permute_tokens"
+    n_valid = int((src >= 0).sum())
+    if ragged:
+        run = lambda x: ops.permute_tokens_ragged(  # noqa: E731
+            x, src, tot, seg_stride=stride)
+        plain = lambda x: ref.permute_tokens_ragged_ref(  # noqa: E731
+            x, src, tot, seg_stride=stride)
+        extra = f" total {tuple(tot.shape)} = {tot.tolist()}, stride {stride}"
+    else:
+        run = lambda x: ops.permute_tokens(x, src)  # noqa: E731
+        plain = lambda x: ref.permute_tokens_ref(x, src)  # noqa: E731
+        extra = ""
+    for dtype in (torch.bfloat16, torch.float32):
+        d = dname(dtype)
+        x = torch.randn(n_x, width, device=dev).to(dtype)
+        got, want = run(x), plain(x)
+        torch.cuda.synchronize()
+        rec = {"label": f"{label} {d}", "max_err": max_err(torch, got, want),
+               "tol": [0.0, 0.0], "ok": torch.equal(got, want)
+               and bool((got[src < 0] == 0).all()),
+               "shape": f"x {tuple(x.shape)} src ({src.numel()},){extra}, "
+                        f"{n_valid} valid rows"}
+        if dtype == torch.bfloat16:
+            rec["kernel_ms"] = cuda_ms(torch, lambda: run(x), 100)
+            rec["plain_ms"] = cuda_ms(torch, lambda: plain(x), 50)
+            rec["library_ms"] = _index_select_ms(torch, x, src, want)
+            live = int(src[src >= 0].unique().numel())
+            rec.update(bytes=(live + src.numel()) * width * 2
+                       + 4 * (n_valid + tot.numel() if ragged
+                              else src.numel()),
+                       flops=0, peak="bf16", primary=primary)
+        res.add(name, rec, "differs from its plain version")
+
+
+def _check_combine(torch, res, label, n_buf, width, slot, w, dev,
+                   primary):
+    """unpermute_tokens of random (n_buf, width) rows into slot.shape[0]
+    tokens by ``slot`` (-1 adds 0) and f32 weights ``w``, against the
+    plain version in each dtype and, in bf16, against the plain version
+    in f32."""
+    ops, ref = _ops()
+    T, K = slot.shape
+    n_neg = int((slot < 0).sum())
+    for dtype in (torch.bfloat16, torch.float32):
+        d = dname(dtype)
+        buf = torch.randn(n_buf, width, device=dev).to(dtype)
+        out = ops.unpermute_tokens(buf, slot, w)
+        want = ref.unpermute_tokens_ref(buf, slot, w)
+        torch.cuda.synchronize()
+        ok = within(torch, out, want, *UNPERMUTE_TOL[d])
+        rec = {"label": f"{label} {d}", "max_err": max_err(torch, out, want),
+               "tol": list(UNPERMUTE_TOL[d]), "ok": ok,
+               "shape": f"buf {tuple(buf.shape)} slot {tuple(slot.shape)}"
+                        + (f", {n_neg} dropped slots" if n_neg else "")}
+        if dtype == torch.bfloat16:
+            want32 = ref.unpermute_tokens_ref(buf.float(), slot, w)
+            rec.update(max_err_vs_f32=max_err(torch, out, want32),
+                       tol_vs_f32=list(UNPERMUTE_TOL_VS_F32))
+            rec["ok"] = ok and within(torch, out, want32,
+                                      *UNPERMUTE_TOL_VS_F32)
+            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.unpermute_tokens(
+                buf, slot, w), 100)
+            rec["plain_ms"] = cuda_ms(
+                torch, lambda: ref.unpermute_tokens_ref(buf, slot, w), 50)
+            rec["library_ms"] = None
+            kept = slot[slot >= 0]
+            rec.update(bytes=(int(kept.unique().numel()) + T) * width * 2
+                       + 8 * T * K, flops=2 * int(kept.numel()) * width,
+                       peak="f32", primary=primary)
+        res.add("unpermute_tokens", rec, "disagrees with its plain version")
+
+
+def check_ep_exchange(torch, rng, res, dsh, dev):
+    """The kernels one rank of the distributed serve launches, at its
+    shapes: the router gate on the rank's t tokens; then, at each extent
+    S the exchange runs (the row cap, and the worst case n_c of the
+    overflow rerun), the ragged dispatch gather (t_c, h/tp) -> (ep*S,
+    h/tp) with per-destination totals at stride S, the ragged comb gather
+    of the received (ep*S, h) rows by local expert under one scalar total,
+    the grouped GEMMs over the local experts' (h, d_ff/tp) blocks, the
+    return gather of the reduce-scattered (ep*S, h/tp) rows and the
+    combine of the t_c tokens' k rows."""
+    import numpy as np
+    t, t_c, e, k, ep, tp, h, d = (dsh[n] for n in (
+        "t", "t_c", "E", "k", "ep", "tp", "h", "d_ff"))
+    check_topk(torch, rng, res, t, e, k, "phi3.5 EP rank", dev, False)
+    i32 = lambda a: _i32(torch, a, dev)  # noqa: E731
+    for S in dsh["extents"]:
+        ex = _ep_exchange(rng, dsh, S)
+        tag = f"phi3.5 EP S={S}"
+        first = S == dsh["extents"][0]
+        _check_gather(torch, res, f"{tag} send", t_c, h // tp,
+                      i32(ex["send_src"]), i32(ex["send_tot"]), S, dev,
+                      first)
+        _check_gather(torch, res, f"{tag} comb", ep * S, h,
+                      i32(ex["comb_src"]), i32(np.asarray(ex["m_real"])),
+                      None, dev, False)
+        check_grouped_gemm(torch, rng, res, ex["off_local"], ep * S, h,
+                           d // tp, tag, dev, False)
+        _check_gather(torch, res, f"{tag} return", ep * S, h // tp,
+                      i32(ex["out_src"]), None, None, dev, False)
+        _check_combine(torch, res, f"{tag} combine", ep * S, h // tp,
+                       i32(ex["slot"]), torch.rand(t_c, k, device=dev), dev,
+                       False)
+    free_memory(torch)
+
+
+def check_permute_ragged_contracts(torch, dev):
+    """A vector total with an empty segment, an all-zero total, a scalar
+    total, n off the 32-row tile, rows off 16 bytes (h 4098), tiles wholly
+    past a prefix written as zeros even when src there is not -1 (the
+    kernel reads neither src nor x there), and the ValueError for segments
+    that do not cover the buffer."""
+    ops, ref = _ops()
+    ok = True
+    for dtype in (torch.bfloat16, torch.float32):
+        for h in (4096, 4098):
+            x = torch.randn(40, h, device=dev).to(dtype)
+            for totals, stride, n in (([5, 0, 23], 23, 69),
+                                      ([0, 0, 0], 23, 69),
+                                      (17, None, 70)):
+                tot = torch.tensor(totals, dtype=torch.int32, device=dev)
+                st = stride or n
+                row = torch.arange(n, device=dev)
+                seg = (row // st).clamp_max(tot.numel() - 1)
+                valid = (row - seg * st) < tot.reshape(-1)[seg]
+                src = torch.randint(0, 40, (n,), dtype=torch.int32,
+                                    device=dev)
+                src[~valid] = -1
+                got = ops.permute_tokens_ragged(x, src, tot,
+                                                seg_stride=stride)
+                ok &= torch.equal(got, ref.permute_tokens_ragged_ref(
+                    x, src, tot)) and bool((got[~valid] == 0).all())
+            junk = torch.randint(0, 40, (128,), dtype=torch.int32,
+                                 device=dev)
+            if dev.type == "cuda":    # the kernel's tiles, not the plain
+                got = ops.permute_tokens_ragged(   # version's dense gather
+                    x, junk, torch.tensor(20, dtype=torch.int32, device=dev))
+                ok &= bool((got[32:] == 0).all()) \
+                    and torch.equal(got[:32], x[junk[:32].long()])
+    try:
+        ops.permute_tokens_ragged(
+            x, junk[:100], torch.tensor([1, 1], dtype=torch.int32,
+                                        device=dev), seg_stride=40)
+        ok = False
+    except ValueError:
+        pass
+    print(f"[kernels] permute_tokens_ragged contracts (empty segments, zero "
+          f"and scalar totals, n off the tile, 16-byte and element-wise "
+          f"rows, empty-tail tiles zero without reading src, uncovered "
+          f"segments raise): ok={ok}")
+    check(ok, "permute_tokens_ragged contract case failed")
+
+
 def _ops():
     from repro_torch.kernels import ops, ref
     return ops, ref
 
 
-def phase_kernels(torch, phi, ds, ds1):
+def phase_kernels(torch, phi, ds, ds1, dsh):
     """phi / ds / ds1: the resolved shapes of the phi3.5 serve, the
     deepseek serve and the deepseek chunk=1 serve, each with the capacity
-    ``C`` its capacity-dispatch serve gives."""
+    ``C`` its capacity-dispatch serve gives; dsh: the distributed serve's
+    per-rank shapes."""
     import numpy as np
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -817,14 +966,16 @@ def phase_kernels(torch, phi, ds, ds1):
     t_ds = ds["max_batch"] * ds["chunk"]
     check_topk(torch, rng, res, t_phi, 16, 2, "phi3.5", dev, True)
     check_topk(torch, rng, res, t_ds, 160, 6, "deepseek", dev, False)
-    check_grouped_gemm(torch, rng, res, t_phi, 16, 2, 4096, 6400, "phi3.5",
-                       dev, True)
-    check_grouped_gemm(torch, rng, res, t_ds, 160, 6, 5120, 1536,
-                       "deepseek", dev, False)
+    check_grouped_gemm(torch, rng, res, _routing(rng, t_phi, 16, 2, 7)[0],
+                       t_phi * 2, 4096, 6400, "phi3.5", dev, True)
+    check_grouped_gemm(torch, rng, res, _routing(rng, t_ds, 160, 6, 7)[0],
+                       t_ds * 6, 5120, 1536, "deepseek", dev, False)
     check_permute(torch, rng, res, t_phi, 16, 2, 4096, "phi3.5", dev, True)
     check_permute(torch, rng, res, t_ds, 160, 6, 5120, "deepseek", dev,
                   False)
     check_permute_contracts(torch, dev)
+    check_ep_exchange(torch, rng, res, dsh, dev)
+    check_permute_ragged_contracts(torch, dev)
     check_moe_gemm(torch, rng, res, 16, phi["C"], 4096, 6400, "phi3.5", dev,
                    True)
     check_moe_gemm(torch, rng, res, 160, ds["C"], 5120, 1536, "deepseek",
@@ -1226,6 +1377,341 @@ def phase_profile(torch, llm, rng, label):
         f"{name} {us / 1e3:.1f} ms" for us, name in top[:5]))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the distributed MoE (4 ranks)
+# ---------------------------------------------------------------------------
+
+DIST_MESH = (2, 2)                           # (data, model)
+DIST_LAYOUTS = (("mixserve", "fused"), ("mixserve", "unfused"),
+                ("dp_ep", "unfused"), ("pure_tp", "unfused"))
+DIST_PARITY = dict(max_len=256, chunk=32, prompt_len=200, max_new_tokens=8)
+DIST_LENS = (40, 100, 200, 150)
+# per MoE layer and exchange chunk run (counts, dispatch, comb gather, FFN,
+# return, combine) on the dropless EP path
+DIST_PER_CHUNK = {"permute_tokens_ragged": 2, "permute_tokens": 1,
+                  "grouped_gemm": 3, "unpermute_tokens": 1}
+
+
+def _dist_strategy(layout, algo):
+    """ServeSpec.strategy of a layout on the DIST_MESH: mixserve as the
+    analyzer Strategy of its degrees, which carries the comm algorithm;
+    dp_ep and pure_tp by name (both run unfused)."""
+    if layout != "mixserve":
+        return layout
+    from repro_torch.core.cost_model import Strategy
+    data, model = DIST_MESH
+    return Strategy(attn_tp=model, attn_dp=data, moe_tp=model, moe_ep=data,
+                    comm_algo=algo)
+
+
+def dist_spec(**kw):
+    """The distributed serve: mixserve with the fused RS-A2A-AG, dropless,
+    the resolved ep_overlap."""
+    return _spec(strategy=_dist_strategy("mixserve", "fused"), chunk=64,
+                 prompt_len=512, max_new_tokens=16, **kw)
+
+
+def _dist_shapes(cfg):
+    """The shapes one rank of the distributed serve gives the kernels
+    (resolved on a description of the mesh; no process group): t tokens
+    per rank in ``chunks`` exchange chunks of t_c, and the extents S of
+    the exchange, the row cap and, where the cap is below it, the worst
+    case n_c that an overflowing chunk reruns at."""
+    from repro_torch.core.cost_model import EP_OVERLAP_OFF, cap_rows_for
+    from repro_torch.launch.mesh import Mesh
+    res = dist_spec().resolve(cfg, mesh=Mesh(("data", "model"), DIST_MESH),
+                              device="cuda")
+    plan = res.plan
+    ovl = plan.ep_overlap or EP_OVERLAP_OFF
+    t = res.max_batch // plan.dp * res.chunk
+    chunks = math.gcd(ovl.chunks, t) if ovl.chunks > 1 else 1
+    n_c = t // chunks * cfg.top_k
+    cap = cap_rows_for(n_c, plan.ep, ovl)
+    return {"t": t, "chunks": chunks, "t_c": t // chunks, "n_c": n_c,
+            "extents": [cap, n_c] if cap < n_c else [n_c], "ep": plan.ep,
+            "tp": plan.tp, "h": cfg.d_model, "d_ff": cfg.d_ff,
+            "E": cfg.n_experts, "k": cfg.top_k,
+            "ep_overlap": ovl.describe(),
+            "max_batch": res.max_batch, "chunk": res.chunk}
+
+
+def _dist_inputs(torch, cfg, dev):
+    """The parity phase's moe_block input and prompts, from seeds."""
+    import numpy as np
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(4, 64, cfg.d_model, generator=gen, device=dev)
+    rng = np.random.default_rng(1)
+    return x, [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in DIST_LENS]
+
+
+def _dist_reference(torch, path):
+    """The unsharded f32 runs the ranks are held against: moe_block and
+    LLM.generate on one device, both dispatch modes (capacity at a factor
+    at which nothing drops), 2 layers at full width."""
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.api import LLM
+    cfg = _no_drop(_cut("phi3.5-moe-42b", 2))
+    gen = torch.Generator(device="cuda")
+    params = init_params(gen.manual_seed(1), cfg, torch.float32, "cuda")
+    x, prompts = _dist_inputs(torch, cfg, "cuda")
+    ref = {"moe": {}, "streams": {}}
+    for d in ("dropless", "capacity"):
+        plan = make_plan("mixserve", kernels=KernelPolicy.all_on(),
+                         dispatch=d)
+        ref["moe"][d] = moe.moe_block(params["groups"][0][0]["moe"], x, cfg,
+                                      plan)[0].cpu()
+        llm = LLM.from_spec(_spec(dispatch=d, **DIST_PARITY), cfg=cfg,
+                            params=params, device="cuda",
+                            dtype=torch.float32)
+        ref["streams"][d] = llm.generate(prompts, 8)
+        del llm
+    torch.save(ref, path)
+    del params, x
+    free_memory(torch)
+
+
+def _dist_parity_rank(torch, mesh, ref):
+    """(a) on one rank: each layout's moe_block and LLM.generate against
+    the unsharded runs; mixserve fused also micro-chunked, with the auto
+    row cap and with a cap of 8 rows that every chunk overflows."""
+    from repro_torch.core.cost_model import EpOverlap
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.api import LLM
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _no_drop(_cut("phi3.5-moe-42b", 2))
+    x, prompts = _dist_inputs(torch, cfg, dev)
+    gen = torch.Generator(device=dev)
+    out = []
+    for lay, algo in DIST_LAYOUTS:
+        params = None
+        cases = [("dropless", "off"), ("capacity", "off")]
+        if (lay, algo) == ("mixserve", "fused"):
+            cases += [("dropless", EpOverlap(chunks=2)),
+                      ("dropless", EpOverlap(chunks=2, cap_rows=8))]
+        for d, ovl in cases:
+            res = _spec(strategy=_dist_strategy(lay, algo), dispatch=d,
+                        ep_overlap=ovl, **DIST_PARITY).resolve(
+                cfg, mesh=mesh, device=dev)
+            if params is None:      # one draw per layout's weight slicing
+                params = init_params(gen.manual_seed(1), cfg, torch.float32,
+                                     dev, plan=res.plan)
+            moe.exchange_counts.clear()
+            y = moe.moe_block(params["groups"][0][0]["moe"], x, cfg,
+                              res.plan)[0]
+            want = ref["moe"][d].to(dev)
+            ovf = moe.exchange_counts.get("overflow", 0)
+            llm = LLM.from_spec(res, cfg=cfg, params=params, device=dev,
+                                dtype=torch.float32)
+            t0 = time.perf_counter()
+            streams = llm.generate(prompts, 8)
+            torch.cuda.synchronize()
+            out.append({
+                "case": f"{lay} {res.plan.comm_algo} {d}"
+                        + ("" if ovl == "off" else f" ({ovl.describe()})"),
+                "moe_max_err": max_err(torch, y, want),
+                "moe_ok": within(torch, y, want, *TOL["float32"]),
+                "moe_overflow": ovf, "cap8": ovl != "off"
+                and ovl.cap_rows == 8, "auto_cap": ovl != "off"
+                and ovl.cap_rows == 0, "streams": streams,
+                "streams_equal": streams == ref["streams"][d],
+                "generate_s": time.perf_counter() - t0})
+            del llm
+        del params
+        free_memory(torch)
+    return out
+
+
+def _dist_serve_rank(torch, mesh):
+    """(b) on one rank: the bf16 8-layer phi3.5 serve, counters read from
+    this run only."""
+    import numpy as np
+    from repro_torch.core import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.serving.api import LLM
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _cut("phi3.5-moe-42b", 8)
+    res = dist_spec().resolve(cfg, mesh=mesh, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.from_spec(res, cfg=cfg, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size() for t in _leaves(llm.params))
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
+    tail = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+    prompts = [np.concatenate([shared, tail(40)]), tail(64), tail(512),
+               np.concatenate([shared, tail(200)])]
+    eng = llm.engine
+    ops.reset_counters()
+    moe.exchange_counts.clear()
+    collectives.reset_counters()
+    # host seconds this rank spends inside collectives (issue, exchange
+    # and waits), timed here only: the port's module keeps no clock
+    spent, depth = [0.0], [0]
+    issue, wait = collectives._issue, collectives.Pending.wait
+
+    def timed(fn):            # outermost call only (sync calls nest a wait)
+        def run(*a, **kw):
+            depth[0] += 1
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    spent[0] += time.perf_counter() - t
+        return run
+    collectives._issue = timed(issue)
+    collectives.Pending.wait = timed(wait)
+    n0 = eng.n_forward
+    t0 = time.perf_counter()
+    try:
+        streams = llm.generate(prompts, 16)
+        torch.cuda.synchronize()
+    finally:
+        collectives._issue, collectives.Pending.wait = issue, wait
+    wall = time.perf_counter() - t0
+    ovl = res.plan.ep_overlap
+    return {"streams": streams, "launches": dict(ops.counters),
+            "collective_s": spent[0],
+            "steps": eng.n_forward - n0, "exchange": dict(moe.exchange_counts),
+            "collectives": {f"{k} {'+'.join(a)}": n for (k, a), n
+                            in sorted(collectives.counters.items())},
+            "wall_s": wall, "load_s": load_s, "weights_gb": weights / 1e9,
+            "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "ep_load": eng.ep_load_stats(), "prefix_hits":
+            eng.kv.stats.n_prefix_hits, "spec": res.describe(),
+            "vocab": cfg.vocab_size,
+            "plan": f"{res.strategy} {res.plan.comm_algo}, tp {res.plan.tp} "
+                    f"{res.plan.tp_axes}, ep {res.plan.ep} "
+                    f"{res.plan.ep_axes}, dp {res.plan.dp} "
+                    f"{res.plan.dp_axes}, ep_overlap "
+                    f"{ovl.describe() if ovl else 'off'}"}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def dist_rank(rank, world, workdir):
+    """One rank of phase 5 (runs in its own process)."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(*DIST_MESH)
+    ref = torch.load(pathlib.Path(workdir) / "ref.pt")
+    parity = _dist_parity_rank(torch, mesh, ref)
+    free_memory(torch)
+    serve = _dist_serve_rank(torch, mesh)
+    return {"rank": rank, "backend": mesh.backend, "mesh": repr(mesh),
+            "device": torch.cuda.get_device_name(), "parity": parity,
+            "serve": serve}
+
+
+def phase_dist(torch, card_line, dsh):
+    """4 ranks on a 2x2 (data, model) mesh: gloo on one card shared by
+    all ranks (NCCL, one rank per card, where there are 4 cards)."""
+    from repro_torch.launch.mesh import pick_backend
+    from repro_torch.launch.ranks import RankFailed, run_ranks
+    work = ROOT / "build" / "dist_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _dist_reference(torch, work / "ref.pt")
+    t_ref = time.perf_counter() - t0
+    backend = pick_backend(4, "cuda")
+    label = ("4 ranks sharing one card" if backend == "gloo"
+             else "4 ranks, one card each")
+    print(f"[dist] unsharded f32 references in {t_ref:.1f}s; spawning 4 "
+          f"ranks, backend {backend}, mesh (data, model) = {DIST_MESH} "
+          f"[{label}]")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(dist_rank, 4, (str(work),), workdir=work,
+                          device="cuda", timeout_s=900)
+    except RankFailed as e:
+        raise SmokeError(f"distributed phase: {e}") from e
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"[dist] {len(ranks)} ranks done in {wall:.1f}s: backend "
+          f"{r0['backend']}, world 4, {r0['mesh']}, devices "
+          f"{sorted({r['device'] for r in ranks})}")
+    check(all(r["backend"] == backend for r in ranks),
+          f"distributed phase: backends {[r['backend'] for r in ranks]}")
+    # (a) f32 parity
+    for i, case in enumerate(r0["parity"]):
+        per = [r["parity"][i] for r in ranks]
+        err = max(c["moe_max_err"] for c in per)
+        ovf = [c["moe_overflow"] for c in per]
+        print(f"[dist] (a) {case['case']}: moe_block vs unsharded max err "
+              f"{err:.3e} (tol {TOL['float32']}), overflowed chunks per "
+              f"rank {ovf}; LLM.generate streams equal unsharded on every "
+              f"rank: {all(c['streams_equal'] for c in per)} "
+              f"({case['generate_s']:.2f}s, {label})")
+        check(all(c["moe_ok"] for c in per),
+              f"distributed {case['case']}: moe_block differs by {err}")
+        check(all(c["streams_equal"] for c in per),
+              f"distributed {case['case']}: streams differ from unsharded: "
+              f"{[c['streams'] for c in per]}")
+        check(not case["cap8"] or min(ovf) > 0,
+              f"distributed {case['case']}: the 8-row cap never overflowed")
+        check(not case["auto_cap"] or max(ovf) == 0,
+              f"distributed {case['case']}: the auto cap overflowed")
+    # (b) the bf16 serve
+    sv = [r["serve"] for r in ranks]
+    s0 = sv[0]
+    print(f"[dist] (b) plan: {s0['plan']}; resolved:\n{s0['spec']}")
+    runs = s0["exchange"].get("chunks", 0) + s0["exchange"].get("overflow",
+                                                               0)
+    n_moe = 8
+    want = {"flash_chunk_paged": 8 * s0["steps"],
+            "topk_gate": n_moe * s0["steps"]}
+    want.update({k: v * runs for k, v in DIST_PER_CHUNK.items()})
+    n_tok = sum(len(v) for v in s0["streams"])
+    for r, s in enumerate(sv):
+        print(f"[dist] (b) rank {r}: {n_tok} new tokens in {s['steps']} "
+              f"steps, {s['wall_s']:.2f}s ({n_tok / s['wall_s']:.1f} tok/s, "
+              f"{s['wall_s'] / s['steps'] * 1e3:.1f} ms/step, {label}; "
+              f"{s['collective_s']:.2f}s of it inside collectives, host "
+              f"clock); "
+              f"weights {s['weights_gb']:.2f} GB, max_memory_allocated "
+              f"{s['max_mem_gib']:.1f} GiB, load {s['load_s']:.1f}s; "
+              f"exchange chunks {s['exchange']}; prefix hits "
+              f"{s['prefix_hits']} [{card_line}]")
+        print(f"[dist] (b) rank {r}: kernel launches {s['launches']} "
+              f"(expect {want}); collectives {s['collectives']}; "
+              f"ep_load_stats {s['ep_load']}")
+        check(s["launches"] == want and s["exchange"] == s0["exchange"],
+              f"distributed serve rank {r}: launches {s['launches']} != "
+              f"{want}")
+        check(s["exchange"].get("chunks") == s["steps"] * n_moe
+              * dsh["chunks"], f"distributed serve rank {r}: "
+              f"{s['exchange']} exchange chunks in {s['steps']} steps")
+        check(s["streams"] == s0["streams"],
+              f"distributed serve: rank {r}'s streams differ from rank 0's")
+    check(all(len(v) == 16 and all(0 <= t < s0["vocab"] for t in v)
+              for v in s0["streams"]),
+          f"distributed serve: streams {s0['streams']}")
+    (work / "ref.pt").unlink()
+    launches: dict = {}
+    for s in sv:
+        for k, v in s["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "wall_s": wall,
+            "serve": {k: v for k, v in s0.items() if k != "streams"}}
+
+
 def kernels_record(kres, launches):
     out = []
     for name, source, replaces in KERNELS:
@@ -1320,8 +1806,10 @@ def main() -> int:
           "capacity dispatch resolved another envelope than dropless")
     for sh, cfg in ((phi, phi_cfg), (ds, ds_cfg), (ds1, ds_cfg)):
         sh["C"] = _capacity(sh, cfg)
-    print(f"[shapes] phi3.5 {phi} | deepseek {ds} | deepseek chunk=1 {ds1}")
-    kres = phase_kernels(torch, phi, ds, ds1)
+    dsh = _dist_shapes(phi_cfg)
+    print(f"[shapes] phi3.5 {phi} | deepseek {ds} | deepseek chunk=1 {ds1}"
+          f" | distributed phi3.5 EP exchange per rank {dsh}")
+    kres = phase_kernels(torch, phi, ds, ds1, dsh)
     phase_capacity_module(torch, phi, ds)
     phase_parity(torch)
     serve_phi, cap_phi = phase_serve_phi(torch, card_line)
@@ -1332,8 +1820,10 @@ def main() -> int:
         want = {k: v for k, v in want.items() if k != "C"}
         check(got["shapes"] == want,
               f"serve ran {got['shapes']}, kernels were checked at {want}")
+    free_memory(torch)
+    dist = phase_dist(torch, card_line, dsh)
     launches: dict = {}
-    for s in (serve_phi, cap_phi, serve_ds, serve_ds1, cap_ds):
+    for s in (serve_phi, cap_phi, serve_ds, serve_ds1, cap_ds, dist):
         for k, v in s["launches"].items():
             launches[k] = launches.get(k, 0) + v
     rec = kernels_record(kres, launches)

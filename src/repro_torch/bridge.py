@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import layer_plan
+from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan
+from repro_torch.models.model import layer_plan, model_spec
 
 
 def _tensor(a, device, dtype):
@@ -22,22 +23,38 @@ def _tensor(a, device, dtype):
                                                         dtype=dtype)
 
 
-def _unstack(tree, i: int, device, dtype):
+def _unstack(tree, spec, i, keep, device, dtype):
     if isinstance(tree, dict):
-        return {k: _unstack(v, i, device, dtype) for k, v in tree.items()}
-    return _tensor(np.asarray(tree)[i], device, dtype)
+        return {k: _unstack(v, spec[k], i, keep, device, dtype)
+                for k, v in tree.items()}
+    a = np.asarray(tree)[i]
+    if keep is not None:
+        a = a[keep(spec)]
+    return _tensor(a, device, dtype)
 
 
 def from_reference(params_np: dict, cfg: ModelConfig, device="cpu",
-                   dtype=torch.float32) -> dict:
-    """The port's parameter tree from the reference's numpy tree."""
+                   dtype=torch.float32,
+                   plan: ShardingPlan = NULL_PLAN) -> dict:
+    """The port's parameter tree from the reference's numpy tree.  With a
+    mesh plan the MoE weights are cut to this rank's slice, as
+    ``models.model.init_params`` keeps them."""
     out = {}
+    specs = model_spec(cfg)["groups"]
     for name, leaf in params_np.items():
         if name == "groups":
             groups = []
-            for g, tree in zip(layer_plan(cfg), leaf):
-                groups.append([_unstack(tree, i, device, dtype)
-                               for i in range(g.count)])
+            for g, tree, spec in zip(layer_plan(cfg), leaf, specs):
+                layers = []
+                for i in range(g.count):
+                    layer = {}
+                    for sub, sub_tree in tree.items():
+                        keep = (lambda p: plan.local_slices(p.shape, p.axes)) \
+                            if sub == "moe" and plan.enabled else None
+                        layer[sub] = _unstack(sub_tree, spec[i][sub], i, keep,
+                                              device, dtype)
+                    layers.append(layer)
+                groups.append(layers)
             out["groups"] = groups
         elif isinstance(leaf, dict):
             raise NotImplementedError(

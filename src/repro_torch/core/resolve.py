@@ -7,7 +7,8 @@ concrete value, derived from the offline analyzer / theoretical cost model
 instead of user homework:
 
   cluster       explicit ClusterSpec / name (validated against the mesh) or
-                the single-H100 default (``h100x1``)
+                the H100 cluster of the mesh's size (``h100x1`` without a
+                mesh, ``h100-2x2`` for four ranks)
   strategy      ``analyzer.select`` on the §III-B1 grammar, mapped to a
                 ShardingPlan layout name (hybrid "mixserve" vs pure-EP
                 "dp_ep", with the expert-divisibility guard)
@@ -55,7 +56,8 @@ from typing import Union
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cost_model as cm
-from repro_torch.core.topology import CLUSTERS, H100_X1, ClusterSpec
+from repro_torch.core.topology import (CLUSTERS, H100_2X2, H100_X1,
+                                      ClusterSpec)
 
 AUTO = "auto"
 
@@ -94,14 +96,18 @@ def resolved_itl_slack() -> tuple[float, str]:
 
 def resolve_cluster(cluster: Union[str, ClusterSpec, None] = None, *,
                     mesh=None) -> tuple[ClusterSpec, str]:
-    """(ClusterSpec, provenance).  Explicit name/spec wins; ``auto``/None
-    is the one card the port serves on (``h100x1``).  A mesh is multi-device
-    work the port does not do yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device serving is not ported yet (ROADMAP A8)")
+    """(ClusterSpec, provenance).  Explicit name/spec wins, validated
+    against ``mesh.size`` when a mesh is given; ``auto``/None is the H100
+    cluster of the mesh's size (``h100x1`` with no mesh, ``h100-2x2`` for
+    four ranks)."""
     if cluster is None or cluster == AUTO:
-        return H100_X1, "auto:default(h100x1)"
+        if mesh is None:
+            return H100_X1, "auto:default(h100x1)"
+        for spec in (H100_X1, H100_2X2):
+            if spec.n_devices == mesh.size:
+                return spec, f"auto:mesh({mesh.size} ranks)"
+        raise ValueError(f"no H100 cluster of {mesh.size} devices is "
+                         "defined; pass a ClusterSpec of the mesh's size")
     if isinstance(cluster, str):
         if cluster not in CLUSTERS:
             raise KeyError(f"unknown cluster {cluster!r} "
@@ -109,6 +115,10 @@ def resolve_cluster(cluster: Union[str, ClusterSpec, None] = None, *,
         spec = CLUSTERS[cluster]
     else:
         spec = cluster
+    if mesh is not None and spec.n_devices != mesh.size:
+        raise ValueError(
+            f"cluster {spec.name!r} has {spec.n_devices} devices but the "
+            f"mesh has {mesh.size} — pass a matching ClusterSpec")
     return spec, "explicit"
 
 

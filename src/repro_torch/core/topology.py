@@ -132,9 +132,22 @@ H100_X1 = ClusterSpec(
     inter_node_bw=_gbps(400.0),
 )
 
+# Four H100s as MixServe lays them out: 2 nodes x 2 cards, the "model" (TP)
+# axis on NVLink inside a node, the "data" (EP) axis across nodes, each
+# node's 400 Gb/s NIC shared by its two cards.  The per-card figures are
+# h100x1's.  This prices a mesh of 4 ranks; on one card (ranks sharing it)
+# or on one 4-card host it has not been checked against a measurement.
+H100_2X2 = dataclasses.replace(
+    H100_X1,
+    name="h100-2x2",
+    n_node=2,
+    n_proc=2,
+    inter_node_bw=_gbps(400.0) / 2,
+)
+
 CLUSTERS = {
     c.name: c for c in (H20_CLUSTER, ASCEND_910B_CLUSTER, TPU_V5E_POD,
-                        TPU_V5E_MULTIPOD, H100_X1)
+                        TPU_V5E_MULTIPOD, H100_X1, H100_2X2)
 }
 
 
@@ -168,6 +181,7 @@ __all__ = [
     "TPU_V5E_POD",
     "TPU_V5E_MULTIPOD",
     "H100_X1",
+    "H100_2X2",
     "CLUSTERS",
     "is_pow2",
     "pow2_divisors",

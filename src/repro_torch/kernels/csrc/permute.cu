@@ -1,9 +1,19 @@
 // Fused MoE token permute (dispatch gather) and unpermute (weighted combine).
 //
-// Replaces: src/repro/kernels/permute.py :: permute_tokens and
-// unpermute_tokens.
+// Replaces: src/repro/kernels/permute.py :: permute_tokens,
+// permute_tokens_ragged and unpermute_tokens.
 //
 //   permute_tokens    out[i] = x[src[i]]                (src < 0 -> 0 row)
+//   permute_tokens_ragged
+//                     the same gather on a buffer cut into segments of
+//                     seg_stride rows, each populated only in a leading
+//                     prefix of total[seg] rows (the EP exchange's send
+//                     buffer, one segment per destination rank; a scalar
+//                     total is one segment over the whole buffer).  A tile
+//                     of rows that all lie at or past their segment's
+//                     prefix writes zeros and reads neither src nor x;
+//                     every other tile gathers, and validity still rides in
+//                     src (-1 outside the prefixes)
 //   unpermute_tokens  out[t] = sum_j buf[slot[t,j]] * w[t,j]
 //                     f32 accumulation in slot order j = 0..k-1, written in
 //                     buf's dtype; slot < 0 adds row 0 times 0, as the
@@ -18,11 +28,15 @@
 // permute copies raw bits (it never converts), so one kernel serves both
 // float types.  Rows whose byte width is not a multiple of 16, or whose
 // pointers are not 16-byte aligned, take the element-wise instantiation.
+// The ragged gather gives each block a tile of 32 rows (4 per warp), so the
+// buffers sized for the worst-case skew, mostly empty at low load, cost
+// one zero-store sweep per empty tile and no index or row reads.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;   // 8 warps = 8 output rows per block
+constexpr int RAGGED_TILE = 32;   // rows per block of the ragged gather
 
 template <typename V>   // uint4 (16 B), uint32_t or uint16_t: raw bits
 __global__ void __launch_bounds__(THREADS) permute_kernel(
@@ -39,6 +53,40 @@ __global__ void __launch_bounds__(THREADS) permute_kernel(
   }
   const V* xr = x + (long long)s * w;
   for (int c = lane; c < w; c += 32) o[c] = xr[c];
+}
+
+// Tile [base, last] is empty when each segment it touches starts its part
+// of the tile at or past that segment's prefix.  The wrapper guarantees
+// n_seg * seg_stride >= n, so every row has a segment.
+template <typename V>
+__global__ void __launch_bounds__(THREADS) permute_ragged_kernel(
+    const V* __restrict__ x, const int* __restrict__ src,
+    const int* __restrict__ total, V* __restrict__ out, int n, int t, int w,
+    int seg_stride) {
+  const int base = blockIdx.x * RAGGED_TILE;
+  const int last = min(base + RAGGED_TILE, n) - 1;
+  bool empty = true;
+  for (int r = base / seg_stride; r <= last / seg_stride && empty; ++r) {
+    const int seg0 = r * seg_stride;
+    empty = max(base, seg0) - seg0 >= total[r];
+  }
+  if (empty) {
+    V* o = out + (long long)base * w;
+    const long long cnt = (long long)(last - base + 1) * w;
+    for (long long c = threadIdx.x; c < cnt; c += THREADS) o[c] = V{};
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  for (int row = base + (threadIdx.x >> 5); row <= last; row += THREADS / 32) {
+    const int s = src[row];
+    V* o = out + (long long)row * w;
+    if (s < 0 || s >= t) {
+      for (int c = lane; c < w; c += 32) o[c] = V{};
+      continue;
+    }
+    const V* xr = x + (long long)s * w;
+    for (int c = lane; c < w; c += 32) o[c] = xr[c];
+  }
 }
 
 // 8 consecutive elements <-> f32; the vector forms need 16-byte alignment
@@ -147,6 +195,31 @@ extern "C" int rt_permute_tokens(const void* x, const void* src, void* out,
   else
     permute_kernel<uint16_t><<<row_grid(n), THREADS, 0, s>>>(
         (const uint16_t*)x, si, (uint16_t*)out, n, t, h);
+  return cudaGetLastError();
+}
+
+extern "C" int rt_permute_tokens_ragged(const void* x, const void* src,
+                                        const void* total, void* out, int n,
+                                        int t, int h, int elem_bytes,
+                                        int seg_stride, void* stream) {
+  if (n == 0 || h == 0) return cudaSuccess;
+  if ((elem_bytes != 2 && elem_bytes != 4) || seg_stride <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long row_bytes = (long long)h * elem_bytes;
+  const int* si = (const int*)src;
+  const int* tot = (const int*)total;
+  const dim3 grid((n + RAGGED_TILE - 1) / RAGGED_TILE);
+  if (row_bytes % 16 == 0 && aligned16(x) && aligned16(out))
+    permute_ragged_kernel<uint4><<<grid, THREADS, 0, s>>>(
+        (const uint4*)x, si, tot, (uint4*)out, n, t, (int)(row_bytes / 16),
+        seg_stride);
+  else if (elem_bytes == 4)
+    permute_ragged_kernel<uint32_t><<<grid, THREADS, 0, s>>>(
+        (const uint32_t*)x, si, tot, (uint32_t*)out, n, t, h, seg_stride);
+  else
+    permute_ragged_kernel<uint16_t><<<grid, THREADS, 0, s>>>(
+        (const uint16_t*)x, si, tot, (uint16_t*)out, n, t, h, seg_stride);
   return cudaGetLastError();
 }
 

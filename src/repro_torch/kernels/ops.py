@@ -267,6 +267,41 @@ def permute_tokens(x, src_tok):
     return out
 
 
+def permute_tokens_ragged(x, src_tok, total, *, seg_stride=None):
+    """``permute_tokens`` on a buffer of fixed-stride segments, each valid
+    only in a leading prefix.  x (T, h), src_tok (N,) int32 -> (N, h).
+    ``total`` is a () int32 prefix over one segment spanning the buffer, or
+    (n_seg,) int32 prefixes of segments ``seg_stride`` rows apart (default
+    ``seg_stride`` = N).  Rows outside the prefixes must carry
+    ``src_tok == -1``; tiles lying wholly past their prefixes are written as
+    zeros without a gather.  Raises ``ValueError`` when the segments do not
+    cover the buffer.  Contract: ``ref.permute_tokens_ragged_ref``."""
+    name = "permute_tokens_ragged"
+    dev = _check_same_device(x, src_tok, total)
+    _check_float(name, x)
+    _check_int32(name, src_tok, total)
+    _check_contiguous(name, x, src_tok, total)
+    _check(x.dim() == 2 and src_tok.dim() == 1 and total.dim() <= 1,
+           f"{name}: need x (T, h), src_tok (N,) and total () or (n_seg,)")
+    n, n_seg = src_tok.shape[0], total.numel()
+    seg_stride = n if seg_stride is None else int(seg_stride)
+    if n_seg * seg_stride < n:
+        raise ValueError(f"{name}: segments ({n_seg} x {seg_stride}) do not "
+                         f"cover the {n}-row buffer")
+    if dev.type == "cpu":
+        return ref.permute_tokens_ragged_ref(x, src_tok, total,
+                                             seg_stride=seg_stride)
+    t, h = x.shape
+    out = torch.empty(n, h, dtype=x.dtype, device=dev)
+    if n == 0:
+        return out
+    _launch(build.load().rt_permute_tokens_ragged, x.data_ptr(),
+            src_tok.data_ptr(), total.data_ptr(), out.data_ptr(), n, t, h,
+            x.element_size(), seg_stride, _stream())
+    counters[name] += 1
+    return out
+
+
 def unpermute_tokens(buf, src_slot, weights):
     """buf (M, h), src_slot (T, k) int32, weights (T, k) -> (T, h) in buf's
     dtype: each token's k expert rows weighted and summed in float32, in
@@ -297,5 +332,6 @@ def unpermute_tokens(buf, src_slot, weights):
 
 
 __all__ = ["flash_chunk", "flash_decode", "flash_chunk_paged", "topk_gate",
-           "moe_gemm", "grouped_gemm", "permute_tokens", "unpermute_tokens",
-           "counters", "reset_counters"]
+           "moe_gemm", "grouped_gemm", "permute_tokens",
+           "permute_tokens_ragged", "unpermute_tokens", "counters",
+           "reset_counters"]

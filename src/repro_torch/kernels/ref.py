@@ -128,6 +128,15 @@ def permute_tokens_ref(x, src_tok):
     return torch.where(src_tok[:, None] >= 0, rows, torch.zeros_like(rows))
 
 
+def permute_tokens_ragged_ref(x, src_tok, total, *, seg_stride=None):
+    """Segment-aware ``permute_tokens``.  Validity rides in ``src_tok``
+    (rows outside the per-segment prefixes carry -1), so the dense gather
+    is the answer; ``total`` / ``seg_stride`` only tell the kernel which
+    tiles it may skip."""
+    del total, seg_stride
+    return permute_tokens_ref(x, src_tok)
+
+
 def unpermute_tokens_ref(buf, src_slot, weights):
     """buf (M, h), src_slot (T, k) int32, weights (T, k) -> (T, h).
     f32-accumulated weighted combine; slots with src_slot < 0 add 0."""
@@ -142,4 +151,4 @@ def unpermute_tokens_ref(buf, src_slot, weights):
 __all__ = ["top_k_first", "topk_gate_ref", "moe_gemm_ref",
            "grouped_gemm_ref", "flash_chunk_ref", "flash_decode_ref",
            "flash_chunk_paged_ref", "permute_tokens_ref",
-           "unpermute_tokens_ref"]
+           "permute_tokens_ragged_ref", "unpermute_tokens_ref"]

@@ -1,0 +1,179 @@
+"""The device mesh: named axes over ``torch.distributed`` ranks.
+
+The reference drives every device from one controller through a JAX
+``Mesh``; the port runs one process per rank (SPMD).  ``Mesh`` names the
+axes, holds this rank's coordinates, and builds one process group for every
+tuple of axes: the ranks that share every other coordinate.
+
+Ranks are numbered row-major over the axes in their order (``("data",
+"model")`` or ``("pod", "data", "model")``).  ``torch.distributed.new_group``
+sorts its ranks, so a rank's place in the group of ``axes`` is the row-major
+linearisation of its coordinates on those axes, which is what the
+reference's ``_axis_index`` computes: chunk ``i`` of an all-to-all reaches
+the rank JAX would call ``i``.
+
+    init_ranks(rank, world, init_method)        # every process
+    mesh = make_host_mesh(data=2, model=2)      # (data=2, model=2)
+
+``init_method`` is a ``file://`` path or ``tcp://localhost:<port>`` on a
+free port (never a fixed one: several runs may share the host).
+"""
+
+from __future__ import annotations
+
+import datetime
+import itertools
+import math
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+PG_TIMEOUT_S = 600.0
+
+
+def pick_backend(world: int, device: str = "cuda") -> str:
+    """NCCL when every rank has a card of its own, gloo otherwise (the
+    CPU, or several ranks sharing one card: NCCL refuses two ranks on one
+    GPU)."""
+    if torch.device(device).type == "cuda" \
+            and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(rank: int, device: str = "cuda") -> torch.device:
+    """The device rank ``rank`` computes on: ``cuda:(rank mod cards)`` for
+    CUDA (every rank on ``cuda:0`` when there is one card), else the CPU."""
+    if torch.device(device).type != "cuda":
+        return torch.device("cpu")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def init_ranks(rank: int, world: int, init_method: str, *,
+               device: str = "cuda") -> str:
+    """Join the process group as ``rank`` of ``world``; returns the
+    backend (``pick_backend``).  On CUDA it also makes
+    ``rank_device(rank)`` current.  A collective that waits longer than
+    ``PG_TIMEOUT_S`` fails."""
+    backend = pick_backend(world, device)
+    dev = rank_device(rank, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    return backend
+
+
+class Mesh:
+    """Named axes over the ranks, row-major, plus this rank's coordinates.
+
+    ``shape`` maps axis name to size (as a JAX mesh's does).  ``group``
+    returns the process group of an axis tuple; a mesh built without a
+    process group (``connect=False``) describes a layout and has none."""
+
+    def __init__(self, axis_names, sizes, rank: int = 0, *,
+                 connect: bool = False):
+        self.axis_names = tuple(axis_names)
+        sizes = tuple(int(s) for s in sizes)
+        if len(sizes) != len(self.axis_names) or min(sizes) < 1:
+            raise ValueError(f"mesh axes {self.axis_names} need one size "
+                             f">= 1 each, got {sizes}")
+        self.shape = dict(zip(self.axis_names, sizes))
+        self.size = math.prod(sizes)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        coords, r = [], rank
+        for s in reversed(sizes):
+            coords.append(r % s)
+            r //= s
+        self.coords = dict(zip(self.axis_names, reversed(coords)))
+        self.backend: Optional[str] = None
+        self._groups: dict = {}
+        if connect:
+            self._connect()
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{a}={s}" for a, s in self.shape.items())
+        return f"Mesh({dims}; rank {self.rank} at {self.coords})"
+
+    # -- axes ------------------------------------------------------------
+    def axes(self, axes) -> tuple:
+        """Normalise an axis name or tuple; the tuple must follow the mesh
+        order (a group's rank is the row-major index in that order)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        pos = [self.axis_names.index(a) for a in axes]
+        if pos != sorted(set(pos)):
+            raise ValueError(f"axes {axes} must be distinct and in the mesh "
+                             f"order {self.axis_names}")
+        return axes
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self.axes(axes))
+
+    def axis_index(self, axes) -> int:
+        """This rank's row-major index over ``axes`` (its group rank)."""
+        idx = 0
+        for a in self.axes(axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def group_ranks(self, axes, coords: Optional[dict] = None) -> list:
+        """Global ranks of the group over ``axes`` through ``coords``
+        (default: this rank's), in group-rank order."""
+        axes = self.axes(axes)
+        coords = dict(self.coords if coords is None else coords)
+        out = []
+        for vals in itertools.product(*(range(self.shape[a]) for a in axes)):
+            coords.update(zip(axes, vals))
+            r = 0
+            for a in self.axis_names:
+                r = r * self.shape[a] + coords[a]
+            out.append(r)
+        return out
+
+    # -- process groups ----------------------------------------------------
+    def _connect(self) -> None:
+        """Create every axis tuple's groups.  ``new_group`` is collective
+        over the whole world, so every rank creates every group, in one
+        order."""
+        if not dist.is_initialized():
+            raise RuntimeError("Mesh(connect=True) needs an initialised "
+                               "process group (init_ranks)")
+        if dist.get_world_size() != self.size:
+            raise ValueError(f"world of {dist.get_world_size()} ranks, mesh "
+                             f"of {self.size}")
+        self.backend = dist.get_backend()
+        names = self.axis_names
+        for n_ax in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, n_ax):
+                rest = [a for a in names if a not in axes]
+                for vals in itertools.product(
+                        *(range(self.shape[a]) for a in rest)):
+                    ranks = self.group_ranks(axes, dict(zip(rest, vals)))
+                    g = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[axes] = g
+
+    def group(self, axes):
+        axes = self.axes(axes)
+        if axes not in self._groups:
+            raise RuntimeError(f"{self!r} has no process group for {axes} "
+                               "(built without connect=True?)")
+        return self._groups[axes]
+
+
+def make_host_mesh(data: int = 2, model: int = 2, pod: int = 0) -> Mesh:
+    """The mesh ``(data, model)``, or ``(pod, data, model)`` when ``pod``,
+    over the initialised process group; this process is its rank."""
+    if pod:
+        return Mesh(("pod", "data", "model"), (pod, data, model),
+                    dist.get_rank(), connect=True)
+    return Mesh(("data", "model"), (data, model), dist.get_rank(),
+                connect=True)
+
+
+__all__ = ["Mesh", "make_host_mesh", "init_ranks", "pick_backend",
+           "rank_device"]

@@ -93,10 +93,26 @@ def model_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
+def moe_keep(plan: ShardingPlan):
+    """The ``init_tree`` keep-hook of ``plan``: on a mesh, each rank keeps
+    its block of the MoE blocks' weights (the layout ``moe.moe_block``
+    reads); every other leaf stays whole (replicated)."""
+    if not plan.enabled:
+        return None
+
+    def keep(path, p):
+        return plan.local_slices(p.shape, p.axes) if "moe" in path else None
+    return keep
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig,
-                dtype=torch.bfloat16, device="cuda"):
-    """Random weights drawn from ``gen`` (a generator on ``device``)."""
-    return init_tree(gen, model_spec(cfg), dtype, device)
+                dtype=torch.bfloat16, device="cuda",
+                plan: ShardingPlan = NULL_PLAN):
+    """Random weights drawn from ``gen`` (a generator on ``device``).  With
+    a mesh plan each rank holds its slice of the MoE weights, equal to the
+    same slice of the whole tree the same seed gives."""
+    return init_tree(gen, model_spec(cfg), dtype, device,
+                     keep=moe_keep(plan))
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -248,5 +264,5 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
 
 
 __all__ = ["Group", "layer_plan", "model_spec", "sublayer_spec",
-           "init_params", "count_params", "init_paged_cache",
+           "init_params", "moe_keep", "count_params", "init_paged_cache",
            "apply_sublayer", "forward", "Output"]

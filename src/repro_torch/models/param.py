@@ -64,10 +64,32 @@ def _leaves(tree) -> list:
 
 
 def init_tree(gen: torch.Generator, spec, dtype=torch.bfloat16,
-              device="cuda"):
+              device="cuda", keep=None):
     """Materialize a spec tree into tensors on ``device``.  Every draw is
-    float32 from ``gen`` (a generator on that device), then cast."""
-    return _map(lambda p: _init_one(gen, p, dtype, device), spec)
+    float32 from ``gen`` (a generator on that device), then cast.
+
+    ``keep(path, p)`` (path: the tuple of keys and list indices down to the
+    leaf) may return a tuple of slices: only that block of the leaf is
+    kept, copied out of the whole float32 draw, so the generator makes the
+    same draws as for the whole tree and the block equals the same block
+    of the whole tree.  The peak is one whole leaf."""
+    def one(path, p):
+        sl = keep(path, p) if keep is not None else None
+        if sl is None:
+            return _init_one(gen, p, dtype, device)
+        whole = _init_one(gen, p, torch.float32, device)
+        block = torch.empty(whole[sl].shape, dtype=dtype, device=device)
+        return block.copy_(whole[sl])
+
+    def walk(path, tree):
+        if is_p(tree):
+            return one(path, tree)
+        if isinstance(tree, dict):
+            return {k: walk(path + (k,), tree[k]) for k in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return [walk(path + (i,), v) for i, v in enumerate(tree)]
+        raise TypeError(f"unexpected spec node {type(tree).__name__}")
+    return walk((), spec)
 
 
 def axes_tree(spec):

@@ -159,7 +159,10 @@ class ServeSpec:
 
         ``cfg`` defaults to the FULL config of ``arch`` (the offline stage
         prices the real model); ``cluster`` overrides the spec's field;
-        ``mesh`` (a multi-device layout) is not ported yet and raises.
+        ``mesh`` (a ``launch.mesh.Mesh`` over the ranks) makes the plan a
+        sharded layout on it and prices the cluster of its size with the
+        strategy that layout realises (its degrees, not the analyzer
+        best's).
         ``device`` is where the engine will run: ``kernels="auto"`` turns
         the Hopper kernels on exactly when it is CUDA.
         Deterministic: same inputs, same resolved spec.
@@ -178,7 +181,8 @@ class ServeSpec:
 
         cl = self.cluster if cluster is None else cluster
         cluster_spec, prov["cluster"] = R.resolve_cluster(cl, mesh=mesh)
-        n_devices = cluster_spec.n_devices
+        n_devices = mesh.size if mesh is not None \
+            else cluster_spec.n_devices
 
         # ---- offline stage: the analyzer runs regardless of strategy
         # being explicit — its cost estimates price chunk/budget/batch ----
@@ -225,6 +229,14 @@ class ServeSpec:
             comm_algo = best.comm_algo
             prov["strategy"] = (f"auto:analyzer({self.objective} on "
                                 f"{cluster_spec.name}: {best.describe()})")
+        if mesh is not None:
+            # on a mesh the layout fixes the degrees: every estimate below
+            # prices the strategy the plan realises there
+            cost_strat = make_plan(name, mesh, comm_algo).strategy()
+            how = "auto:analyzer" if not _concrete(self.strategy) \
+                else "explicit"
+            prov["strategy"] = (f"{how}; priced as the mesh runs it: "
+                                f"{cost_strat.describe()}")
 
         # ---- kernels (the policy participates in resolution) ----
         if isinstance(self.kernels, KernelPolicy):
@@ -365,9 +377,10 @@ class ResolvedServeSpec:
     kv: KVConfig = dataclasses.field(default_factory=KVConfig)
     ep_overlap: Optional[cm.EpOverlap] = None   # None = monolithic exchange
     speculation: Optional[R.SpeculationConfig] = None   # None = off
-    # the priced strategy's MoE degrees (the engine's expert-load/A2A
-    # observability buckets measured counts by them — the local engine
-    # itself runs the NULL_PLAN single-device layout)
+    # the priced strategy's MoE degrees (the engine's expert-load / A2A
+    # observability buckets measured counts by them): on a mesh those of
+    # the layout that runs; without one the single-device engine runs the
+    # NULL_PLAN layout and they price the analyzer's pick
     moe_ep: int = 1
     moe_tp: int = 1
     plan: ShardingPlan = NULL_PLAN
@@ -456,6 +469,12 @@ class LLM:
         card is present; pass ``device="cpu"`` for the plain CPU path.
         Random weights are drawn from a generator on ``device`` seeded
         with ``spec.seed``.
+
+        ``mesh``: serve SPMD on a ``launch.mesh.Mesh`` — every rank calls
+        this and then ``generate`` with the same arguments.  Each rank
+        keeps its slice of the MoE weights (``params``, when given, must
+        already be that slice); the scheduler, page allocator and sampler
+        run identically on every rank.
         """
         import torch
 
@@ -477,7 +496,7 @@ class LLM:
         if params is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(resolved.seed)
-            params = init_params(gen, cfg, dtype, dev)
+            params = init_params(gen, cfg, dtype, dev, plan=resolved.plan)
         return cls(cfg, params, resolved, dtype=dtype, device=dev)
 
     # -- streaming -------------------------------------------------------

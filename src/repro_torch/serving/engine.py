@@ -17,7 +17,11 @@ sampled-logits rows quarantines exactly the offending slot (state FAILED);
 a ``FaultInjector`` (``ServeSpec.faults``) injects latency spikes, NaN
 rows, admit failures and clock skew deterministically.
 
-The engine runs on one device (``device=``, default CUDA).  Speculative
+The engine runs on one device (``device=``, default CUDA).  On a mesh
+(``spec.plan.enabled``) every rank runs its own engine on the same requests:
+the scheduler, page allocator and sampler are identical on each rank, the
+MoE blocks are sharded across the ranks and everything else is replicated,
+so the greedy streams agree across ranks.  Speculative
 decoding (ROADMAP A7) and the legacy blocking path for recurrent / hybrid /
 frontend families (ROADMAP A10) are not ported: a spec asking for either
 raises.
@@ -145,6 +149,10 @@ class Engine:
         self.spec = spec
         self.cfg, self.params, self.plan = cfg, params, spec.plan
         self.max_batch, self.max_len = spec.max_batch, spec.max_len
+        if self.max_batch % self.plan.dp:
+            raise ValueError(
+                f"max_batch={self.max_batch} does not split over the "
+                f"plan's {self.plan.dp} batch ranks {self.plan.dp_axes}")
         self.temperature = spec.temperature
         # sampling noise: a device generator seeded from the spec (greedy
         # decoding never draws from it)
@@ -499,9 +507,11 @@ class Engine:
             n_chunk_rows = (step_tokens // chunks) * cfg.top_k
             cap = cap_rows_for(n_chunk_rows, ep, ovl)
             rows_moved = ep * chunks * cap   # count-bounded extent
+        # the fused RS-A2A-AG ("fused" / "sync") ships the TP shard
+        # (h / moe_tp); the unfused ladder moves full-width rows
         moe_tp = int(getattr(spec, "moe_tp", 1) or 1)
         width = cfg.d_model
-        if getattr(spec.plan, "comm_algo", "") == "fused":
+        if getattr(spec.plan, "comm_algo", "") in ("fused", "sync"):
             width = cfg.d_model // max(moe_tp, 1)
         elem = torch.empty((), dtype=self.dtype).element_size()
         per_row = width * elem * 2 * n_moe_layers      # dispatch + combine

@@ -213,3 +213,33 @@ def test_permute_and_unpermute_on_card(dev, dtype, h):
     assert out.dtype == dt
     torch.testing.assert_close(out.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,totals,stride", [
+    (512, 2048, [200, 56], 256),      # the EP send buffer's layout
+    (512, 4096, 300, None),           # the comb gather: a scalar prefix
+    (512, 2048, [0, 0], 256),         # every tile empty
+    (75, 36, [10, 0, 30], 25),        # n off the tile; h off 8
+])
+def test_permute_ragged_on_card(dev, dtype, n, h, totals, stride):
+    dt = getattr(torch, dtype)
+    tot = torch.tensor(totals, dtype=torch.int32, device=dev)
+    st = stride or n
+    row = torch.arange(n, device=dev)
+    seg = (row // st).clamp_max(tot.numel() - 1)
+    valid = (row - seg * st) < tot.reshape(-1)[seg]
+    x = torch.randn(97, h, device=dev).to(dt)
+    src = torch.randint(0, 97, (n,), dtype=torch.int32, device=dev)
+    src[~valid] = -1
+    src[::9] = -1
+    ops.reset_counters()
+    got = ops.permute_tokens_ragged(x, src, tot, seg_stride=stride)
+    assert ops.counters["permute_tokens_ragged"] == 1
+    assert torch.equal(got, ref.permute_tokens_ragged_ref(x, src, tot))
+    assert (got[~valid] == 0).all()
+    # garbage in the skipped tiles' src must not be read
+    if not valid.any():
+        junk = torch.randint(0, 97, (n,), dtype=torch.int32, device=dev)
+        assert (ops.permute_tokens_ragged(x, junk, tot, seg_stride=stride)
+                == 0).all()

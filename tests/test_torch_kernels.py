@@ -1,6 +1,7 @@
 """The port's kernels: plain versions against the reference's oracles and
 its interpret-mode Pallas kernels (flash_chunk_paged, flash_chunk,
-flash_decode, topk_gate, grouped_gemm, permute_tokens, unpermute_tokens),
+flash_decode, topk_gate, grouped_gemm, permute_tokens,
+permute_tokens_ragged, unpermute_tokens),
 and the wrappers' checks.  The CUDA
 kernels themselves are held against these plain versions on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
@@ -227,6 +228,64 @@ def test_permute_wrappers_cpu_are_plain_and_uncounted():
     want = ref.unpermute_tokens_ref(x, slot, w.to(torch.bfloat16).float())
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert got.dtype == x.dtype and not ops.counters
+
+
+def _ragged_case(n, h, totals, stride, seed=3):
+    """x (9, h) and an (n,) src that is -1 outside each segment's prefix of
+    ``totals[r]`` rows (segments ``stride`` apart; a scalar total is one
+    segment), valid rows gathering random tokens."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((9, h)).astype(np.float32)
+    tot = np.atleast_1d(np.asarray(totals, np.int32))
+    row = np.arange(n)
+    seg = np.minimum(row // stride, len(tot) - 1)
+    valid = (row - seg * stride) < tot[seg]
+    src = np.where(valid, rng.integers(0, 9, n), -1).astype(np.int32)
+    src[valid & (rng.random(n) < 0.2)] = -1       # -1 inside a prefix too
+    return x, src, np.asarray(totals, np.int32)
+
+
+@pytest.mark.parametrize("n,h,totals,stride,bn", [
+    (64, 16, [5, 0, 16, 2], 16, 8),      # EP send layout, an empty segment
+    (64, 16, [0, 0, 0, 0], 16, 8),       # every segment empty
+    (48, 24, 13, None, 8),               # scalar total: one prefix
+    (48, 24, 0, None, 16),               # zero scalar total
+    (50, 16, [3, 25], 25, 8),            # n and stride off the tile size
+    (30, 12, [7, 1, 0], 10, 4),          # tiles straddling segments
+])
+def test_permute_ragged_plain_matches_reference_kernel(n, h, totals,
+                                                        stride, bn):
+    """The plain version against the reference's interpret-mode
+    ``permute_tokens_ragged`` (forced small tiles, so its empty-tile skip
+    runs), and the port's CPU wrapper returns it uncounted."""
+    x, src, tot = _ragged_case(n, h, totals, stride or n)
+    want = np.asarray(rops.permute_tokens_ragged(
+        jj(x), jj(src), jj(tot), seg_stride=stride, bn=bn))
+    got = ref.permute_tokens_ragged_ref(tt(x), tt(src), tt(tot),
+                                        seg_stride=stride).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[src < 0], 0)
+    ops.reset_counters()
+    wrapped = ops.permute_tokens_ragged(tt(x), tt(src), tt(tot),
+                                        seg_stride=stride)
+    assert torch.equal(wrapped, tt(got)) and not ops.counters
+
+
+def test_permute_ragged_wrapper_checks():
+    x = torch.randn(6, 8)
+    src = torch.full((40,), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="do not cover"):
+        ops.permute_tokens_ragged(
+            x, src, torch.tensor([3, 3, 3], dtype=torch.int32), seg_stride=10)
+    with pytest.raises(ValueError, match="do not cover"):
+        rops.permute_tokens_ragged(jj(x.numpy()), jj(src.numpy()),
+                                   jj(np.array([3, 3, 3], np.int32)),
+                                   seg_stride=10)
+    with pytest.raises(ValueError, match="int32"):
+        ops.permute_tokens_ragged(x, src, torch.tensor(3))
+    with pytest.raises(ValueError, match=r"total \(\) or \(n_seg,\)"):
+        ops.permute_tokens_ragged(x, src,
+                                  torch.zeros(2, 2, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("case", ["dtype", "layout", "index_dtype"])
