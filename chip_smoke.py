@@ -17,7 +17,11 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              dispatch; one rank of the distributed serve: its router
              gate, and its EP exchange's gathers, grouped GEMMs and
              combine at the row cap and at the worst-case extent), bf16
-             and f32, plus its contract cases;
+             and f32, plus its contract cases (for the grouped GEMM's
+             per-segment schedule: 1-row segments, one expert holding all
+             rows, boundaries at every residue mod 16 and mod 64, rows past
+             offsets[-1]; for attention: split-KV boundaries, q_len 0 with
+             kv_len 0, paged == dense bitwise);
              CUDA-event times beside the plain version, the bound and,
              where one exists, a single PyTorch call
   3 parity   f32, full width: capacity-dispatch moe_local with kernels on
@@ -515,6 +519,44 @@ def check_flash_contracts(torch, rng, dev):
         check(ok and same, f"flash_chunk {label} contract case failed")
 
 
+def check_flash_split(torch, rng, dev):
+    """The bf16 body's split-KV walk at split boundaries: a grid of few
+    CTAs over a long cache, so ops.flash_plan splits every query tile's KV
+    range (at the phi3.5, expanded and absorbed head shapes), with a slot
+    whose q_len and kv_len are 0.  Held to the plain version (FLASH_TOL), to
+    the f32 plain version (FLASH_TOL_VS_F32), zero rows exact, and paged ==
+    dense bitwise through shuffled pages."""
+    ops, ref = _ops()
+    ok = True
+    splits = []
+    for nq, nkv, hd, hdv in ((32, 8, 128, 128), (8, 8, 192, 128),
+                             (128, 1, 576, 512)):
+        q, k, v, q_off, q_len, kv_len = _dense_case(
+            torch, rng, b=3, sq=2, nq=nq, nkv=nkv, hd=hd, hdv=hdv, skv=1024,
+            q_off=[990, 500, 0], q_len=[2, 1, 0], kv_len=[992, 501, 0],
+            dtype=torch.bfloat16, dev=dev)
+        splits.append(ops.flash_plan(3, 2, nq, nkv, hd, hdv)[1])
+        got = ops.flash_chunk(q, k, v, q_off, q_len, kv_len)
+        want = ref.flash_chunk_ref(q, k, v, q_off, q_len, kv_len)
+        want32 = ref.flash_chunk_ref(q.float(), k.float(), v.float(), q_off,
+                                     q_len, kv_len)
+        ok &= within(torch, got, want, *FLASH_TOL["bfloat16"])
+        ok &= within(torch, got, want32, *FLASH_TOL_VS_F32)
+        ok &= bool((got[1, 1:] == 0).all()) and bool((got[2] == 0).all())
+        bt = torch.randperm(3 * 64, device=dev).reshape(3, 64) \
+            .to(torch.int32)
+        kp = torch.empty(3 * 64, 16, nkv, hd, dtype=k.dtype, device=dev)
+        vp = torch.empty(3 * 64, 16, nkv, hdv, dtype=v.dtype, device=dev)
+        kp[bt.long()] = k.reshape(3, 64, 16, nkv, hd)
+        vp[bt.long()] = v.reshape(3, 64, 16, nkv, hdv)
+        ok &= torch.equal(got, ops.flash_chunk_paged(q, kp, vp, bt, q_off,
+                                                     q_len, kv_len))
+    print(f"[kernels] flash_chunk split-KV (splits {splits} over 992 / 501 "
+          f"keys, a q_len 0 / kv_len 0 slot; vs plain, vs f32, paged == "
+          f"dense bitwise): ok={ok}")
+    check(ok and min(splits) > 1, "flash_chunk split-KV case failed")
+
+
 def check_topk(torch, rng, res, T, E, K, label, dev, primary):
     import numpy as np
     ops, ref = _ops()
@@ -962,6 +1004,7 @@ def phase_kernels(torch, phi, ds, ds1, dsh):
     check_flash_paged(torch, rng, res, phi, dev)
     check_flash_dense(torch, rng, res, ds, ds1, dev)
     check_flash_contracts(torch, rng, dev)
+    check_flash_split(torch, rng, dev)
     t_phi = phi["max_batch"] * phi["chunk"]
     t_ds = ds["max_batch"] * ds["chunk"]
     check_topk(torch, rng, res, t_phi, 16, 2, "phi3.5", dev, True)
@@ -987,20 +1030,50 @@ def phase_kernels(torch, phi, ds, ds1, dsh):
                            "phi3.5", dev)
     check_permute_capacity(torch, rng, res, t_ds, 160, 6, 5120, ds["C"],
                            "deepseek", dev)
-    # grouped_gemm contracts: rows past offsets[-1] exactly zero, boundary
-    # inside a tile
-    ops, ref = _ops()
-    x = torch.randn(200, 64, device=dev)
-    w = torch.randn(4, 64, 48, device=dev)
-    off = torch.tensor([0, 37, 37, 90, 150], dtype=torch.int32, device=dev)
-    got = ops.grouped_gemm(x, w, off)
-    ok = (bool((got[150:] == 0).all())
-          and within(torch, got, ref.grouped_gemm_ref(x, w, off), 1e-4, 1e-4))
-    print(f"[kernels] grouped_gemm contracts (empty expert, boundary inside "
-          f"a tile, rows past offsets[-1]): ok={ok}")
-    check(ok, "grouped_gemm contract case failed")
+    check_grouped_gemm_contracts(torch, dev)
     free_memory(torch)
     return res.recs
+
+
+# (segment lengths, rows past offsets[-1], H, D): the per-segment schedule's
+# edges.  An empty expert and a boundary inside a tile; boundaries at every
+# residue mod 16 (17-row segments) and mod the 64-row visit (65-row
+# segments); 1-row segments; one expert holding every row beside empty
+# ones; segments longer than a visit; H and D off 8; no routed row at all
+GG_CONTRACTS = [([37, 0, 53, 60], 50, 64, 48),
+                ([17] * 16, 30, 256, 200),
+                ([65] * 64, 10, 64, 136),
+                ([1] * 32 + [0] * 8, 16, 64, 136),
+                ([0, 0, 0, 200, 0, 0, 0, 0], 0, 128, 96),
+                ([150, 0, 301, 90], 7, 256, 264),
+                ([13, 0, 40, 1, 29], 21, 100, 75),
+                ([0, 0, 0], 70, 64, 64)]
+
+
+def check_grouped_gemm_contracts(torch, dev):
+    """Each row computed by its own expert only and every output element
+    written once, in bf16 and f32: equal to the plain version within TOL,
+    rows past offsets[-1] exact zeros."""
+    import numpy as np
+    ops, ref = _ops()
+    ok = True
+    for lengths, tail, h, d in GG_CONTRACTS:
+        off = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+        n = int(off[-1]) + tail
+        offs = _i32(torch, off, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(n, h, device=dev).to(dtype)
+            w = (torch.randn(len(lengths), h, d, device=dev)
+                 * h ** -0.5).to(dtype)
+            got = ops.grouped_gemm(x, w, offs)
+            ok &= within(torch, got, ref.grouped_gemm_ref(x, w, offs),
+                         *TOL[dname(dtype)])
+            ok &= bool((got[int(off[-1]):] == 0).all())
+    print(f"[kernels] grouped_gemm contracts (empty experts, boundaries at "
+          f"every residue mod 16 and mod 64, 1-row segments, one expert "
+          f"holding all rows, segments past a visit, H/D off 8, rows past "
+          f"offsets[-1] zero, bf16 and f32): ok={ok}")
+    check(ok, "grouped_gemm contract case failed")
 
 
 # ---------------------------------------------------------------------------

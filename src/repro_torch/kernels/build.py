@@ -34,15 +34,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argtypes); every one returns a cudaError_t as int
 SIGNATURES = {
     # q, k_pages, v_pages, block_tables, q_offset, q_len, kv_len, out,
-    # B, sq, nq, nkv, hd, hdv, page, nb, n_pages, scale, dtype, stream
-    "rt_flash_chunk_paged": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
-    # q, k, v, q_offset, q_len, kv_len, out,
-    # B, sq, nq, nkv, hd, hdv, S, scale, dtype, stream
-    "rt_flash_chunk": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    # part_o, part_ml, B, sq, nq, nkv, hd, hdv, page, nb, n_pages, rows,
+    # n_split, scale, dtype, stream
+    "rt_flash_chunk_paged": [_P] * 10 + [_I] * 11 + [_F, _I, _P],
+    # q, k, v, q_offset, q_len, kv_len, out, part_o, part_ml,
+    # B, sq, nq, nkv, hd, hdv, S, rows, n_split, scale, dtype, stream
+    "rt_flash_chunk": [_P] * 9 + [_I] * 9 + [_F, _I, _P],
     # logits, weights, idx, n_rows, E, k, renorm, dtype, stream
     "rt_topk_gate": [_P] * 3 + [_I] * 5 + [_P],
-    # x, w, offsets, out, N, H, D, E, dtype, stream
-    "rt_grouped_gemm": [_P] * 4 + [_I] * 5 + [_P],
+    # x, w, offsets, out, N, H, D, E, visit bound, dtype, stream
+    "rt_grouped_gemm": [_P] * 4 + [_I] * 6 + [_P],
     # x, w, out, E, C, H, D, dtype, stream
     "rt_moe_gemm": [_P] * 3 + [_I] * 5 + [_P],
     # x, src, out, N, T, h, element bytes, stream

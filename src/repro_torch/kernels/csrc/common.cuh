@@ -1,6 +1,11 @@
 // Shared helpers for the hand-written Hopper kernels: dtype codes, float
-// conversion, and the plain C return convention (a cudaError_t as int).
+// conversion, the plain C return convention (a cudaError_t as int), and the
+// bf16 tensor-core building blocks the GEMM and attention kernels share:
+// 16-byte row loads, cp.async copies into shared memory, ldmatrix fragment
+// loads and the mma.sync m16n8k16 product.
 #pragma once
+
+#include <atomic>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -20,4 +25,97 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// 8 consecutive 16-bit elements of one row, from column `col`, zero past
+// `ncols` or for a row that is out of range.  VEC: ncols % 8 == 0 and the
+// row start is 16-byte aligned, so one 16-byte load.
+template <bool VEC>
+__device__ __forceinline__ uint4 load8(const uint16_t* __restrict__ row,
+                                       bool row_ok, int col, int ncols) {
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (!row_ok) return u;
+  if (VEC) {
+    if (col < ncols) u = *reinterpret_cast<const uint4*>(row + col);
+    return u;
+  }
+  uint32_t v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = col + 2 * i < ncols ? row[col + 2 * i] : 0u;
+    const uint32_t hi = col + 2 * i + 1 < ncols ? row[col + 2 * i + 1] : 0u;
+    v[i] = lo | (hi << 16);
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared without passing through registers; `ok` false
+// reads nothing and writes 16 zero bytes (the src-size operand is 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8.  Plain: the A operand of mma_bf16 (rows of a
+// row-major tile) or its B operand from an [n][k] tile.  .trans: its B
+// operand from a [k][n] tile.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// two floats as a bf16 pair (lo in the low half), round to nearest
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The dynamic shared-memory opt-in belongs to a kernel on a device.  Each
+// launch function keeps one `done` word (one bit per device) for its
+// kernel, so the attribute is set once per device and launches after the
+// first do no host work for it.
+inline cudaError_t allow_smem(const void* kernel, int bytes,
+                              std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }

@@ -37,38 +37,6 @@ constexpr int WS = BN + 8;      // reads below hit 32 distinct banks
 constexpr int FBN = 64;         // f32: output columns per CTA
 constexpr int FTHREADS = 256;   // f32: 16 x 16 threads, MT x 4 outputs each
 
-// 8 consecutive 16-bit elements of one row, from column `col`, zero past
-// `ncols` or for a row that is out of range.  VEC: ncols % 8 == 0 and the
-// row start is 16-byte aligned, so one 16-byte load.
-template <bool VEC>
-__device__ __forceinline__ uint4 load8(const uint16_t* __restrict__ row,
-                                       bool row_ok, int col, int ncols) {
-  uint4 u = make_uint4(0u, 0u, 0u, 0u);
-  if (!row_ok) return u;
-  if (VEC) {
-    if (col < ncols) u = *reinterpret_cast<const uint4*>(row + col);
-    return u;
-  }
-  uint32_t v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t lo = col + 2 * i < ncols ? row[col + 2 * i] : 0u;
-    const uint32_t hi = col + 2 * i + 1 < ncols ? row[col + 2 * i + 1] : 0u;
-    v[i] = lo | (hi << 16);
-  }
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // grid (ceil(D / BN), ceil(C / 16MT), E); MT 16-row m-tiles per CTA
 template <int MT, bool VEC>
 __global__ void __launch_bounds__(THREADS) moe_gemm_kernel_mma(

@@ -95,6 +95,67 @@ def _check_attention(name, q, k, v, lengths) -> tuple:
     return nkv, hd, hdv
 
 
+FLASH_SMS = 132          # H100 SXM streaming multiprocessors
+FLASH_MAX_SPLIT = 16     # MAX_SPLIT in csrc/flash_attn.cuh
+FLASH_DV = 128           # TC_DV: value columns per CTA of the bf16 body
+
+
+def flash_plan(b: int, sq: int, nq: int, nkv: int, hd: int,
+               hdv: int) -> tuple[int, int]:
+    """(rows, n_split) of the bf16 attention body's launch, from the
+    geometry alone.  ``rows`` query rows (position x head-in-group) per
+    CTA: 128 when a group packs several heads and hd <= 256, else 64.
+    ``n_split`` KV splits per query tile: enough CTAs for two per SM over
+    the (B, query tiles, nkv, head splits, value-column splits) grid, at
+    most ``FLASH_MAX_SPLIT``.  No length enters, so dense and paged
+    launches of one geometry split alike (their outputs stay bitwise
+    equal)."""
+    g = nq // nkv
+    rows = 128 if g >= 2 and hd <= 256 else 64
+    n_hs = -(-g // rows)
+    bq = rows // -(-g // n_hs)
+    ctas = b * -(-sq // bq) * nkv * n_hs * -(-hdv // FLASH_DV)
+    return rows, max(1, min(FLASH_MAX_SPLIT, -(-2 * FLASH_SMS // ctas)))
+
+
+def _aligned(t):
+    """t, or a copy of it whose data starts on 16 bytes (the kernels'
+    16-byte copies); torch's allocations always do."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _flash_scratch(q, nq, nkv, hd, hdv) -> tuple:
+    """The launch plan and f32 split scratch of one attention call:
+    (rows, n_split, part_o pointer, part_ml pointer, keep-alive), both
+    parts in one allocation."""
+    b, sq = q.shape[:2]
+    if q.dtype == torch.float32:          # the FMA body takes no plan
+        return 0, 1, None, None, None
+    rows, n_split = flash_plan(b, sq, nq, nkv, hd, hdv)
+    if n_split == 1:
+        return rows, 1, None, None, None
+    n_o = n_split * b * sq * nq * hdv
+    buf = torch.empty(n_o + n_split * b * sq * nq * 2, dtype=torch.float32,
+                      device=q.device)
+    return rows, n_split, buf.data_ptr(), buf.data_ptr() + 4 * n_o, buf
+
+
+def _flash_dense(q, k, v, q_offset, q_len, kv_len, nkv, hd, hdv, scale):
+    """Launch the dense kernel on checked CUDA inputs."""
+    b, sq, nq, _ = q.shape
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty(b, sq, nq, hdv, dtype=q.dtype, device=q.device)
+    rows, n_split, part_o, part_ml, _keep = _flash_scratch(q, nq, nkv, hd,
+                                                           hdv)
+    _launch(build.load().rt_flash_chunk, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), q_offset.data_ptr(), q_len.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), part_o, part_ml, b, sq, nq,
+            nkv, hd, hdv, k.shape[1], rows, n_split, scale,
+            _DTYPES[q.dtype], _stream())
+    counters["flash_chunk"] += 1
+    return out
+
+
 def flash_chunk(q, k, v, q_offset, q_len, kv_len, *, scale=None):
     """Ragged causal attention on a dense cache.  q (B, sq, nq, hd);
     k (B, S, nkv, hd); v (B, S, nkv, hdv); q_offset / q_len / kv_len (B,)
@@ -105,18 +166,13 @@ def flash_chunk(q, k, v, q_offset, q_len, kv_len, *, scale=None):
     dev = _check_same_device(q, k, v, *lengths)
     _check_contiguous(name, q, k, v, *lengths)
     nkv, hd, hdv = _check_attention(name, q, k, v, lengths)
-    b, sq, nq, _ = q.shape
+    b = q.shape[0]
     _check(k.shape[0] == b, f"{name}: K/V batch {k.shape[0]} != q batch {b}")
     scale = float(hd ** -0.5 if scale is None else scale)
     if dev.type == "cpu":
         return ref.flash_chunk_ref(q, k, v, q_offset, q_len, kv_len, scale)
-    out = torch.empty(b, sq, nq, hdv, dtype=q.dtype, device=dev)
-    _launch(build.load().rt_flash_chunk, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), q_offset.data_ptr(), q_len.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), b, sq, nq, nkv, hd, hdv,
-            k.shape[1], scale, _DTYPES[q.dtype], _stream())
-    counters[name] += 1
-    return out
+    return _flash_dense(q, k, v, q_offset, q_len, kv_len, nkv, hd, hdv,
+                        scale)
 
 
 def flash_decode(q, k, v, lengths, *, scale=None):
@@ -132,11 +188,15 @@ def flash_decode(q, k, v, lengths, *, scale=None):
     dev = _check_same_device(q, k, v, lengths)
     _check(q.dim() == 3, f"{name}: q must be (B, nq, hd)")
     _check_contiguous(name, q, k, v, lengths)
-    _check_attention(name, q[:, None], k, v, (lengths,))
+    nkv, hd, hdv = _check_attention(name, q[:, None], k, v, (lengths,))
+    _check(k.shape[0] == q.shape[0],
+           f"{name}: K/V batch {k.shape[0]} != q batch {q.shape[0]}")
     if dev.type == "cpu":
         return ref.flash_decode_ref(q, k, v, lengths, scale)
-    out = flash_chunk(q[:, None], k, v, (lengths - 1).clamp_min(0),
-                      lengths.clamp_max(1), lengths, scale=scale)[:, 0]
+    scale = float(hd ** -0.5 if scale is None else scale)
+    out = _flash_dense(q[:, None], k, v, (lengths - 1).clamp_min(0),
+                       lengths.clamp_max(1), lengths, nkv, hd, hdv,
+                       scale)[:, 0]
     counters["flash_decode"] += 1
     return out
 
@@ -162,13 +222,16 @@ def flash_chunk_paged(q, k_pages, v_pages, block_tables, q_offset, q_len,
     if dev.type == "cpu":
         return ref.flash_chunk_paged_ref(q, k_pages, v_pages, block_tables,
                                          q_offset, q_len, kv_len, scale)
+    q, k_pages, v_pages = _aligned(q), _aligned(k_pages), _aligned(v_pages)
     out = torch.empty(b, sq, nq, hdv, dtype=q.dtype, device=dev)
+    rows, n_split, part_o, part_ml, _keep = _flash_scratch(q, nq, nkv, hd,
+                                                           hdv)
     _launch(build.load().rt_flash_chunk_paged, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             q_offset.data_ptr(), q_len.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), b, sq, nq, nkv, hd, hdv, page,
-            block_tables.shape[1], n_pages, scale, _DTYPES[q.dtype],
-            _stream())
+            out.data_ptr(), part_o, part_ml, b, sq, nq, nkv, hd, hdv, page,
+            block_tables.shape[1], n_pages, rows, n_split, scale,
+            _DTYPES[q.dtype], _stream())
     counters[name] += 1
     return out
 
@@ -220,10 +283,23 @@ def moe_gemm(x, w):
     return out
 
 
+GG_ROWS = 64   # rows per grouped-GEMM visit (BM in csrc/grouped_gemm.cu)
+
+
+def grouped_gemm_visits(n: int, e: int) -> int:
+    """The static bound on the grouped GEMM's visits (one CTA row each):
+    the BM-row tiles of the E expert segments plus the zero tiles of
+    ``[offsets[-1], N)``.  Each non-empty segment ends in at most one
+    partial tile, so the count is at most ``ceil(N / BM) + min(E, N)``
+    (the reference's ``n_visits``); the kernel refuses a smaller grid."""
+    return -(-n // GG_ROWS) + min(e, n)
+
+
 def grouped_gemm(x, w, group_offsets):
     """x (N, H) sorted by expert @ w (E, H, D) with group_offsets (E+1,)
-    int32 -> (N, D) in x's dtype, f32 accumulation; rows at/after
-    ``offsets[-1]`` are exact zeros.  Contract: ``ref.grouped_gemm_ref``."""
+    int32, an ascending prefix sum from 0 -> (N, D) in x's dtype, f32
+    accumulation; rows at/after ``offsets[-1]`` are exact zeros.
+    Contract: ``ref.grouped_gemm_ref``."""
     name = "grouped_gemm"
     dev = _check_same_device(x, w, group_offsets)
     _check_float(name, x, w)
@@ -241,7 +317,7 @@ def grouped_gemm(x, w, group_offsets):
     out = torch.empty(n, d, dtype=x.dtype, device=dev)
     _launch(build.load().rt_grouped_gemm, x.data_ptr(), w.data_ptr(),
             group_offsets.data_ptr(), out.data_ptr(), n, h, d, e,
-            _DTYPES[x.dtype], _stream())
+            grouped_gemm_visits(n, e), _DTYPES[x.dtype], _stream())
     counters[name] += 1
     return out
 
@@ -331,7 +407,8 @@ def unpermute_tokens(buf, src_slot, weights):
     return out
 
 
-__all__ = ["flash_chunk", "flash_decode", "flash_chunk_paged", "topk_gate",
-           "moe_gemm", "grouped_gemm", "permute_tokens",
+__all__ = ["flash_chunk", "flash_decode", "flash_chunk_paged", "flash_plan",
+           "topk_gate", "moe_gemm", "grouped_gemm", "grouped_gemm_visits",
+           "permute_tokens",
            "permute_tokens_ragged", "unpermute_tokens", "counters",
            "reset_counters"]

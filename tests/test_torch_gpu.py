@@ -5,8 +5,10 @@ only the port is installed:
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: float32 to 1e-4; bf16 to one bf16 rounding step of the f32
-result (atol 1e-2, rtol 1.6e-2); top-k ids, permuted rows and every
-exact-zero contract exactly; dense and paged attention bitwise equal.
+result (atol 1e-2, rtol 1.6e-2); bf16 attention across split-KV boundaries
+also to the f32 plain version within half a bf16 ulp (atol 1e-5, rtol
+4e-3); top-k ids, permuted rows and every exact-zero contract exactly;
+dense and paged attention bitwise equal.
 """
 
 import pytest
@@ -110,6 +112,52 @@ def test_moe_gemm_on_card(dev, dtype, c, hd):
     assert ops.counters["moe_gemm"] == 1
 
 
+def _segments(lengths, tail):
+    """(E+1,) int32 offsets of segments of the given lengths, and N with
+    ``tail`` rows past offsets[-1]."""
+    off = [0]
+    for n in lengths:
+        off.append(off[-1] + n)
+    return torch.tensor(off, dtype=torch.int32), off[-1] + tail
+
+
+# (name, segment lengths, rows past offsets[-1], H, D): the per-segment
+# schedule's edges.  Boundaries at every residue mod 16 (17-row segments)
+# and mod BM = 64 (65-row segments), one expert holding every row beside
+# empty ones, 1-row segments, segments longer than BM, H and D off 8
+GG_CASES = [
+    ("mod16", [17] * 16, 30, 256, 200),
+    ("mod64", [65] * 64, 10, 64, 136),
+    ("one_expert", [0, 0, 0, 200, 0, 0, 0, 0], 0, 128, 96),
+    ("one_row", [1] * 32 + [0] * 8, 16, 64, 136),
+    ("long", [150, 0, 301, 90], 7, 256, 264),
+    ("off8", [13, 0, 40, 1, 29], 21, 100, 75),
+    ("all_past", [0, 0, 0], 70, 64, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GG_CASES, ids=[c[0] for c in GG_CASES])
+def test_grouped_gemm_schedule_on_card(dev, dtype, case):
+    """Each row computed by its own expert only, every element written
+    once: equal to the plain version, rows past offsets[-1] exact zeros."""
+    dt = getattr(torch, dtype)
+    _, lengths, tail, h, d = case
+    off, n = _segments(lengths, tail)
+    g = torch.Generator(device="cpu").manual_seed(len(lengths))
+    x = torch.randn(n, h, generator=g).to(dev, dt)
+    w = (torch.randn(len(lengths), h, d, generator=g) * h ** -0.5).to(dev, dt)
+    off = off.to(dev)
+    ops.reset_counters()
+    out = ops.grouped_gemm(x, w, off)
+    want = ref.grouped_gemm_ref(x, w, off)
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert (out[int(off[-1]):] == 0).all()
+    assert ops.counters["grouped_gemm"] == 1
+
+
 def test_wrapper_refuses_mixed_devices(dev):
     x = torch.randn(8, 16, device=dev)
     w = torch.randn(2, 16, 4)
@@ -120,6 +168,8 @@ def test_wrapper_refuses_mixed_devices(dev):
 # (name, B, sq, nq, nkv, hd, hdv): GQA, MLA expanded (g = 1, hd != hdv) and
 # MLA absorbed (nkv = 1, g = 128 split across CTAs, hd 576 / hdv 512)
 ATTN_CASES = [("gqa", 4, 8, 12, 4, 64, 64),
+              ("mha_64", 4, 8, 4, 4, 64, 64),
+              ("gqa_128", 4, 8, 32, 8, 128, 128),
               ("mla_expanded", 4, 8, 4, 4, 192, 128),
               ("mla_absorbed", 4, 3, 128, 1, 576, 512)]
 
@@ -173,6 +223,53 @@ def test_flash_chunk_paged_equals_dense_bitwise(dev, case):
     dense = ops.flash_chunk(q, k, v, q_off, q_len, kv_len)
     paged = ops.flash_chunk_paged(q, kp, vp, bt, q_off, q_len, kv_len)
     assert torch.equal(dense, paged)
+
+
+def _to_pages(k, v, page):
+    """The dense (b, skv, ...) cache as pools in shuffled page order and
+    the block tables that gather it back."""
+    b, skv, nkv, hd = k.shape
+    nb = skv // page
+    perm = torch.randperm(b * nb, generator=torch.Generator().manual_seed(4))
+    bt = perm.reshape(b, nb).to(k.device, torch.int32)
+    kp = torch.empty(b * nb, page, nkv, hd, dtype=k.dtype, device=k.device)
+    vp = torch.empty(b * nb, page, nkv, v.shape[3], dtype=v.dtype,
+                     device=k.device)
+    kp[bt.long()] = k.reshape(b, nb, page, nkv, hd)
+    vp[bt.long()] = v.reshape(b, nb, page, nkv, v.shape[3])
+    return kp, vp, bt
+
+
+@pytest.mark.parametrize("case", ATTN_CASES[1:], ids=[c[0] for c in
+                                                      ATTN_CASES[1:]])
+def test_flash_chunk_split_kv_on_card(dev, case):
+    """A small grid over a long cache: the bf16 body splits the KV walk
+    (ops.flash_plan gives 16 splits here) and merges the splits.  Held to
+    the plain version, and to the f32 plain version on the same inputs
+    within half a bf16 ulp (atol 1e-5, rtol 4e-3, as chip_smoke.py);
+    paged == dense bitwise at the same geometry."""
+    _, _, _, nq, nkv, hd, hdv = case
+    b, sq, skv = 2, 2, 1024
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn(b, sq, nq, hd, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(b, skv, nkv, hd, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(b, skv, nkv, hdv, generator=g).to(dev, torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=dev)
+    q_off = torch.tensor([990, 500], **i32)
+    q_len = torch.tensor([2, 1], **i32)
+    kv_len = torch.tensor([992, 501], **i32)
+    assert ops.flash_plan(b, sq, nq, nkv, hd, hdv)[1] > 1
+    args = (q, k, v, q_off, q_len, kv_len)
+    got = ops.flash_chunk(*args)
+    want = ref.flash_chunk_ref(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1.6e-2)
+    want32 = ref.flash_chunk_ref(q.float(), k.float(), v.float(), q_off,
+                                 q_len, kv_len)
+    torch.testing.assert_close(got.float(), want32, atol=1e-5, rtol=4e-3)
+    assert (got[1, 1:] == 0).all()
+    kp, vp, bt = _to_pages(k, v, 16)
+    assert torch.equal(got, ops.flash_chunk_paged(q, kp, vp, bt, *args[3:]))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

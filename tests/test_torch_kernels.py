@@ -330,3 +330,94 @@ def test_attention_wrappers_reject_shapes_outside_the_kernel():
     with pytest.raises(ValueError, match="dtype"):
         ops.permute_tokens(torch.zeros(3, 4, dtype=torch.float16),
                            torch.tensor([0], dtype=torch.int32))
+
+
+# --- the kernels' host-side launch math (csrc/grouped_gemm.cu and
+# csrc/flash_attn.cuh take these numbers from ops and refuse others) ---
+
+def _visits_brute(off, n, bm=ops.GG_ROWS):
+    """The grouped GEMM's visits for ascending offsets from 0: each expert
+    segment's bm-row tiles (clamped to the n rows) plus the zero tiles of
+    [offsets[-1], n)."""
+    segs = [min(off[e + 1], n) - min(off[e], n) for e in range(len(off) - 1)]
+    return sum(-(-s // bm) for s in segs) + -(-(n - min(off[-1], n)) // bm)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_grouped_gemm_visit_bound_holds_on_random_offsets(seed):
+    rng = np.random.default_rng(seed)
+    for _ in range(300):
+        e = int(rng.integers(1, 300))
+        n = int(rng.integers(0, 4000))
+        routed = int(rng.integers(0, n + 1)) if rng.random() < 0.7 else n
+        cuts = np.sort(rng.integers(0, routed + 1, e - 1)).tolist()
+        off = [0, *cuts, routed]
+        assert _visits_brute(off, n) <= ops.grouped_gemm_visits(n, e)
+
+
+BM = ops.GG_ROWS
+# (name, offsets, N): 1-row segments, one expert holding every row, every
+# segment one row past a tile, empty experts, all rows past offsets[-1],
+# segments past N; the first three reach the bound exactly
+VISIT_EXTREMES = [
+    ("one_row_each", list(range(64)), 128),
+    ("one_row_then_tail", [0, 1, 2], BM),
+    ("tile_plus_one", [i * (BM + 1) for i in range(9)], 8 * (BM + 1) + 3),
+    ("one_expert", [0, 0, 0, 700, 700], 700),
+    ("all_empty", [0] * 17, 300),
+    ("past_n", [0, 50, 90, 400], 100),
+    ("no_rows", [0, 0, 0], 0),
+]
+
+
+@pytest.mark.parametrize("case", VISIT_EXTREMES,
+                         ids=[c[0] for c in VISIT_EXTREMES])
+def test_grouped_gemm_visit_bound_holds_on_extreme_offsets(case):
+    _, off, n = case
+    e = len(off) - 1
+    got, bound = _visits_brute(off, n), ops.grouped_gemm_visits(n, e)
+    assert got <= bound
+    if case[0] in ("one_row_each", "one_row_then_tail", "tile_plus_one"):
+        assert got == bound
+    # the bound is the reference kernel's static n_visits for bn = BM
+    assert bound == -(-n // BM) + min(e, n)
+
+
+# (name, (B, sq, nq, nkv, hd, hdv), (rows, n_split)): the serve steps'
+# geometries and the card tests' small ones
+FLASH_PLANS = [
+    ("phi3.5_step", (4, 64, 32, 8, 128, 128), (128, 5)),
+    ("deepseek_expanded", (4, 64, 128, 128, 192, 128), (64, 1)),
+    ("deepseek_absorbed", (4, 1, 128, 1, 576, 512), (64, 9)),
+    ("gqa_small", (4, 8, 12, 4, 64, 64), (128, 16)),
+    ("long_decode", (1, 1, 8, 2, 128, 128), (128, 16)),
+    ("hd_768", (2, 3, 16, 1, 768, 512), (64, 16)),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_PLANS, ids=[c[0] for c in FLASH_PLANS])
+def test_flash_plan_at_known_geometries(case):
+    _, geo, want = case
+    assert ops.flash_plan(*geo) == want
+
+
+def test_flash_plan_fills_the_card_from_geometry_only():
+    """rows 128 only where hd <= 256 and a group packs heads; n_split in
+    [1, 16], and either the split grid holds two CTAs per SM or the split
+    count is at its cap."""
+    rng = np.random.default_rng(0)
+    for _ in range(500):
+        nkv = int(rng.choice([1, 2, 4, 8, 32, 128]))
+        g = int(rng.choice([1, 2, 3, 4, 8, 128]))
+        b, sq = int(rng.integers(1, 9)), int(rng.integers(1, 129))
+        hd = 8 * int(rng.integers(1, 97))
+        hdv = 8 * int(rng.integers(1, 65))
+        rows, n_split = ops.flash_plan(b, sq, g * nkv, nkv, hd, hdv)
+        assert rows in (64, 128) and (rows == 64 or (hd <= 256 and g >= 2))
+        n_hs = -(-g // rows)
+        bq = rows // -(-g // n_hs)
+        ctas = b * -(-sq // bq) * nkv * n_hs * -(-hdv // ops.FLASH_DV)
+        assert 1 <= n_split <= ops.FLASH_MAX_SPLIT
+        assert ctas * n_split >= 2 * ops.FLASH_SMS \
+            or n_split == ops.FLASH_MAX_SPLIT
+        assert n_split == 1 or ctas * (n_split - 1) < 2 * ops.FLASH_SMS
