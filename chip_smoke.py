@@ -22,8 +22,12 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              rows, boundaries at every residue mod 16 and mod 64, rows past
              offsets[-1]; for attention: split-KV boundaries, q_len 0 with
              kv_len 0, paged == dense bitwise);
-             CUDA-event times beside the plain version, the bound and,
-             where one exists, a single PyTorch call
+             times beside the plain version, the bound and, where one
+             exists, a single PyTorch call: ``ms`` by CUDA events over
+             back-to-back wrapper calls (the host's launch path
+             included), ``device_ms`` from 20 calls captured in a CUDA
+             graph and replayed (device only); then the two gather
+             wrappers' host microseconds per call, cut into their parts
   3 parity   f32, full width: capacity-dispatch moe_local with kernels on
              against off on one input, with drops; then the engine (2
              layers) with kernels "on" against kernels "off" on the card —
@@ -137,6 +141,66 @@ def cuda_ms(torch, fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls=20, replays=5):
+    """Device-only ms per call: ``calls`` calls of fn captured in one CUDA
+    graph, the graph replayed ``replays`` times between two CUDA events.
+    The host's launch path drops out; each call's kernels and the gaps
+    between the graph's nodes remain."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm-up off the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def time_rec(torch, rec, run, iters, plain, plain_iters, library=None):
+    """A timed record's times: the wrapper over ``iters`` back-to-back
+    calls (CUDA events: the host's launch path included) and its device
+    time (``graph_ms``), the plain version, and ``library`` (one PyTorch
+    call for the same function, already held to the plain version, or
+    None) by both methods."""
+    rec["kernel_ms"] = cuda_ms(torch, run, iters)
+    rec["device_ms"] = graph_ms(torch, run)
+    rec["plain_ms"] = cuda_ms(torch, plain, plain_iters)
+    rec["library_ms"] = rec["library_device_ms"] = None
+    if library is not None:
+        rec["library_ms"] = cuda_ms(torch, library, iters)
+        try:
+            rec["library_device_ms"] = graph_ms(torch, library)
+        except RuntimeError as e:
+            print(f"[kernels] {rec['label']}: the library call does not "
+                  f"capture in a CUDA graph: {str(e).splitlines()[0][:160]}")
+
+
+def host_us(torch, fn, calls=2000):
+    """Host microseconds per call: ``calls`` calls back to back on the
+    host clock, one synchronize at the end (after a warm-up)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def max_err(torch, a, b):
@@ -277,10 +341,11 @@ def _attn_work(q_off, q_len, kv_len, nq, nkv, hd, hdv, item):
     return bts, flops
 
 
-def _sdpa_ms(torch, q, k, v, q_off, q_len, kv_len, scale, want):
+def _sdpa_call(torch, q, k, v, q_off, q_len, kv_len, scale, want):
     """One PyTorch call for ragged causal attention on a dense cache:
-    scaled_dot_product_attention with the explicit boolean mask, compared
-    with the plain version on the rows that see at least one key."""
+    scaled_dot_product_attention with the explicit boolean mask, held to
+    the plain version on the rows that see at least one key; None where
+    this torch refuses it or disagrees."""
     import torch.nn.functional as F
     b, sq, nq, _ = q.shape
     skv, nkv = k.shape[1], k.shape[2]
@@ -304,12 +369,12 @@ def _sdpa_ms(torch, q, k, v, q_off, q_len, kv_len, scale, want):
         print("[kernels] attention yardstick: scaled_dot_product_attention "
               "result differs; not used")
         return None
-    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, **kw), 20)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
-def _grouped_mm_ms(torch, x, w, off, want):
-    """One PyTorch call for the same function, where this torch has it."""
+def _grouped_mm_call(torch, x, w, off, want):
+    """One PyTorch call for the same function, where this torch has it and
+    it agrees with the plain version; else None."""
     fn = getattr(torch, "_grouped_mm", None)
     if fn is None:
         print("[kernels] grouped_gemm yardstick: torch._grouped_mm absent")
@@ -322,11 +387,14 @@ def _grouped_mm_ms(torch, x, w, off, want):
         print(f"[kernels] grouped_gemm yardstick: torch._grouped_mm "
               f"refused: {str(e).splitlines()[0][:160]}")
         return None
-    if not within(torch, got, want, 1e-2, 1.6e-2):
+    # _grouped_mm leaves the rows at/after offsets[-1] unwritten (the
+    # kernel zeroes them): compare the routed rows only
+    routed = int(off[-1])
+    if not within(torch, got[:routed], want[:routed], 1e-2, 1.6e-2):
         print("[kernels] grouped_gemm yardstick: torch._grouped_mm result "
               "differs; not used")
         return None
-    return cuda_ms(torch, lambda: fn(x, w, offs=ends), 10)
+    return lambda: fn(x, w, offs=ends)
 
 
 class Results:
@@ -371,11 +439,8 @@ def check_flash_paged(torch, rng, res, sh, dev):
             rec.update(max_err_vs_f32=max_err(torch, got, want32),
                        tol_vs_f32=list(FLASH_TOL_VS_F32))
             rec["ok"] = ok and within(torch, got, want32, *FLASH_TOL_VS_F32)
-            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.flash_chunk_paged(
-                *args), 50)
-            rec["plain_ms"] = cuda_ms(
-                torch, lambda: ref.flash_chunk_paged_ref(*args), 10)
-            rec["library_ms"] = None
+            time_rec(torch, rec, lambda: ops.flash_chunk_paged(*args), 50,
+                     lambda: ref.flash_chunk_paged_ref(*args), 10)
             bts, flops = _attn_work(q_off, q_len, kv_len, nq, nkv, hd, hd, 2)
             rec.update(bytes=bts + got.numel() * 2 + 4 * args[3].numel(),
                        flops=flops, peak="bf16", primary=True)
@@ -413,11 +478,9 @@ def check_flash_dense(torch, rng, res, sh, sh1, dev):
             rec.update(max_err_vs_f32=max_err(torch, got, want32),
                        tol_vs_f32=list(FLASH_TOL_VS_F32))
             rec["ok"] = ok and within(torch, got, want32, *FLASH_TOL_VS_F32)
-            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.flash_chunk(
-                *args, scale=scale), 20)
-            rec["plain_ms"] = cuda_ms(
-                torch, lambda: ref.flash_chunk_ref(*args, scale), 5)
-            rec["library_ms"] = _sdpa_ms(torch, *args, scale, want)
+            time_rec(torch, rec, lambda: ops.flash_chunk(*args, scale=scale),
+                     20, lambda: ref.flash_chunk_ref(*args, scale), 5,
+                     _sdpa_call(torch, *args, scale, want))
             bts, flops = _attn_work(q_off, q_len, kv_len, nq, nq, hd, hdv, 2)
             rec.update(bytes=bts + got.numel() * 2, flops=flops, peak="bf16",
                        primary=True)
@@ -458,15 +521,15 @@ def check_flash_dense(torch, rng, res, sh, sh1, dev):
                 rec["ok"] = ok and within(torch, got, want32,
                                           *FLASH_TOL_VS_F32)
             if dtype == torch.bfloat16 and S_ == S1:
-                rec["kernel_ms"] = cuda_ms(torch, lambda: ops.flash_decode(
-                    q, k, v, ln, scale=scale), 50)
-                rec["plain_ms"] = cuda_ms(torch, lambda: ref.flash_decode_ref(
-                    q, k, v, ln, scale), 10)
                 q_off = [max(n - 1, 0) for n in lens]
                 q_len = [min(n, 1) for n in lens]
-                rec["library_ms"] = _sdpa_ms(
-                    torch, q[:, None], k, v, *(_i32(torch, a, dev) for a in (
-                        q_off, q_len, lens)), scale, want[:, None])
+                lib = _sdpa_call(torch, q[:, None], k, v, *(
+                    _i32(torch, a, dev) for a in (q_off, q_len, lens)),
+                    scale, want[:, None])
+                time_rec(torch, rec,
+                         lambda: ops.flash_decode(q, k, v, ln, scale=scale),
+                         50, lambda: ref.flash_decode_ref(q, k, v, ln, scale),
+                         10, lib)
                 bts, flops = _attn_work(q_off, q_len, lens, nq, 1, hd, hdv, 2)
                 rec.update(bytes=bts + got.numel() * 2, flops=flops,
                            peak="bf16")
@@ -577,11 +640,8 @@ def check_topk(torch, rng, res, T, E, K, label, dev, primary):
                "ids_equal": bool((i == i_r).all()), "ok": ok,
                "shape": f"logits {tuple(lg.shape)} k={K}"}
         if dtype == torch.bfloat16:
-            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.topk_gate(lg, K),
-                                       200)
-            rec["plain_ms"] = cuda_ms(torch, lambda: ref.topk_gate_ref(lg, K),
-                                      50)
-            rec["library_ms"] = None
+            time_rec(torch, rec, lambda: ops.topk_gate(lg, K), 200,
+                     lambda: ref.topk_gate_ref(lg, K), 50)
             rec.update(bytes=lg.numel() * 2 + T * K * 8, flops=5 * T * E,
                        peak="f32", primary=primary)
         res.add("topk_gate", rec, "disagrees with its plain version (ids or "
@@ -616,11 +676,9 @@ def check_grouped_gemm(torch, rng, res, offs, n, H, D, label, dev,
                             f"{int(offs[-1])} routed rows, empty experts "
                             f"{empty}"}
             if dtype == torch.bfloat16 and not part:
-                rec["kernel_ms"] = cuda_ms(torch, lambda: ops.grouped_gemm(
-                    x, w, off), 10)
-                rec["plain_ms"] = cuda_ms(torch, lambda: ref.grouped_gemm_ref(
-                    x, w, off), 3)
-                rec["library_ms"] = _grouped_mm_ms(torch, x, w, off, want)
+                time_rec(torch, rec, lambda: ops.grouped_gemm(x, w, off), 10,
+                         lambda: ref.grouped_gemm_ref(x, w, off), 3,
+                         _grouped_mm_call(torch, x, w, off, want))
                 used = int((np.diff(offs) > 0).sum())
                 rec.update(bytes=(int(offs[-1]) * h_in + used * h_in * d_out
                                   + n * d_out) * 2 + 4 * (E + 1),
@@ -631,7 +689,7 @@ def check_grouped_gemm(torch, rng, res, offs, n, H, D, label, dev,
             free_memory(torch)
 
 
-def _bmm_ms(torch, x, w, want):
+def _bmm_call(torch, x, w, want):
     """torch.bmm on the same bf16 inputs: one PyTorch call for the batched
     expert GEMM, held to the plain version before it is timed."""
     got = torch.bmm(x, w)
@@ -640,7 +698,7 @@ def _bmm_ms(torch, x, w, want):
         print("[kernels] moe_gemm yardstick: torch.bmm result differs; not "
               "used")
         return None
-    return cuda_ms(torch, lambda: torch.bmm(x, w), 20)
+    return lambda: torch.bmm(x, w)
 
 
 def check_moe_gemm(torch, rng, res, E, C, H, D, label, dev, primary):
@@ -670,11 +728,9 @@ def check_moe_gemm(torch, rng, res, E, C, H, D, label, dev, primary):
                    "shape": f"x {tuple(x.shape)} w {tuple(w.shape)} "
                             f"zero expert {E // 2}"}
             if dtype == torch.bfloat16 and not part:
-                rec["kernel_ms"] = cuda_ms(torch, lambda: ops.moe_gemm(x, w),
-                                           20)
-                rec["plain_ms"] = cuda_ms(
-                    torch, lambda: ref.moe_gemm_ref(x, w), 3)
-                rec["library_ms"] = _bmm_ms(torch, x, w, want)
+                time_rec(torch, rec, lambda: ops.moe_gemm(x, w), 20,
+                         lambda: ref.moe_gemm_ref(x, w), 3,
+                         _bmm_call(torch, x, w, want))
                 rec.update(bytes=(x.numel() + w.numel() + got.numel()) * 2,
                            flops=2 * E * C * h_in * d_out, peak="bf16",
                            primary=primary)
@@ -816,14 +872,14 @@ def _ep_exchange(rng, dsh, S):
             "slot": slot.reshape(t_c, k)}
 
 
-def _index_select_ms(torch, x, src, want):
+def _index_select_call(torch, x, src, want):
     """One PyTorch call for the same rows: index_select over x with a zero
     row appended, -1 mapped onto it (the mapping is set-up, untimed)."""
     xz = torch.cat([x, x.new_zeros(1, x.shape[1])])
     idx = torch.where(src >= 0, src, x.shape[0]).long()
     check(torch.equal(torch.index_select(xz, 0, idx), want),
           "gather yardstick index_select differs")
-    return cuda_ms(torch, lambda: torch.index_select(xz, 0, idx), 100)
+    return lambda: torch.index_select(xz, 0, idx)
 
 
 def _check_gather(torch, res, label, n_x, width, src, tot, stride, dev,
@@ -856,9 +912,8 @@ def _check_gather(torch, res, label, n_x, width, src, tot, stride, dev,
                "shape": f"x {tuple(x.shape)} src ({src.numel()},){extra}, "
                         f"{n_valid} valid rows"}
         if dtype == torch.bfloat16:
-            rec["kernel_ms"] = cuda_ms(torch, lambda: run(x), 100)
-            rec["plain_ms"] = cuda_ms(torch, lambda: plain(x), 50)
-            rec["library_ms"] = _index_select_ms(torch, x, src, want)
+            time_rec(torch, rec, lambda: run(x), 100, lambda: plain(x), 50,
+                     _index_select_call(torch, x, src, want))
             live = int(src[src >= 0].unique().numel())
             rec.update(bytes=(live + src.numel()) * width * 2
                        + 4 * (n_valid + tot.numel() if ragged
@@ -893,11 +948,8 @@ def _check_combine(torch, res, label, n_buf, width, slot, w, dev,
                        tol_vs_f32=list(UNPERMUTE_TOL_VS_F32))
             rec["ok"] = ok and within(torch, out, want32,
                                       *UNPERMUTE_TOL_VS_F32)
-            rec["kernel_ms"] = cuda_ms(torch, lambda: ops.unpermute_tokens(
-                buf, slot, w), 100)
-            rec["plain_ms"] = cuda_ms(
-                torch, lambda: ref.unpermute_tokens_ref(buf, slot, w), 50)
-            rec["library_ms"] = None
+            time_rec(torch, rec, lambda: ops.unpermute_tokens(buf, slot, w),
+                     100, lambda: ref.unpermute_tokens_ref(buf, slot, w), 50)
             kept = slot[slot >= 0]
             rec.update(bytes=(int(kept.unique().numel()) + T) * width * 2
                        + 8 * T * K, flops=2 * int(kept.numel()) * width,
@@ -990,6 +1042,71 @@ def check_permute_ragged_contracts(torch, dev):
 def _ops():
     from repro_torch.kernels import ops, ref
     return ops, ref
+
+
+def host_split(torch, label, wrapper, cname, x, n, library):
+    """The host's microseconds per call of a gather wrapper on x (T, h)
+    into n rows, cut into its parts: the C launch alone (ctypes and
+    cudaLaunchKernel, on the arguments the wrapper passed), the output's
+    allocation (``x.new_empty``, the wrapper's call; beside it the same
+    allocation by ``torch.empty`` with keywords), the raw stream handle
+    (``ops._stream``), and the checks and the rest of the wrapper (what is
+    left); beside it the host cost of ``library``, the one-call
+    yardstick."""
+    from repro_torch.kernels import build
+    ops, _ = _ops()
+    lib = build.load()
+    fn = getattr(lib, cname)
+    seen = []
+    setattr(lib, cname, lambda *a: seen.append(a) or fn(*a))
+    try:
+        keep = wrapper()            # the buffer seen[0] writes into
+    finally:
+        setattr(lib, cname, fn)
+    check(len(seen) == 1, f"{label}: the wrapper made {len(seen)} launches")
+    h = x.shape[1]
+    us = {"wrapper": host_us(torch, wrapper),
+          "launch": host_us(torch, lambda: fn(*seen[0])),
+          "new_empty": host_us(torch, lambda: x.new_empty(n, h)),
+          "torch_empty": host_us(torch, lambda: torch.empty(
+              n, h, dtype=x.dtype, device=x.device)),
+          "stream": host_us(torch, ops._stream),
+          "library": host_us(torch, library)}
+    us["checks_and_rest"] = (us["wrapper"] - us["launch"] - us["new_empty"]
+                             - us["stream"])
+    del keep
+    print(f"[host] {label} {json.dumps(us)}")
+    return us
+
+
+def phase_host(torch, phi, dsh):
+    """Host us per call of the two gather wrappers at a served shape each:
+    the phi3.5 dropless gather and the sharded serve's ragged send at the
+    row cap."""
+    ops, _ = _ops()
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    t = phi["max_batch"] * phi["chunk"]
+    x = torch.randn(t, 4096, device=dev).to(bf)
+    src = torch.randint(0, t, (2 * t,), dtype=torch.int32, device=dev)
+    xz = torch.cat([x, x.new_zeros(1, 4096)])
+    idx = src.long()
+    host_split(torch, f"permute_tokens phi3.5 ({t}, 4096) -> ({2 * t}, 4096)",
+               lambda: ops.permute_tokens(x, src), "rt_permute_tokens", x,
+               2 * t, lambda: torch.index_select(xz, 0, idx))
+    S, ep, w = dsh["extents"][0], dsh["ep"], dsh["h"] // dsh["tp"]
+    xs = torch.randn(dsh["t_c"], w, device=dev).to(bf)
+    tot = torch.full((ep,), S // 2, dtype=torch.int32, device=dev)
+    ss = torch.randint(0, dsh["t_c"], (ep, S), dtype=torch.int32, device=dev)
+    ss[:, S // 2:] = -1
+    ss = ss.reshape(-1)
+    xsz = torch.cat([xs, xs.new_zeros(1, w)])
+    sidx = torch.where(ss >= 0, ss, dsh["t_c"]).long()
+    host_split(torch, f"permute_tokens_ragged EP send S={S} "
+                      f"({dsh['t_c']}, {w}) -> ({ep * S}, {w})",
+               lambda: ops.permute_tokens_ragged(xs, ss, tot, seg_stride=S),
+               "rt_permute_tokens_ragged", xs, ep * S,
+               lambda: torch.index_select(xsz, 0, sidx))
 
 
 def phase_kernels(torch, phi, ds, ds1, dsh):
@@ -1271,7 +1388,8 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label):
           f"serve {label}: token id outside the vocabulary")
     check(steps > 0 and launches == want,
           f"serve {label}: launch counters {launches} != {want}")
-    return {"launches": launches, "steps": steps, "tok_s": n_tok / wall,
+    return {"launches": launches, "steps": steps, "wall_s": wall,
+            "tok_s": n_tok / wall,
             "ttft_ms": float(np.mean(ttft) * 1e3),
             "itl_ms": float(np.mean(itl) * 1e3), "prefix_hits": hits,
             "max_mem_gib": mem,
@@ -1368,21 +1486,31 @@ def phase_serve_phi(torch, card_line):
     return out, capacity
 
 
-def phase_serve_deepseek(torch, card_line):
+# launches per step of the deepseek cut's MoE layers (3 of its 4 layers)
+DS_MOE = {"topk_gate": 3, "permute_tokens": 3, "unpermute_tokens": 3,
+          "grouped_gemm": 9}
+
+
+def ds_prompts(cfg):
+    """The deepseek serve's 6 prompts (3 sharing a 256-token prefix) and a
+    maker of more from the same generator, seeded 3."""
     import numpy as np
-    from repro_torch.serving.api import LLM
-    cfg = _cut("deepseek-v2-236b", 4)
     rng = np.random.default_rng(3)
     shared = rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
     tail = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
     prompts = ([np.concatenate([shared, tail(40)])]
                + [tail(n) for n in (64, 512, 300)]
                + [np.concatenate([shared, tail(n)]) for n in (200, 180)])
+    return rng, prompts, tail
+
+
+def phase_serve_deepseek(torch, card_line):
+    from repro_torch.serving.api import LLM
+    cfg = _cut("deepseek-v2-236b", 4)
+    rng, prompts, tail = ds_prompts(cfg)
     llm = _load(torch, ds_spec(), cfg, card_line)
-    moe = {"topk_gate": 3, "permute_tokens": 3, "unpermute_tokens": 3,
-           "grouped_gemm": 9}
     label = f"{cfg.name} (4 of 60 layers, expanded MLA)"
-    out = _serve(torch, llm, prompts, 16, {"flash_chunk": 4, **moe},
+    out = _serve(torch, llm, prompts, 16, {"flash_chunk": 4, **DS_MOE},
                  card_line, label)
     check(out["prefix_hits"] >= 1, "serve: no prefix hit")
     phase_profile(torch, llm, rng, label)
@@ -1393,7 +1521,7 @@ def phase_serve_deepseek(torch, card_line):
     small = LLM.from_spec(ds1_spec(), cfg=cfg, params=params, device="cuda",
                           dtype=torch.bfloat16)
     absorbed = _serve(torch, small, [tail(16), tail(24)], 4,
-                      {"flash_decode": 4, "flash_chunk": 4, **moe},
+                      {"flash_decode": 4, "flash_chunk": 4, **DS_MOE},
                       card_line,
                       f"{cfg.name} (4 of 60 layers, absorbed MLA, chunk=1)")
     # capacity dispatch: the first serve's prompts on the same weights
@@ -1403,7 +1531,7 @@ def phase_serve_deepseek(torch, card_line):
                         device="cuda", dtype=torch.bfloat16)
     capacity = _serve_capacity(
         torch, cap, prompts, 16,
-        {"flash_chunk": 4, **moe, "grouped_gemm": 0, "moe_gemm": 9},
+        {"flash_chunk": 4, **DS_MOE, "grouped_gemm": 0, "moe_gemm": 9},
         card_line, label + " capacity")
     check(capacity["prefix_hits"] >= 1, "capacity serve: no prefix hit")
     return out, absorbed, capacity
@@ -1413,7 +1541,8 @@ def phase_profile(torch, llm, rng, label):
     """Where the device time goes: torch.profiler over a short extra run
     on the same engine (4 fresh prompts of 256 tokens, 8 new tokens each;
     not part of the counted main-path run).  Prints each kernel family's
-    share of device time and the device's idle share of the window."""
+    share of device time and the device's idle share of the window, and
+    returns the device busy ms and the idle share."""
     from torch.profiler import ProfilerActivity, profile
     prompts = [rng.integers(0, llm.cfg.vocab_size, 256).astype("int32")
                for _ in range(4)]
@@ -1448,6 +1577,7 @@ def phase_profile(torch, llm, rng, label):
     top.sort(reverse=True)
     print(f"[profile] {label}: largest other kernels: " + "; ".join(
         f"{name} {us / 1e3:.1f} ms" for us, name in top[:5]))
+    return {"busy_ms": busy / 1e3, "idle_share": max(0.0, 1 - busy / wall_us)}
 
 
 # ---------------------------------------------------------------------------
@@ -1805,7 +1935,10 @@ def kernels_record(kres, launches):
             "max_abs_err": max(r["max_err"] for r in recs),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": main["library_ms"], "shape": main["label"] + ": "
+            "library_ms": main["library_ms"],
+            "device_ms": main["device_ms"],
+            "library_device_ms": main["library_device_ms"],
+            "shape": main["label"] + ": "
             + main["shape"],
             "max_err": {r["label"]: r["max_err"] for r in recs},
             "tol": {r["label"]: r["tol"] for r in recs},
@@ -1814,7 +1947,8 @@ def kernels_record(kres, launches):
                 "label": r["label"], "shape": r["shape"],
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": bound(r)[0], "bound_by": bound(r)[1],
-                "library_ms": r["library_ms"]}
+                "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+                "library_device_ms": r["library_device_ms"]}
                 for r in timed if r is not main],
         })
     return out
@@ -1852,6 +1986,25 @@ def _capacity(sh, cfg):
                         cfg.n_experts, cfg.capacity_factor)
 
 
+def resolve_shapes():
+    """The kernel shapes of every serve phase, from the envelopes the serve
+    specs resolve to (cheap, host only), so phase 2 times exactly what
+    phases 4-5 launch: (phi, ds, ds1, dsh)."""
+    phi_cfg, ds_cfg = _cut("phi3.5-moe-42b", 8), _cut("deepseek-v2-236b", 4)
+    phi = _shapes(phi_spec(), phi_cfg)
+    ds = _shapes(ds_spec(), ds_cfg)
+    ds1 = _shapes(ds1_spec(), ds_cfg)
+    check(_shapes(phi_spec("capacity"), phi_cfg) == phi
+          and _shapes(ds_spec("capacity"), ds_cfg) == ds,
+          "capacity dispatch resolved another envelope than dropless")
+    for sh, cfg in ((phi, phi_cfg), (ds, ds_cfg), (ds1, ds_cfg)):
+        sh["C"] = _capacity(sh, cfg)
+    dsh = _dist_shapes(phi_cfg)
+    print(f"[shapes] phi3.5 {phi} | deepseek {ds} | deepseek chunk=1 {ds1}"
+          f" | distributed phi3.5 EP exchange per rank {dsh}")
+    return phi, ds, ds1, dsh
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
@@ -1868,21 +2021,9 @@ def main() -> int:
     t_start = time.perf_counter()
     card_line, name = phase_card(torch)
     phase_build()
-    # the serve phases' envelopes fix the kernel shapes; resolve them first
-    # (cheap, host only) so phase 2 times exactly what phase 4 launches
-    phi_cfg, ds_cfg = _cut("phi3.5-moe-42b", 8), _cut("deepseek-v2-236b", 4)
-    phi = _shapes(phi_spec(), phi_cfg)
-    ds = _shapes(ds_spec(), ds_cfg)
-    ds1 = _shapes(ds1_spec(), ds_cfg)
-    check(_shapes(phi_spec("capacity"), phi_cfg) == phi
-          and _shapes(ds_spec("capacity"), ds_cfg) == ds,
-          "capacity dispatch resolved another envelope than dropless")
-    for sh, cfg in ((phi, phi_cfg), (ds, ds_cfg), (ds1, ds_cfg)):
-        sh["C"] = _capacity(sh, cfg)
-    dsh = _dist_shapes(phi_cfg)
-    print(f"[shapes] phi3.5 {phi} | deepseek {ds} | deepseek chunk=1 {ds1}"
-          f" | distributed phi3.5 EP exchange per rank {dsh}")
+    phi, ds, ds1, dsh = resolve_shapes()
     kres = phase_kernels(torch, phi, ds, ds1, dsh)
+    phase_host(torch, phi, dsh)
     phase_capacity_module(torch, phi, ds)
     phase_parity(torch)
     serve_phi, cap_phi = phase_serve_phi(torch, card_line)

@@ -21,72 +21,101 @@
 //
 // What bounds them on an H100: bytes.  Both move whole rows and do at most
 // 2 flops per element read, so the floor is each input row read once and
-// each output row written once at HBM rate.  The design is one warp per
-// output row, each lane moving 16 bytes per load with neighbouring lanes on
-// neighbouring addresses, so a row is read in fully coalesced 512-byte
-// sweeps; the index (and weight) of the row is read once per lane from L1.
-// permute copies raw bits (it never converts), so one kernel serves both
-// float types.  Rows whose byte width is not a multiple of 16, or whose
-// pointers are not 16-byte aligned, take the element-wise instantiation.
-// The ragged gather gives each block a tile of 32 rows (4 per warp), so the
-// buffers sized for the worst-case skew, mostly empty at low load, cost
-// one zero-store sweep per empty tile and no index or row reads.
+// each output row written once at HBM rate.  permute copies raw bits (it
+// never converts), so one kernel serves both float types.
+//
+// The two gathers.  A served gather moves 0.5-26 MB: no more than the
+// card's bandwidth-delay product (3.35 TB/s x ~1 us), so its time is set
+// by how many loads are in flight at once, not by how they stream.  The
+// grid is rows x column chunks (ops.permute_plan): a CTA of 64 threads
+// moves a tile of 32 rows x 8 units of one column chunk (a unit is 16
+// bytes; one element on the element-wise path), row tiles on gridDim.x,
+// which has no 65535 cap, chunks on gridDim.y.  So a 320-row gather of
+// 4 KB rows is 320 CTAs, more than two per SM.  Each thread
+// owns one unit column of the chunk and 4 rows 8 apart: it reads its 4
+// src entries, then issues its 4 independent 16-byte loads, then its 4
+// stores, so a CTA has 4 KB in flight from its first instruction (8 lanes
+// per row sweep a full 128-byte line).  Registers rather than TMA bulk
+// copies: a chunk is one 128-byte line per row, and staging it through
+// shared memory would add an mbarrier wait and a second pass for nothing
+// the registers do not already do.  Rows whose byte width is not a
+// multiple of 16 take the element-wise instantiations, one element per
+// unit, with the same geometry.  The ragged gather decides per 32-row
+// tile, from total[] (each entry read once per CTA), whether the tile lies
+// wholly in the empty tails; such a tile writes zeros and reads neither
+// src nor x, so the buffers sized for the worst-case skew, mostly empty at
+// low load, cost one zero-store sweep per empty tile.
+//
+// The combine keeps one warp per output row, each lane moving 16 bytes per
+// load with neighbouring lanes on neighbouring addresses, so a row is read
+// in fully coalesced 512-byte sweeps; the index and weight of each slot are
+// read once per lane from L1.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;   // 8 warps = 8 output rows per block
-constexpr int RAGGED_TILE = 32;   // rows per block of the ragged gather
+constexpr int THREADS = 256;   // combine: 8 warps = 8 output rows per block
+
+// the gathers' CTA (ops.PERMUTE_ROWS, ops.PERMUTE_CHUNK mirror these)
+constexpr int G_THREADS = 64;
+constexpr int G_ROWS = 32;     // rows per CTA: the ragged gather's skip tile
+constexpr int G_CHUNK = 8;     // units of each row per CTA, one per thread
+constexpr int G_STEP = G_THREADS / G_CHUNK;   // 8: a thread's rows apart
+constexpr int G_PASSES = G_ROWS / G_STEP;     // 4 loads in flight a thread
+static_assert(G_ROWS <= G_THREADS, "a thread per segment a tile touches");
+
+// out[base + r] = x[src[base + r]] for the CTA's tile, at unit column
+// `col` of each row; rows of src < 0 or >= t, and every row of an `empty`
+// tile, are zeros.  An empty tile reads neither src nor x.
+template <typename V>
+__device__ __forceinline__ void gather_tile(
+    const V* __restrict__ x, const int* __restrict__ src, V* __restrict__ out,
+    int n, int t, int w, int base, bool empty) {
+  const int col = blockIdx.y * G_CHUNK + threadIdx.x % G_CHUNK;
+  if (col >= w) return;
+  const int row0 = base + threadIdx.x / G_CHUNK;
+  int s[G_PASSES];
+#pragma unroll
+  for (int p = 0; p < G_PASSES; ++p) {
+    const int row = row0 + p * G_STEP;
+    s[p] = !empty && row < n ? src[row] : -1;
+  }
+  V v[G_PASSES];
+#pragma unroll
+  for (int p = 0; p < G_PASSES; ++p)
+    v[p] = s[p] >= 0 && s[p] < t ? x[(long long)s[p] * w + col] : V{};
+#pragma unroll
+  for (int p = 0; p < G_PASSES; ++p) {
+    const int row = row0 + p * G_STEP;
+    if (row < n) out[(long long)row * w + col] = v[p];
+  }
+}
 
 template <typename V>   // uint4 (16 B), uint32_t or uint16_t: raw bits
-__global__ void __launch_bounds__(THREADS) permute_kernel(
+__global__ void __launch_bounds__(G_THREADS) permute_kernel(
     const V* __restrict__ x, const int* __restrict__ src, V* __restrict__ out,
     int n, int t, int w) {
-  const int row = (blockIdx.x * THREADS + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;
-  const int s = src[row];
-  V* o = out + (long long)row * w;
-  if (s < 0 || s >= t) {            // dropped slot: a zero row
-    for (int c = lane; c < w; c += 32) o[c] = V{};
-    return;
-  }
-  const V* xr = x + (long long)s * w;
-  for (int c = lane; c < w; c += 32) o[c] = xr[c];
+  gather_tile(x, src, out, n, t, w, blockIdx.x * G_ROWS, false);
 }
 
 // Tile [base, last] is empty when each segment it touches starts its part
-// of the tile at or past that segment's prefix.  The wrapper guarantees
-// n_seg * seg_stride >= n, so every row has a segment.
+// of the tile at or past that segment's prefix.  A tile touches at most
+// G_ROWS segments, so thread i judges the tile's i-th segment and the
+// block ORs the verdicts.  The wrapper guarantees n_seg * seg_stride >= n,
+// so every row has a segment.
 template <typename V>
-__global__ void __launch_bounds__(THREADS) permute_ragged_kernel(
+__global__ void __launch_bounds__(G_THREADS) permute_ragged_kernel(
     const V* __restrict__ x, const int* __restrict__ src,
     const int* __restrict__ total, V* __restrict__ out, int n, int t, int w,
     int seg_stride) {
-  const int base = blockIdx.x * RAGGED_TILE;
-  const int last = min(base + RAGGED_TILE, n) - 1;
-  bool empty = true;
-  for (int r = base / seg_stride; r <= last / seg_stride && empty; ++r) {
-    const int seg0 = r * seg_stride;
-    empty = max(base, seg0) - seg0 >= total[r];
-  }
-  if (empty) {
-    V* o = out + (long long)base * w;
-    const long long cnt = (long long)(last - base + 1) * w;
-    for (long long c = threadIdx.x; c < cnt; c += THREADS) o[c] = V{};
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  for (int row = base + (threadIdx.x >> 5); row <= last; row += THREADS / 32) {
-    const int s = src[row];
-    V* o = out + (long long)row * w;
-    if (s < 0 || s >= t) {
-      for (int c = lane; c < w; c += 32) o[c] = V{};
-      continue;
-    }
-    const V* xr = x + (long long)s * w;
-    for (int c = lane; c < w; c += 32) o[c] = xr[c];
-  }
+  const int base = blockIdx.x * G_ROWS;
+  const int last = min(base + G_ROWS, n) - 1;
+  const int r = base / seg_stride + threadIdx.x;
+  const long long seg0 = (long long)r * seg_stride;
+  const bool live = seg0 <= last
+                    && max((long long)base, seg0) - seg0 < total[r];
+  const bool empty = !__syncthreads_or(live);
+  gather_tile(x, src, out, n, t, w, base, empty);
 }
 
 // 8 consecutive elements <-> f32; the vector forms need 16-byte alignment
@@ -176,51 +205,66 @@ cudaError_t unpermute_launch(const void* buf, const int* slot, const float* w,
   return cudaGetLastError();
 }
 
+template <bool RAGGED, typename V>
+void gather_grid(dim3 grid, cudaStream_t s, const void* x, const int* src,
+                 const int* total, void* out, int n, int t, int w,
+                 int seg_stride) {
+  if constexpr (RAGGED)
+    permute_ragged_kernel<V><<<grid, G_THREADS, 0, s>>>(
+        (const V*)x, src, total, (V*)out, n, t, w, seg_stride);
+  else
+    permute_kernel<V><<<grid, G_THREADS, 0, s>>>((const V*)x, src, (V*)out,
+                                                 n, t, w);
+}
+
+// Launch a gather on the grid ops.permute_plan gave: refused (invalid
+// configuration) when it does not cover the n rows and the row's units, or
+// exceeds gridDim.y's 65535.  16-byte units where the row is a multiple of
+// 16 bytes and both pointers are 16-byte aligned, else one element.
+template <bool RAGGED>
+int gather_launch(const void* x, const int* src, const int* total, void* out,
+                  int n, int t, int h, int elem_bytes, int seg_stride,
+                  int grid_x, int grid_y, cudaStream_t s) {
+  if (n == 0 || h == 0) return cudaSuccess;
+  if ((elem_bytes != 2 && elem_bytes != 4) || seg_stride <= 0)
+    return cudaErrorInvalidValue;
+  const long long row_bytes = (long long)h * elem_bytes;
+  const bool vec = row_bytes % 16 == 0 && aligned16(x) && aligned16(out);
+  const int w = vec ? (int)(row_bytes / 16) : h;
+  if (grid_x <= 0 || grid_y <= 0 || grid_y > 65535
+      || (long long)grid_x * G_ROWS < n || (long long)grid_y * G_CHUNK < w)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid(grid_x, grid_y);
+  if (vec)
+    gather_grid<RAGGED, uint4>(grid, s, x, src, total, out, n, t, w,
+                               seg_stride);
+  else if (elem_bytes == 4)
+    gather_grid<RAGGED, uint32_t>(grid, s, x, src, total, out, n, t, w,
+                                  seg_stride);
+  else
+    gather_grid<RAGGED, uint16_t>(grid, s, x, src, total, out, n, t, w,
+                                  seg_stride);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int rt_permute_tokens(const void* x, const void* src, void* out,
                                  int n, int t, int h, int elem_bytes,
-                                 void* stream) {
-  if (n == 0 || h == 0) return cudaSuccess;
-  if (elem_bytes != 2 && elem_bytes != 4) return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long row_bytes = (long long)h * elem_bytes;
-  const int* si = (const int*)src;
-  if (row_bytes % 16 == 0 && aligned16(x) && aligned16(out))
-    permute_kernel<uint4><<<row_grid(n), THREADS, 0, s>>>(
-        (const uint4*)x, si, (uint4*)out, n, t, (int)(row_bytes / 16));
-  else if (elem_bytes == 4)
-    permute_kernel<uint32_t><<<row_grid(n), THREADS, 0, s>>>(
-        (const uint32_t*)x, si, (uint32_t*)out, n, t, h);
-  else
-    permute_kernel<uint16_t><<<row_grid(n), THREADS, 0, s>>>(
-        (const uint16_t*)x, si, (uint16_t*)out, n, t, h);
-  return cudaGetLastError();
+                                 int grid_x, int grid_y, void* stream) {
+  return gather_launch<false>(x, (const int*)src, nullptr, out, n, t, h,
+                              elem_bytes, 1, grid_x, grid_y,
+                              (cudaStream_t)stream);
 }
 
 extern "C" int rt_permute_tokens_ragged(const void* x, const void* src,
                                         const void* total, void* out, int n,
                                         int t, int h, int elem_bytes,
-                                        int seg_stride, void* stream) {
-  if (n == 0 || h == 0) return cudaSuccess;
-  if ((elem_bytes != 2 && elem_bytes != 4) || seg_stride <= 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long row_bytes = (long long)h * elem_bytes;
-  const int* si = (const int*)src;
-  const int* tot = (const int*)total;
-  const dim3 grid((n + RAGGED_TILE - 1) / RAGGED_TILE);
-  if (row_bytes % 16 == 0 && aligned16(x) && aligned16(out))
-    permute_ragged_kernel<uint4><<<grid, THREADS, 0, s>>>(
-        (const uint4*)x, si, tot, (uint4*)out, n, t, (int)(row_bytes / 16),
-        seg_stride);
-  else if (elem_bytes == 4)
-    permute_ragged_kernel<uint32_t><<<grid, THREADS, 0, s>>>(
-        (const uint32_t*)x, si, tot, (uint32_t*)out, n, t, h, seg_stride);
-  else
-    permute_ragged_kernel<uint16_t><<<grid, THREADS, 0, s>>>(
-        (const uint16_t*)x, si, tot, (uint16_t*)out, n, t, h, seg_stride);
-  return cudaGetLastError();
+                                        int seg_stride, int grid_x,
+                                        int grid_y, void* stream) {
+  return gather_launch<true>(x, (const int*)src, (const int*)total, out, n,
+                             t, h, elem_bytes, seg_stride, grid_x, grid_y,
+                             (cudaStream_t)stream);
 }
 
 extern "C" int rt_unpermute_tokens(const void* buf, const void* slot,

@@ -34,31 +34,37 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_same_device(*ts) -> torch.device:
-    dev = ts[0].device
+def _check_inputs(name: str, floats: tuple, ints: tuple = (),
+                  others: tuple = ()) -> torch.device:
+    """The checks every wrapper makes of its tensors, in one pass: all on
+    one device, CPU or CUDA; ``floats`` of one dtype the kernels take;
+    ``ints`` int32; ``floats`` and ``ints`` contiguous (``others`` are held
+    to the device alone).  Returns the device; raises ``ValueError`` for
+    the first failure in that order, its message built only then."""
+    dev = floats[0].device
+    dt = floats[0].dtype
+    ok = dev.type in ("cpu", "cuda") and dt in _DTYPES
+    for t in floats:
+        ok = ok and t.device == dev and t.dtype == dt and t.is_contiguous()
+    for t in ints:
+        ok = ok and t.device == dev and t.dtype == torch.int32 \
+            and t.is_contiguous()
+    for t in others:
+        ok = ok and t.device == dev
+    if ok:
+        return dev
+    ts = floats + ints + others
     _check(all(t.device == dev for t in ts),
            "all tensors must be on one device, got "
            + ", ".join(str(t.device) for t in ts))
     _check(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
-    return dev
-
-
-def _check_float(name: str, *ts) -> None:
-    dt = ts[0].dtype
     _check(dt in _DTYPES, f"{name}: dtype must be float32 or bfloat16, "
                           f"got {dt}")
-    _check(all(t.dtype == dt for t in ts),
+    _check(all(t.dtype == dt for t in floats),
            f"{name}: all float inputs must share one dtype")
-
-
-def _check_int32(name: str, *ts) -> None:
-    _check(all(t.dtype == torch.int32 for t in ts),
+    _check(all(t.dtype == torch.int32 for t in ints),
            f"{name}: index tensors must be int32")
-
-
-def _check_contiguous(name: str, *ts) -> None:
-    _check(all(t.is_contiguous() for t in ts),
-           f"{name}: inputs must be contiguous")
+    raise ValueError(f"{name}: inputs must be contiguous")
 
 
 def _launch(fn, *args) -> None:
@@ -68,15 +74,17 @@ def _launch(fn, *args) -> None:
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The raw handle of PyTorch's current stream on the current device:
+    what ``torch.cuda.current_stream().cuda_stream`` gives, without
+    building a ``Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def _check_attention(name, q, k, v, lengths) -> tuple:
     """The checks the dense and paged attention wrappers share: q and the
     K/V buffers 4-d with matching leading dims, a head layout and head dims
-    the kernel takes, (B,) int32 lengths.  Returns (nkv, hd, hdv)."""
-    _check_float(name, q, k, v)
-    _check_int32(name, *lengths)
+    the kernel takes, (B,) lengths (their dtype and device checked by
+    ``_check_inputs`` before).  Returns (nkv, hd, hdv)."""
     _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
            f"{name}: q and the K/V buffers must be 4-d")
     b, _, nq, hd = q.shape
@@ -163,8 +171,7 @@ def flash_chunk(q, k, v, q_offset, q_len, kv_len, *, scale=None):
     ``ref.flash_chunk_ref``."""
     name = "flash_chunk"
     lengths = (q_offset, q_len, kv_len)
-    dev = _check_same_device(q, k, v, *lengths)
-    _check_contiguous(name, q, k, v, *lengths)
+    dev = _check_inputs(name, (q, k, v), lengths)
     nkv, hd, hdv = _check_attention(name, q, k, v, lengths)
     b = q.shape[0]
     _check(k.shape[0] == b, f"{name}: K/V batch {k.shape[0]} != q batch {b}")
@@ -185,9 +192,8 @@ def flash_decode(q, k, v, lengths, *, scale=None):
     counts these calls under ``flash_decode`` beside the ``flash_chunk``
     launch each makes.  Contract: ``ref.flash_decode_ref``."""
     name = "flash_decode"
-    dev = _check_same_device(q, k, v, lengths)
+    dev = _check_inputs(name, (q, k, v), (lengths,))
     _check(q.dim() == 3, f"{name}: q must be (B, nq, hd)")
-    _check_contiguous(name, q, k, v, lengths)
     nkv, hd, hdv = _check_attention(name, q[:, None], k, v, (lengths,))
     _check(k.shape[0] == q.shape[0],
            f"{name}: K/V batch {k.shape[0]} != q batch {q.shape[0]}")
@@ -210,9 +216,8 @@ def flash_chunk_paged(q, k_pages, v_pages, block_tables, q_offset, q_len,
     ``ref.flash_chunk_paged_ref``."""
     name = "flash_chunk_paged"
     lengths = (q_offset, q_len, kv_len)
-    dev = _check_same_device(q, k_pages, v_pages, block_tables, *lengths)
-    _check_int32(name, block_tables)
-    _check_contiguous(name, q, k_pages, v_pages, block_tables, *lengths)
+    dev = _check_inputs(name, (q, k_pages, v_pages),
+                        (block_tables, *lengths))
     nkv, hd, hdv = _check_attention(name, q, k_pages, v_pages, lengths)
     b, sq, nq, _ = q.shape
     n_pages, page = k_pages.shape[:2]
@@ -241,9 +246,7 @@ def topk_gate(logits, k: int, *, renorm: bool = True):
     top-k with ties to the lowest id, optional renorm.  Contract:
     ``ref.topk_gate_ref``."""
     name = "topk_gate"
-    dev = _check_same_device(logits)
-    _check_float(name, logits)
-    _check_contiguous(name, logits)
+    dev = _check_inputs(name, (logits,))
     _check(logits.dim() == 2, f"{name}: logits must be (T, E)")
     t, e = logits.shape
     _check(1 <= e <= 256 and 1 <= k <= min(e, 32),
@@ -264,9 +267,7 @@ def moe_gemm(x, w):
     (E, C, D) in x's dtype, float32 accumulation; an all-zero row of x gives
     an exact-zero row.  Contract: ``ref.moe_gemm_ref``."""
     name = "moe_gemm"
-    dev = _check_same_device(x, w)
-    _check_float(name, x, w)
-    _check_contiguous(name, x, w)
+    dev = _check_inputs(name, (x, w))
     _check(x.dim() == 3 and w.dim() == 3 and x.shape[0] == w.shape[0]
            and x.shape[2] == w.shape[1],
            f"{name}: need x (E, C, H) and w (E, H, D), got "
@@ -301,10 +302,7 @@ def grouped_gemm(x, w, group_offsets):
     accumulation; rows at/after ``offsets[-1]`` are exact zeros.
     Contract: ``ref.grouped_gemm_ref``."""
     name = "grouped_gemm"
-    dev = _check_same_device(x, w, group_offsets)
-    _check_float(name, x, w)
-    _check_int32(name, group_offsets)
-    _check_contiguous(name, x, w, group_offsets)
+    dev = _check_inputs(name, (x, w), (group_offsets,))
     _check(x.dim() == 2 and w.dim() == 3 and x.shape[1] == w.shape[1],
            f"{name}: need x (N, H) and w (E, H, D), got {tuple(x.shape)} "
            f"and {tuple(w.shape)}")
@@ -322,24 +320,55 @@ def grouped_gemm(x, w, group_offsets):
     return out
 
 
+PERMUTE_ROWS = 32     # G_ROWS in csrc/permute.cu: rows per CTA, the skip tile
+PERMUTE_CHUNK = 8     # G_CHUNK: units of each row per CTA
+PERMUTE_THREADS = 64  # G_THREADS: a unit column and 4 rows 8 apart each
+
+
+def permute_plan(n: int, row_bytes: int,
+                 elem_bytes: int) -> tuple[int, int, int]:
+    """(grid_x, grid_y, unit bytes) of a gather of n rows of ``row_bytes``
+    (both gather kernels).  A unit is 16 bytes where the row is a multiple
+    of 16, else one element (the element-wise kernels).  A CTA moves
+    ``PERMUTE_ROWS`` rows x ``PERMUTE_CHUNK`` units of one column chunk:
+    row tiles on grid x, which takes 2^31 - 1 of them, column chunks on
+    grid y (at most 65535, so rows of up to 8 MB).  The kernels refuse a
+    grid that does not cover the rows and units."""
+    unit = 16 if row_bytes % 16 == 0 else elem_bytes
+    return (-(-n // PERMUTE_ROWS),
+            -(-(row_bytes // unit) // PERMUTE_CHUNK), unit)
+
+
+def _gather(x, src_tok, total=None, seg_stride=0):
+    """Launch a gather kernel (the ragged one where ``total`` is given) on
+    checked CUDA inputs."""
+    x = _aligned(x)
+    t, h = x.shape
+    n = src_tok.shape[0]
+    out = x.new_empty(n, h)     # x's dtype and device: no keywords to parse
+    es = x.element_size()
+    gx, gy, _ = permute_plan(n, h * es, es)
+    lib = build.load()
+    if total is None:
+        _launch(lib.rt_permute_tokens, x.data_ptr(), src_tok.data_ptr(),
+                out.data_ptr(), n, t, h, es, gx, gy, _stream())
+    else:
+        _launch(lib.rt_permute_tokens_ragged, x.data_ptr(),
+                src_tok.data_ptr(), total.data_ptr(), out.data_ptr(), n, t,
+                h, es, seg_stride, gx, gy, _stream())
+    return out
+
+
 def permute_tokens(x, src_tok):
     """x (T, h), src_tok (N,) int32 -> (N, h); ``src_tok[i] < 0`` yields a
     zero row.  Contract: ``ref.permute_tokens_ref``."""
-    name = "permute_tokens"
-    dev = _check_same_device(x, src_tok)
-    _check_float(name, x)
-    _check_int32(name, src_tok)
-    _check_contiguous(name, x, src_tok)
+    dev = _check_inputs("permute_tokens", (x,), (src_tok,))
     _check(x.dim() == 2 and src_tok.dim() == 1,
-           f"{name}: need x (T, h) and src_tok (N,)")
+           "permute_tokens: need x (T, h) and src_tok (N,)")
     if dev.type == "cpu":
         return ref.permute_tokens_ref(x, src_tok)
-    t, h = x.shape
-    n = src_tok.shape[0]
-    out = torch.empty(n, h, dtype=x.dtype, device=dev)
-    _launch(build.load().rt_permute_tokens, x.data_ptr(), src_tok.data_ptr(),
-            out.data_ptr(), n, t, h, x.element_size(), _stream())
-    counters[name] += 1
+    out = _gather(x, src_tok)
+    counters["permute_tokens"] += 1
     return out
 
 
@@ -353,12 +382,10 @@ def permute_tokens_ragged(x, src_tok, total, *, seg_stride=None):
     zeros without a gather.  Raises ``ValueError`` when the segments do not
     cover the buffer.  Contract: ``ref.permute_tokens_ragged_ref``."""
     name = "permute_tokens_ragged"
-    dev = _check_same_device(x, src_tok, total)
-    _check_float(name, x)
-    _check_int32(name, src_tok, total)
-    _check_contiguous(name, x, src_tok, total)
+    dev = _check_inputs(name, (x,), (src_tok, total))
     _check(x.dim() == 2 and src_tok.dim() == 1 and total.dim() <= 1,
-           f"{name}: need x (T, h), src_tok (N,) and total () or (n_seg,)")
+           "permute_tokens_ragged: need x (T, h), src_tok (N,) and total () "
+           "or (n_seg,)")
     n, n_seg = src_tok.shape[0], total.numel()
     seg_stride = n if seg_stride is None else int(seg_stride)
     if n_seg * seg_stride < n:
@@ -367,13 +394,9 @@ def permute_tokens_ragged(x, src_tok, total, *, seg_stride=None):
     if dev.type == "cpu":
         return ref.permute_tokens_ragged_ref(x, src_tok, total,
                                              seg_stride=seg_stride)
-    t, h = x.shape
-    out = torch.empty(n, h, dtype=x.dtype, device=dev)
     if n == 0:
-        return out
-    _launch(build.load().rt_permute_tokens_ragged, x.data_ptr(),
-            src_tok.data_ptr(), total.data_ptr(), out.data_ptr(), n, t, h,
-            x.element_size(), seg_stride, _stream())
+        return torch.empty(0, x.shape[1], dtype=x.dtype, device=dev)
+    out = _gather(x, src_tok, total, seg_stride)
     counters[name] += 1
     return out
 
@@ -385,12 +408,9 @@ def unpermute_tokens(buf, src_slot, weights):
     here, as the reference wrapper does.  Contract:
     ``ref.unpermute_tokens_ref``."""
     name = "unpermute_tokens"
-    dev = _check_same_device(buf, src_slot, weights)
-    _check_float(name, buf)
-    _check_int32(name, src_slot)
+    dev = _check_inputs(name, (buf,), (src_slot,), (weights,))
     _check(weights.is_floating_point(), f"{name}: weights must be float")
     weights = weights.float().contiguous()
-    _check_contiguous(name, buf, src_slot)
     _check(buf.dim() == 2 and src_slot.dim() == 2
            and weights.shape == src_slot.shape,
            f"{name}: need buf (M, h), src_slot and weights (T, k)")
@@ -409,6 +429,6 @@ def unpermute_tokens(buf, src_slot, weights):
 
 __all__ = ["flash_chunk", "flash_decode", "flash_chunk_paged", "flash_plan",
            "topk_gate", "moe_gemm", "grouped_gemm", "grouped_gemm_visits",
-           "permute_tokens",
+           "permute_tokens", "permute_plan",
            "permute_tokens_ragged", "unpermute_tokens", "counters",
            "reset_counters"]

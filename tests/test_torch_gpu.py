@@ -340,3 +340,103 @@ def test_permute_ragged_on_card(dev, dtype, n, h, totals, stride):
         junk = torch.randint(0, 97, (n,), dtype=torch.int32, device=dev)
         assert (ops.permute_tokens_ragged(x, junk, tot, seg_stride=stride)
                 == 0).all()
+
+
+def _gather_input(dev, dt, t, h, misaligned):
+    """(t, h) random rows; ``misaligned``: a contiguous view starting one
+    element past a 16-byte boundary (the wrapper copies it to an aligned
+    buffer before the 16-byte kernel)."""
+    flat = torch.randn(t * h + 1, device=dev).to(dt)
+    x = flat[1:].view(t, h) if misaligned else flat[:-1].view(t, h)
+    assert (x.data_ptr() % 16 != 0) == misaligned and x.is_contiguous()
+    return x
+
+
+# (name, N, h, misaligned): one row; 70 000 rows; a width off the 8-unit
+# chunk (1032 bf16 = 129 16-byte units); a misaligned x; element-wise rows
+GATHER_EDGES = [("n1", 1, 4096, False), ("n70000", 70_000, 64, False),
+                ("width_off_chunk", 300, 1032, False),
+                ("misaligned_x", 100, 2048, True),
+                ("elementwise", 77, 4098, False)]
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["plain", "ragged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GATHER_EDGES,
+                         ids=[c[0] for c in GATHER_EDGES])
+def test_gathers_on_card_at_plan_edges(dev, dtype, case, ragged):
+    """Both gathers bitwise against their plain versions at the launch
+    plan's edges, one launch each; the ragged one under two segments
+    whose prefixes leave empty tiles."""
+    _, n, h, misaligned = case
+    dt = getattr(torch, dtype)
+    x = _gather_input(dev, dt, 97, h, misaligned)
+    src = torch.randint(0, 97, (n,), dtype=torch.int32, device=dev)
+    src[::5] = -1
+    ops.reset_counters()
+    if ragged:
+        st = -(-n // 2)
+        tot = torch.tensor([min(st, 40), st // 3], dtype=torch.int32,
+                           device=dev)
+        row = torch.arange(n, device=dev)
+        seg = row // st
+        src[(row - seg * st) >= tot[seg]] = -1
+        got = ops.permute_tokens_ragged(x, src, tot, seg_stride=st)
+        want = ref.permute_tokens_ragged_ref(x, src, tot, seg_stride=st)
+    else:
+        got = ops.permute_tokens(x, src)
+        want = ref.permute_tokens_ref(x, src)
+    assert ops.counters["permute_tokens_ragged" if ragged
+                        else "permute_tokens"] == 1
+    assert torch.equal(got, want)
+    assert (got[src < 0] == 0).all()
+
+
+def _tile_empty(base, n, totals, stride, tile=32):
+    """The ragged kernel's verdict on the tile at ``base``: every segment
+    it touches starts its part of the tile at or past its prefix."""
+    last = min(base + tile, n) - 1
+    return all(max(base, r * stride) - r * stride >= totals[r]
+               for r in range(base // stride, last // stride + 1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [2048, 36])   # 16-byte rows; element-wise
+def test_permute_ragged_empty_tiles_ignore_junk_src(dev, dtype, h):
+    """Segments 40 rows apart with prefixes 10, 0, 20 over 100 rows: the
+    tile of rows 32-63 straddles two empty tails and comes back zero
+    although src there holds valid-looking junk; the live tiles gather
+    every row, junk included (validity rides in src)."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(97, h, device=dev).to(dt)
+    totals, stride, n = [10, 0, 20], 40, 100
+    junk = torch.randint(0, 97, (n,), dtype=torch.int32, device=dev)
+    got = ops.permute_tokens_ragged(
+        x, junk, torch.tensor(totals, dtype=torch.int32, device=dev),
+        seg_stride=stride)
+    empty = [b for b in range(0, n, 32) if _tile_empty(b, n, totals, stride)]
+    assert empty == [32]
+    for b in range(0, n, 32):
+        rows = slice(b, min(b + 32, n))
+        want = (torch.zeros_like(got[rows]) if b in empty
+                else x[junk[rows].long()])
+        assert torch.equal(got[rows], want)
+
+
+@pytest.mark.parametrize("short", ["rows", "units", "y_cap"])
+def test_gather_entry_refuses_a_grid_short_of_the_plan(dev, short):
+    """The C entry checks the grid it is given: one row tile or one column
+    chunk fewer than ops.permute_plan's, or a y past 65535, is refused
+    (cudaErrorInvalidConfiguration, 9) and launches nothing."""
+    from repro_torch.kernels import build
+    x = torch.randn(40, 1024, device=dev).to(torch.bfloat16)
+    src = torch.randint(0, 40, (100,), dtype=torch.int32, device=dev)
+    out = torch.zeros(100, 1024, dtype=torch.bfloat16, device=dev)
+    gx, gy, _ = ops.permute_plan(100, 2048, 2)
+    grid = {"rows": (gx - 1, gy), "units": (gx, gy - 1),
+            "y_cap": (gx, 65536)}[short]
+    rc = build.load().rt_permute_tokens(
+        x.data_ptr(), src.data_ptr(), out.data_ptr(), 100, 40, 1024, 2,
+        *grid, ops._stream())
+    torch.cuda.synchronize()
+    assert rc == 9 and (out == 0).all()

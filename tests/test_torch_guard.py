@@ -26,7 +26,8 @@ def _imports(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+    ROOT / "chip_smoke.py", ROOT / "chip_compare.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [(ln, m) for ln, m in _imports(path)
            if m.split(".")[0] in FORBIDDEN]

@@ -421,3 +421,62 @@ def test_flash_plan_fills_the_card_from_geometry_only():
         assert ctas * n_split >= 2 * ops.FLASH_SMS \
             or n_split == ops.FLASH_MAX_SPLIT
         assert n_split == 1 or ctas * (n_split - 1) < 2 * ops.FLASH_SMS
+
+
+# --- the gathers' launch plan (csrc/permute.cu takes the grid from
+# ops.permute_plan and refuses one that does not cover the rows) ---
+
+SERVED_GATHER_ROWS = [320, 512, 640, 1536, 2560]
+SERVED_GATHER_WIDTHS = [2048, 4096, 5120]
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("h", SERVED_GATHER_WIDTHS)
+@pytest.mark.parametrize("n", SERVED_GATHER_ROWS)
+def test_permute_plan_fills_the_card_at_served_shapes(n, h, elem_bytes):
+    """Every gather chip_smoke.py times launches at least two CTAs per SM
+    of the H100 (132 SMs), on 16-byte units."""
+    gx, gy, unit = ops.permute_plan(n, h * elem_bytes, elem_bytes)
+    assert unit == 16
+    assert gx * gy >= 2 * 132
+    assert gy <= 65535
+
+
+def _plan_cells(n, row_bytes, elem_bytes):
+    """How often the kernel writes each (row, unit) cell under the plan,
+    walked as csrc/permute.cu's gather_tile walks it: thread i of CTA
+    (bx, by) owns unit by * CHUNK + i % CHUNK of rows
+    bx * ROWS + i // CHUNK + p * (THREADS // CHUNK), p = 0..3, and writes
+    a cell only inside the (n, units) buffer."""
+    gx, gy, unit = ops.permute_plan(n, row_bytes, elem_bytes)
+    w = row_bytes // unit
+    rows_cta, chunk, threads = (ops.PERMUTE_ROWS, ops.PERMUTE_CHUNK,
+                                ops.PERMUTE_THREADS)
+    step = threads // chunk
+    i = np.arange(threads)
+    p = np.arange(rows_cta // step)
+    row = (np.arange(gx)[:, None, None, None] * rows_cta
+           + (i // chunk)[None, None, :, None] + p[None, None, None, :] * step)
+    col = (np.arange(gy)[None, :, None, None] * chunk
+           + (i % chunk)[None, None, :, None])
+    row, col = np.broadcast_arrays(row, col)
+    keep = (row < n) & (col < w)
+    cells = np.bincount(row[keep] * w + col[keep], minlength=n * w)
+    return cells, gy
+
+
+# (n, row bytes, element bytes): one row; n off the 32-row tile; 70 000
+# rows (past gridDim.y's 65535, were rows on y one per CTA); widths off
+# the 8-unit chunk; element-wise rows (not multiples of 16 bytes)
+PLAN_WALKS = [(1, 4096, 2), (75, 4096, 2), (70_000, 48, 4), (33, 208, 2),
+              (96, 10_256, 4), (40, 8196, 2), (17, 36 * 4, 4),
+              (50, 4098 * 2, 2)]
+
+
+@pytest.mark.parametrize("case", PLAN_WALKS, ids=[
+    f"n{c[0]}_b{c[1]}_e{c[2]}" for c in PLAN_WALKS])
+def test_permute_plan_covers_each_cell_once(case):
+    n, row_bytes, elem_bytes = case
+    cells, gy = _plan_cells(n, row_bytes, elem_bytes)
+    assert cells.min() == 1 and cells.max() == 1
+    assert gy <= 65535
