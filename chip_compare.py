@@ -11,16 +11,22 @@ checkout's ``chip_smoke.py`` driving that tree's
 
   kernels  phase 2 of chip_smoke.py (every kernel held to its plain
            version, then timed: ``kernel_ms`` / ``device_ms`` and the
-           yardstick's) and the gather wrappers' host split; beside the
-           graph-replay device time of each record under 50 µs, the mean
-           duration per call of the CUDA kernels the call ran, from
-           torch.profiler (``profiler_ms``, ``library_profiler_ms``); at
-           each ragged gather's inputs, the same durations of the ragged
-           kernel, of permute_tokens and of index_select side by side
+           yardstick's; the digests of the checked inputs and outputs)
+           and the gather wrappers' host split; beside the graph-replay
+           device time of each record under 50 µs, and of every capacity
+           GEMM record, the mean duration per call of the CUDA kernels the
+           call ran, from torch.profiler (``profiler_ms``,
+           ``library_profiler_ms``); at each ragged gather's inputs, the
+           same durations of the ragged kernel, of permute_tokens and of
+           index_select side by side
   serve    the deepseek-v2 dropless serve of phase 4 (4 of 60 layers, its
            prompts and exact launch counts): one untimed run, then 3 timed
            runs, each on a fresh engine over the same weights, then the
-           profiler window of phase 4 (device busy ms, idle share)
+           profiler window of phase 4 (device busy ms, idle share, device
+           ms by kernel family)
+  capacity the phi3.5-moe-42b capacity serve of phase 4 (8 of 32 layers,
+           its prompts and exact launch counts, untimed), then its
+           profiler window
 
 Each child's whole output goes to ``build/chip_compare.log``; its
 ``[compare] {json}`` lines are gathered, and the last line printed is a
@@ -79,14 +85,24 @@ def _ragged_cause(torch, cs, label, n_x, width, src, tot, stride):
 
 def child_kernels(torch, cs):
     time_rec = cs.time_rec
+    in_moe_gemm = []
 
     def timed(torch, rec, run, iters, plain, plain_iters, library=None):
         time_rec(torch, rec, run, iters, plain, plain_iters, library)
-        if rec["device_ms"] < 0.05:
+        if rec["device_ms"] < 0.05 or in_moe_gemm:
             rec["profiler_ms"] = _profiler_ms(torch, run)
             rec["library_profiler_ms"] = (
                 None if library is None else _profiler_ms(torch, library))
     cs.time_rec = timed
+    check_moe_gemm = cs.check_moe_gemm
+
+    def moe_gemm(*a):
+        in_moe_gemm.append(True)
+        try:
+            check_moe_gemm(*a)
+        finally:
+            in_moe_gemm.pop()
+    cs.check_moe_gemm = moe_gemm
     add = cs.Results.add
 
     def added(self, name, rec, msg):
@@ -141,6 +157,24 @@ def child_serve(torch, cs, card_line):
     print("[compare] " + json.dumps({"profile": prof}))
 
 
+def child_capacity(torch, cs, card_line):
+    import numpy as np
+    from repro_torch.kernels import ops
+    cfg = cs._cut("phi3.5-moe-42b", 8)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (612, 64, 1024, 300)]
+    label = f"{cfg.name} (8 of 32 layers) capacity"
+    llm = cs._load(torch, cs.phi_spec("capacity"), cfg, card_line)
+    cs._serve_capacity(torch, llm, prompts, 32, {
+        "flash_chunk_paged": 8, "topk_gate": 8, "permute_tokens": 8,
+        "unpermute_tokens": 8, "moe_gemm": 24}, card_line, label)
+    ops.reset_counters()
+    prof = cs.phase_profile(torch, llm, rng, label) or {}
+    prof["launches"] = dict(ops.counters)
+    print("[compare] " + json.dumps({"capacity": prof}))
+
+
 def child(mode, root):
     """One measurement on one tree: its ``src`` first on the path, this
     checkout's chip_smoke.py for the phases."""
@@ -158,6 +192,8 @@ def child(mode, root):
         child_kernels(torch, cs)
     elif mode == "serve":
         child_serve(torch, cs, card_line)
+    elif mode == "capacity":
+        child_capacity(torch, cs, card_line)
     return 0
 
 
@@ -179,7 +215,9 @@ def _run(mode, root, log):
 
 
 KERNEL_FIELDS = ("kernel_ms", "device_ms", "profiler_ms", "library_ms",
-                 "library_device_ms", "library_profiler_ms")
+                 "library_device_ms", "library_profiler_ms", "digest",
+                 "input_digest")
+MODES = ("kernels", "serve", "capacity")   # run in this order
 
 
 def _collect(into, rec):
@@ -209,8 +247,9 @@ def main(a_root, b_root):
         if p.returncode != 0:
             raise SystemExit("chip_compare: a build failed")
     res: dict = {t: {"kernels": {}, "host": {}, "ragged_cause": {},
-                     "serve": [], "profile": []} for t in trees}
-    for mode in ("kernels", "serve"):
+                     "serve": [], "profile": [], "capacity": []}
+                 for t in trees}
+    for mode in MODES:
         for t in ORDER:
             for item in _run(mode, trees[t], log):
                 r = res[t]
@@ -225,6 +264,8 @@ def main(a_root, b_root):
                     _collect(r["ragged_cause"], item["ragged_cause"])
                 elif "serve" in item:
                     r["serve"].append(item["serve"]["ms_step"])
+                elif "capacity" in item:
+                    r["capacity"].append(item["capacity"])
                 else:
                     r["profile"].append(item["profile"])
             print(f"[compare] {mode} {t} done")

@@ -212,6 +212,17 @@ def within(torch, got, want, atol, rtol):
                  <= atol + rtol * want.float().abs()).all())
 
 
+def digest(torch, *ts) -> str:
+    """A short hash of the tensors' bytes: equal digests on two trees show
+    bitwise-equal inputs or outputs."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in ts:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def dname(dt) -> str:
     return str(dt).split(".")[1]
 
@@ -703,13 +714,15 @@ def _bmm_call(torch, x, w, want):
 
 def check_moe_gemm(torch, rng, res, E, C, H, D, label, dev, primary):
     """The capacity path's expert GEMMs at a serve's (E, C): w_in / w_gate
-    (H -> D, timed) and w_out (D -> H).  One expert's buffer is all zero,
-    as an expert no slot was routed to is, and gives exact zeros."""
+    (H -> D) and w_out (D -> H), both timed in bf16.  One expert's buffer
+    is all zero, as an expert no slot was routed to is, and gives exact
+    zeros; a second call gives the same bits."""
     import numpy as np
     ops, ref = _ops()
     for h_in, d_out, part in ((H, D, ""), (D, H, " w_out")):
         for dtype in (torch.bfloat16, torch.float32):
             d = dname(dtype)
+            torch.manual_seed(0)        # the same w in every process
             x = torch.from_numpy(rng.standard_normal((E, C, h_in),
                                                      np.float32))
             x[E // 2] = 0
@@ -717,25 +730,30 @@ def check_moe_gemm(torch, rng, res, E, C, H, D, label, dev, primary):
             w = (torch.randn(E, h_in, d_out, device=dev) * h_in ** -0.5) \
                 .to(dtype)
             got = ops.moe_gemm(x, w)
+            again = ops.moe_gemm(x, w)
             want = ref.moe_gemm_ref(x, w)
             torch.cuda.synchronize()
             ok = (got.shape == (E, C, d_out)
                   and within(torch, got, want, *TOL[d])
-                  and bool((got[E // 2] == 0).all()))
+                  and bool((got[E // 2] == 0).all())
+                  and torch.equal(got, again))
             rec = {"label": f"{label} {d}{part}",
                    "max_err": max_err(torch, got, want),
                    "tol": list(TOL[d]), "ok": ok,
+                   "digest": digest(torch, got),
+                   "input_digest": digest(torch, x, w),
                    "shape": f"x {tuple(x.shape)} w {tuple(w.shape)} "
                             f"zero expert {E // 2}"}
-            if dtype == torch.bfloat16 and not part:
+            if dtype == torch.bfloat16:
                 time_rec(torch, rec, lambda: ops.moe_gemm(x, w), 20,
                          lambda: ref.moe_gemm_ref(x, w), 3,
                          _bmm_call(torch, x, w, want))
                 rec.update(bytes=(x.numel() + w.numel() + got.numel()) * 2,
                            flops=2 * E * C * h_in * d_out, peak="bf16",
-                           primary=primary)
-            res.add("moe_gemm", rec, "disagrees with its plain version")
-            del x, w, got, want
+                           primary=primary and not part)
+            res.add("moe_gemm", rec, "disagrees with its plain version or "
+                                     "with itself")
+            del x, w, got, again, want
             free_memory(torch)
 
 
@@ -775,6 +793,7 @@ def check_permute_capacity(torch, rng, res, T, E, K, H, C, label, dev):
     logits[:, 7] = -np.inf
     ids = np.argsort(-logits, axis=1, kind="stable")[:, :K]
     idx = _i32(torch, ids, dev)
+    torch.manual_seed(0)        # the same weights in every process
     wts = torch.rand(T, K, device=dev)
     d = moe.make_dispatch(idx, wts, E, C)
     src = moe.dispatch_src_tok(d, E, T)
@@ -799,6 +818,7 @@ def check_permute(torch, rng, res, T, E, K, H, label, dev, primary):
     inv[src.new_tensor(order).long()] = torch.arange(
         n, dtype=torch.int32, device=dev)
     _check_gather(torch, res, label, T, H, src, None, None, dev, primary)
+    torch.manual_seed(0)        # the same weights in every process
     _check_combine(torch, res, label, n, H, inv.reshape(T, K),
                    torch.rand(T, K, device=dev), dev, primary)
 
@@ -922,17 +942,44 @@ def _check_gather(torch, res, label, n_x, width, src, tot, stride, dev,
         res.add(name, rec, "differs from its plain version")
 
 
+def _embedding_bag_call(torch, buf, slot, w, want):
+    """One PyTorch call for the weighted combine: embedding_bag in sum
+    mode over buf with a zero row appended, -1 slots mapped onto it (the
+    mapping is set-up, untimed), the weights as its per-sample weights,
+    which it takes only in buf's dtype.  Held to the plain version at the
+    bf16 tolerance; None where it is refused or differs."""
+    import torch.nn.functional as F
+    bz = torch.cat([buf, buf.new_zeros(1, buf.shape[1])])
+    idx = torch.where(slot >= 0, slot, buf.shape[0]).long()
+    psw = w.to(buf.dtype)
+    try:
+        got = F.embedding_bag(idx, bz, per_sample_weights=psw, mode="sum")
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        print(f"[kernels] unpermute_tokens yardstick: embedding_bag "
+              f"refused: {str(e).splitlines()[0][:160]}")
+        return None
+    if not within(torch, got, want, *TOL["bfloat16"]):
+        print(f"[kernels] unpermute_tokens yardstick: embedding_bag differs "
+              f"by {max_err(torch, got, want)} (its per-sample weights are "
+              f"rounded to {dname(buf.dtype)}); not used")
+        return None
+    return lambda: F.embedding_bag(idx, bz, per_sample_weights=psw,
+                                   mode="sum")
+
+
 def _check_combine(torch, res, label, n_buf, width, slot, w, dev,
                    primary):
     """unpermute_tokens of random (n_buf, width) rows into slot.shape[0]
     tokens by ``slot`` (-1 adds 0) and f32 weights ``w``, against the
     plain version in each dtype and, in bf16, against the plain version
-    in f32."""
+    in f32; timed in bf16 beside embedding_bag."""
     ops, ref = _ops()
     T, K = slot.shape
     n_neg = int((slot < 0).sum())
     for dtype in (torch.bfloat16, torch.float32):
         d = dname(dtype)
+        torch.manual_seed(0)    # the same buf in every process
         buf = torch.randn(n_buf, width, device=dev).to(dtype)
         out = ops.unpermute_tokens(buf, slot, w)
         want = ref.unpermute_tokens_ref(buf, slot, w)
@@ -940,6 +987,8 @@ def _check_combine(torch, res, label, n_buf, width, slot, w, dev,
         ok = within(torch, out, want, *UNPERMUTE_TOL[d])
         rec = {"label": f"{label} {d}", "max_err": max_err(torch, out, want),
                "tol": list(UNPERMUTE_TOL[d]), "ok": ok,
+               "digest": digest(torch, out),
+               "input_digest": digest(torch, buf, slot, w),
                "shape": f"buf {tuple(buf.shape)} slot {tuple(slot.shape)}"
                         + (f", {n_neg} dropped slots" if n_neg else "")}
         if dtype == torch.bfloat16:
@@ -949,7 +998,8 @@ def _check_combine(torch, res, label, n_buf, width, slot, w, dev,
             rec["ok"] = ok and within(torch, out, want32,
                                       *UNPERMUTE_TOL_VS_F32)
             time_rec(torch, rec, lambda: ops.unpermute_tokens(buf, slot, w),
-                     100, lambda: ref.unpermute_tokens_ref(buf, slot, w), 50)
+                     100, lambda: ref.unpermute_tokens_ref(buf, slot, w), 50,
+                     _embedding_bag_call(torch, buf, slot, w, want))
             kept = slot[slot >= 0]
             rec.update(bytes=(int(kept.unique().numel()) + T) * width * 2
                        + 8 * T * K, flops=2 * int(kept.numel()) * width,
@@ -986,6 +1036,7 @@ def check_ep_exchange(torch, rng, res, dsh, dev):
                            d // tp, tag, dev, False)
         _check_gather(torch, res, f"{tag} return", ep * S, h // tp,
                       i32(ex["out_src"]), None, None, dev, False)
+        torch.manual_seed(0)    # the same weights in every process
         _check_combine(torch, res, f"{tag} combine", ep * S, h // tp,
                        i32(ex["slot"]), torch.rand(t_c, k, device=dev), dev,
                        False)
@@ -1577,7 +1628,8 @@ def phase_profile(torch, llm, rng, label):
     top.sort(reverse=True)
     print(f"[profile] {label}: largest other kernels: " + "; ".join(
         f"{name} {us / 1e3:.1f} ms" for us, name in top[:5]))
-    return {"busy_ms": busy / 1e3, "idle_share": max(0.0, 1 - busy / wall_us)}
+    return {"busy_ms": busy / 1e3, "idle_share": max(0.0, 1 - busy / wall_us),
+            "family_ms": {k: v / 1e3 for k, v in groups.items() if v > 0}}
 
 
 # ---------------------------------------------------------------------------

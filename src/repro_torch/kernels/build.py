@@ -44,15 +44,17 @@ SIGNATURES = {
     "rt_topk_gate": [_P] * 3 + [_I] * 5 + [_P],
     # x, w, offsets, out, N, H, D, E, visit bound, dtype, stream
     "rt_grouped_gemm": [_P] * 4 + [_I] * 6 + [_P],
-    # x, w, out, E, C, H, D, dtype, stream
-    "rt_moe_gemm": [_P] * 3 + [_I] * 5 + [_P],
+    # x, w, out, carried sums, carry flags, E, C, H, D, ctas, units,
+    # dtype, stream
+    "rt_moe_gemm": [_P] * 5 + [_I] * 7 + [_P],
     # x, src, out, N, T, h, element bytes, grid x, grid y, stream
     "rt_permute_tokens": [_P] * 3 + [_I] * 6 + [_P],
     # x, src, total, out, N, T, h, element bytes, seg_stride, grid x,
     # grid y, stream
     "rt_permute_tokens_ragged": [_P] * 4 + [_I] * 7 + [_P],
-    # buf, slot, weights, out, T, k, h, M, dtype, stream
-    "rt_unpermute_tokens": [_P] * 4 + [_I] * 5 + [_P],
+    # buf, slot, weights, out, T, k, h, M, dtype, grid x, grid y, rows per
+    # thread, stream
+    "rt_unpermute_tokens": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

@@ -46,15 +46,24 @@
 // src nor x, so the buffers sized for the worst-case skew, mostly empty at
 // low load, cost one zero-store sweep per empty tile.
 //
-// The combine keeps one warp per output row, each lane moving 16 bytes per
-// load with neighbouring lanes on neighbouring addresses, so a row is read
-// in fully coalesced 512-byte sweeps; the index and weight of each slot are
-// read once per lane from L1.
+// The combine.  A served combine reads T*k rows and writes T (2-18 MB):
+// like the gathers, its time is how many loads are in flight at once.  The
+// grid is rows x column chunks (ops.unpermute_plan): a CTA of 64 threads
+// covers 8 row lanes x 8 units of one column chunk (a unit is 16 bytes; one
+// element on the element-wise path); each thread owns one unit column and
+// R rows 8 apart (R = 1 or 2, by the plan, fewer for small T so that
+// the sharded combine's 128 tokens still give two CTAs per SM).  A thread
+// reads its rows' k slots and weights, issues every slot's load (R*k of
+// them; the kernel is instantiated for k up to 1, 2, 4, 6 and 8, larger k
+// in groups of 8) before its first FMA, then accumulates.  Each element's
+// arithmetic is fixed whatever the geometry: acc = 0, then acc += x[slot
+// j] * w_j in f32 for j = 0..k-1, one rounding to the output dtype, so the
+// plan changes where an output is computed, never its bits.  A slot < 0
+// still reads row 0 (the index clamped to [0, m-1]) and multiplies it by
+// 0, as the Pallas kernel does: a non-finite row 0 gives NaN there too.
 #include "common.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;   // combine: 8 warps = 8 output rows per block
 
 // the gathers' CTA (ops.PERMUTE_ROWS, ops.PERMUTE_CHUNK mirror these)
 constexpr int G_THREADS = 64;
@@ -118,91 +127,163 @@ __global__ void __launch_bounds__(G_THREADS) permute_ragged_kernel(
   gather_tile(x, src, out, n, t, w, base, empty);
 }
 
-// 8 consecutive elements <-> f32; the vector forms need 16-byte alignment
-template <typename T, bool VEC> struct Pack8;
-template <> struct Pack8<float, true> {
-  static __device__ void load(const float* p, float* f) {
-    const float4 a = ((const float4*)p)[0], b = ((const float4*)p)[1];
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+// the combine's CTA (ops.UNPERMUTE_CHUNK, ops.UNPERMUTE_LANES mirror these)
+constexpr int U_THREADS = 64;
+constexpr int U_CHUNK = 8;                     // units of each row per CTA
+constexpr int U_LANES = U_THREADS / U_CHUNK;   // 8 row lanes, R rows each
+
+// the most rows a thread takes for a slot group of KM: at most 8 loads and
+// 16 f32 sums in flight, under 64 registers
+__host__ __device__ constexpr int rows_max(int km) { return km <= 2 ? 2 : 1; }
+
+// One unit of a row and its elements as f32: 16 bytes (8 bf16 or 4 f32)
+// on the vector path, one element on the element-wise path.
+template <typename T, bool VEC> struct Unit {
+  using V = T;
+  static constexpr int N = 1;
+  static __device__ void load(const V& v, float* f) { f[0] = to_f(v); }
+  static __device__ V store(const float* f) { return from_f<T>(f[0]); }
+};
+template <> struct Unit<float, true> {
+  using V = float4;
+  static constexpr int N = 4;
+  static __device__ void load(const V& v, float* f) {
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
   }
-  static __device__ void store(float* p, const float* f) {
-    ((float4*)p)[0] = make_float4(f[0], f[1], f[2], f[3]);
-    ((float4*)p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+  static __device__ V store(const float* f) {
+    return make_float4(f[0], f[1], f[2], f[3]);
   }
 };
-template <> struct Pack8<__nv_bfloat16, true> {
-  static __device__ void load(const __nv_bfloat16* p, float* f) {
-    const uint4 u = *(const uint4*)p;
-    const __nv_bfloat162* h = (const __nv_bfloat162*)&u;
+template <> struct Unit<__nv_bfloat16, true> {
+  using V = uint4;
+  static constexpr int N = 8;
+  static __device__ void load(const V& v, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 v = __bfloat1622float2(h[i]);
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
+      const float2 p = __bfloat1622float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
     }
   }
-  static __device__ void store(__nv_bfloat16* p, const float* f) {
-    uint4 u;
-    __nv_bfloat162* h = (__nv_bfloat162*)&u;
+  static __device__ V store(const float* f) {
+    V v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    *(uint4*)p = u;
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return v;
   }
 };
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS) unpermute_kernel(
-    const T* __restrict__ buf, const int* __restrict__ slot,
-    const float* __restrict__ w, T* __restrict__ out, int t, int k, int h,
-    int m) {
-  const int row = (blockIdx.x * THREADS + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= t) return;
-  const int* sl = slot + (long long)row * k;
-  const float* wr = w + (long long)row * k;
-  T* o = out + (long long)row * h;
-  if (VEC) {   // h % 8 == 0: each lane owns 8 consecutive columns per sweep
-    for (int c = lane * 8; c < h; c += 32 * 8) {
-      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int j = 0; j < k; ++j) {
-        const int s = sl[j];
-        const float wj = s >= 0 ? wr[j] : 0.f;
-        float xv[8];
-        Pack8<T, true>::load(buf + (long long)min(max(s, 0), m - 1) * h + c, xv);
+// out[row] at unit column `col` = sum_j buf[slot[row, j]] * w[row, j] for
+// the thread's rows row0 + 8r, r < R; buf and out hold wu units a row.
+template <typename T, bool VEC, int KM>
+__global__ void __launch_bounds__(U_THREADS) unpermute_kernel(
+    const typename Unit<T, VEC>::V* __restrict__ buf,
+    const int* __restrict__ slot, const float* __restrict__ w,
+    typename Unit<T, VEC>::V* __restrict__ out, int t, int k, int wu, int m,
+    int rows) {
+  using U = Unit<T, VEC>;
+  constexpr int RM = rows_max(KM);
+  const int col = blockIdx.y * U_CHUNK + threadIdx.x % U_CHUNK;
+  if (col >= wu) return;
+  const int row0 = blockIdx.x * U_LANES * rows + threadIdx.x / U_CHUNK;
+  bool live[RM];
+  float acc[RM][U::N];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] += xv[e] * wj;
+  for (int r = 0; r < RM; ++r) {
+    live[r] = r < rows && row0 + r * U_LANES < t;
+#pragma unroll
+    for (int e = 0; e < U::N; ++e) acc[r][e] = 0.f;
+  }
+  for (int j0 = 0; j0 < k; j0 += KM) {     // one pass for k <= KM
+    typename U::V v[RM][KM];
+    float wt[RM][KM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const long long base = (long long)(row0 + r * U_LANES) * k + j0;
+#pragma unroll
+      for (int j = 0; j < KM; ++j) {
+        if (live[r] && j0 + j < k) {
+          const int s = slot[base + j];
+          wt[r][j] = s >= 0 ? w[base + j] : 0.f;
+          v[r][j] = buf[(long long)min(max(s, 0), m - 1) * wu + col];
+        }
       }
-      Pack8<T, true>::store(o + c, acc);
     }
-  } else {
-    for (int c = lane; c < h; c += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const int s = sl[j];
-        const float wj = s >= 0 ? wr[j] : 0.f;
-        acc += to_f(buf[(long long)min(max(s, 0), m - 1) * h + c]) * wj;
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+#pragma unroll
+      for (int j = 0; j < KM; ++j) {
+        if (live[r] && j0 + j < k) {
+          float xv[U::N];
+          U::load(v[r][j], xv);
+#pragma unroll
+          for (int e = 0; e < U::N; ++e) acc[r][e] += xv[e] * wt[r][j];
+        }
       }
-      o[c] = from_f<T>(acc);
     }
   }
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+    if (live[r])
+      out[(long long)(row0 + r * U_LANES) * wu + col] = U::store(acc[r]);
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-inline dim3 row_grid(int rows) { return dim3((rows + THREADS / 32 - 1) / (THREADS / 32)); }
-
-template <typename T>
-cudaError_t unpermute_launch(const void* buf, const int* slot, const float* w,
-                             void* out, int t, int k, int h, int m,
-                             cudaStream_t s) {
-  if (h % 8 == 0 && aligned16(buf) && aligned16(out))
-    unpermute_kernel<T, true><<<row_grid(t), THREADS, 0, s>>>(
-        (const T*)buf, slot, w, (T*)out, t, k, h, m);
-  else
-    unpermute_kernel<T, false><<<row_grid(t), THREADS, 0, s>>>(
-        (const T*)buf, slot, w, (T*)out, t, k, h, m);
+template <typename T, bool VEC, int KM>
+cudaError_t unpermute_grid(dim3 grid, cudaStream_t s, const void* buf,
+                           const int* slot, const float* w, void* out, int t,
+                           int k, int wu, int m, int rows) {
+  using V = typename Unit<T, VEC>::V;
+  unpermute_kernel<T, VEC, KM><<<grid, U_THREADS, 0, s>>>(
+      (const V*)buf, slot, w, (V*)out, t, k, wu, m, rows);
   return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t unpermute_k(int km, dim3 grid, cudaStream_t s, const void* buf,
+                        const int* slot, const float* w, void* out, int t,
+                        int k, int wu, int m, int rows) {
+  switch (km) {
+    case 1: return unpermute_grid<T, VEC, 1>(grid, s, buf, slot, w, out, t,
+                                             k, wu, m, rows);
+    case 2: return unpermute_grid<T, VEC, 2>(grid, s, buf, slot, w, out, t,
+                                             k, wu, m, rows);
+    case 4: return unpermute_grid<T, VEC, 4>(grid, s, buf, slot, w, out, t,
+                                             k, wu, m, rows);
+    case 6: return unpermute_grid<T, VEC, 6>(grid, s, buf, slot, w, out, t,
+                                             k, wu, m, rows);
+    default: return unpermute_grid<T, VEC, 8>(grid, s, buf, slot, w, out,
+                                              t, k, wu, m, rows);
+  }
+}
+
+// Launch the combine on the grid ops.unpermute_plan gave: refused (invalid
+// configuration) when it does not cover the t rows and the row's units,
+// exceeds gridDim.y's 65535, or gives a thread more rows than its slot
+// group allows.  16-byte units where the row is a multiple of 16 bytes and
+// both buf and out are 16-byte aligned, else one element.
+template <typename T>
+int unpermute_launch(const void* buf, const int* slot, const float* w,
+                     void* out, int t, int k, int h, int m, int grid_x,
+                     int grid_y, int rows, cudaStream_t s) {
+  const long long row_bytes = (long long)h * sizeof(T);
+  const bool vec = row_bytes % 16 == 0 && aligned16(buf) && aligned16(out);
+  const int wu = vec ? (int)(row_bytes / 16) : h;
+  const int km = k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : k <= 6 ? 6 : 8;
+  if (grid_x <= 0 || grid_y <= 0 || grid_y > 65535 || rows < 1
+      || rows > rows_max(km) || (long long)grid_x * U_LANES * rows < t
+      || (long long)grid_y * U_CHUNK < wu)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid(grid_x, grid_y);
+  if (vec)
+    return unpermute_k<T, true>(km, grid, s, buf, slot, w, out, t, k, wu, m,
+                                rows);
+  return unpermute_k<T, false>(km, grid, s, buf, slot, w, out, t, k, wu, m,
+                               rows);
 }
 
 template <bool RAGGED, typename V>
@@ -269,16 +350,18 @@ extern "C" int rt_permute_tokens_ragged(const void* x, const void* src,
 
 extern "C" int rt_unpermute_tokens(const void* buf, const void* slot,
                                    const void* weights, void* out, int t,
-                                   int k, int h, int m, int dtype,
-                                   void* stream) {
+                                   int k, int h, int m, int dtype, int grid_x,
+                                   int grid_y, int rows, void* stream) {
   if (t == 0 || h == 0) return cudaSuccess;
   if (k <= 0 || m <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* si = (const int*)slot;
   const float* w = (const float*)weights;
   if (dtype == RT_F32)
-    return unpermute_launch<float>(buf, si, w, out, t, k, h, m, s);
+    return unpermute_launch<float>(buf, si, w, out, t, k, h, m, grid_x,
+                                   grid_y, rows, s);
   if (dtype == RT_BF16)
-    return unpermute_launch<__nv_bfloat16>(buf, si, w, out, t, k, h, m, s);
+    return unpermute_launch<__nv_bfloat16>(buf, si, w, out, t, k, h, m,
+                                           grid_x, grid_y, rows, s);
   return cudaErrorInvalidValue;
 }

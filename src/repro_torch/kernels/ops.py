@@ -103,7 +103,7 @@ def _check_attention(name, q, k, v, lengths) -> tuple:
     return nkv, hd, hdv
 
 
-FLASH_SMS = 132          # H100 SXM streaming multiprocessors
+SMS = 132                # H100 SXM streaming multiprocessors
 FLASH_MAX_SPLIT = 16     # MAX_SPLIT in csrc/flash_attn.cuh
 FLASH_DV = 128           # TC_DV: value columns per CTA of the bf16 body
 
@@ -123,7 +123,7 @@ def flash_plan(b: int, sq: int, nq: int, nkv: int, hd: int,
     n_hs = -(-g // rows)
     bq = rows // -(-g // n_hs)
     ctas = b * -(-sq // bq) * nkv * n_hs * -(-hdv // FLASH_DV)
-    return rows, max(1, min(FLASH_MAX_SPLIT, -(-2 * FLASH_SMS // ctas)))
+    return rows, max(1, min(FLASH_MAX_SPLIT, -(-2 * SMS // ctas)))
 
 
 def _aligned(t):
@@ -262,10 +262,69 @@ def topk_gate(logits, k: int, *, renorm: bool = True):
     return w, idx
 
 
+MOE_BK = 64         # BK in csrc/moe_gemm.cu: H per unit
+
+
+def moe_gemm_bn(mt: int) -> int:
+    """Output columns per tile of the capacity GEMM (``Geo`` in
+    csrc/moe_gemm.cu): 256 for one 16-row m-tile, else 128; also its
+    threads per CTA, so a tile's carried sums are 16 mt x this f32
+    values."""
+    return 256 if mt == 1 else 128
+
+
+def moe_gemm_plan(e: int, c: int, h: int,
+                  d: int) -> tuple[int, int, int, int]:
+    """(ctas, units, tiles, mt) of the capacity GEMM's launch, from the
+    shapes alone.  ``mt`` 16-row m-tiles per tile (all C rows up to 64,
+    64-row tiles past that); a tile is one expert's row tile x
+    ``moe_gemm_bn(mt)`` columns and holds ceil(H / ``MOE_BK``) units (at
+    least one), ``units`` in all; one CTA per SM (fewer when there are
+    fewer units).  ``moe_gemm_split`` says which tiles go whole, in
+    rounds, and which are cut stream-K; either way every SM streams the
+    same weight bytes to within one unit.  The kernel refuses a plan
+    whose ``units`` are not its own tiling's or whose grid leaves a CTA
+    idle."""
+    mt = 1 if c <= 16 else 2 if c <= 32 else 3 if c <= 48 else 4
+    tiles = e * -(-c // (16 * mt)) * -(-d // moe_gemm_bn(mt))
+    units = tiles * max(1, -(-h // MOE_BK))
+    return min(SMS, units), units, tiles, mt
+
+
+def moe_gemm_split(tiles: int, ctas: int) -> tuple[int, int]:
+    """(stream-K tiles, whole rounds) of the capacity GEMM's schedule, as
+    csrc/moe_gemm.cu derives them: the tiles go whole in full rounds of
+    ``ctas`` (CTA c taking each round's c-th tile, so the SMs stream
+    neighbouring columns together), keeping one round plus the remainder
+    back for stream-K, whose units are cut evenly, so every CTA's share is
+    at least a tile; all whole when ``ctas`` divides the tiles, all
+    stream-K under two rounds."""
+    whole = tiles if tiles % ctas == 0 else \
+        (tiles // ctas - 1) * ctas if tiles // ctas >= 2 else 0
+    return tiles - whole, whole // ctas
+
+
+_flags: dict = {}   # device index -> zeroed int32 carry flags, one a CTA
+
+
+def _moe_flags(dev) -> torch.Tensor:
+    """The capacity GEMM's carry flags: ``SMS`` int32 zeros, kept per
+    device (the kernel sets each flag it raises back to zero).  Launches
+    on one stream at a time share them."""
+    buf = _flags.get(dev.index)
+    if buf is None:
+        buf = _flags[dev.index] = torch.zeros(SMS, dtype=torch.int32,
+                                              device=dev)
+    return buf
+
+
 def moe_gemm(x, w):
     """Capacity-mode batched expert GEMM.  x (E, C, H) @ w (E, H, D) ->
     (E, C, D) in x's dtype, float32 accumulation; an all-zero row of x gives
-    an exact-zero row.  Contract: ``ref.moe_gemm_ref``."""
+    an exact-zero row.  bf16 runs on ``moe_gemm_plan``'s grid, the split
+    tiles' f32 running sums carried between CTAs through scratch: every
+    output is summed in one pass in H order, the same bits on every call.
+    Contract: ``ref.moe_gemm_ref``."""
     name = "moe_gemm"
     dev = _check_inputs(name, (x, w))
     _check(x.dim() == 3 and w.dim() == 3 and x.shape[0] == w.shape[0]
@@ -278,8 +337,16 @@ def moe_gemm(x, w):
     if dev.type == "cpu":
         return ref.moe_gemm_ref(x, w)
     out = torch.empty(e, c, d, dtype=x.dtype, device=dev)
+    ctas, units, _, mt = moe_gemm_plan(e, c, h, d)
+    carry = flags = None
+    if x.dtype == torch.bfloat16 and units:
+        carry = torch.empty(ctas * 16 * mt * moe_gemm_bn(mt),
+                            dtype=torch.float32, device=dev)
+        flags = _moe_flags(dev)
     _launch(build.load().rt_moe_gemm, x.data_ptr(), w.data_ptr(),
-            out.data_ptr(), e, c, h, d, _DTYPES[x.dtype], _stream())
+            out.data_ptr(), None if carry is None else carry.data_ptr(),
+            None if flags is None else flags.data_ptr(), e, c, h, d, ctas,
+            units, _DTYPES[x.dtype], _stream())
     counters[name] += 1
     return out
 
@@ -401,11 +468,42 @@ def permute_tokens_ragged(x, src_tok, total, *, seg_stride=None):
     return out
 
 
+UNPERMUTE_CHUNK = 8   # U_CHUNK in csrc/permute.cu: units of a row per CTA
+UNPERMUTE_LANES = 8   # U_LANES: row lanes per CTA, R rows each
+
+
+def unpermute_rows_max(k: int) -> int:
+    """The most rows a combine thread takes (``rows_max`` in
+    csrc/permute.cu): 2 for k <= 2, else 1, so its loads in flight (R x
+    the slot group, k rounded up to 1, 2, 4, 6 or 8) stay at most 8 and
+    its registers under 64."""
+    return 2 if k <= 2 else 1
+
+
+def unpermute_plan(t: int, k: int, row_bytes: int,
+                   elem_bytes: int) -> tuple[int, int, int, int]:
+    """(grid_x, grid_y, rows, unit bytes) of the combine into t rows of
+    ``row_bytes`` from k slots each.  A unit is 16 bytes where the row is
+    a multiple of 16, else one element.  A CTA covers ``UNPERMUTE_LANES``
+    x ``rows`` rows by ``UNPERMUTE_CHUNK`` units: row tiles on grid x,
+    column chunks on grid y (at most 65535).  ``rows`` per thread is the
+    most the slot group allows, halved while the grid holds fewer than
+    two CTAs per SM.  The kernel refuses a grid that does not cover the
+    rows and units."""
+    unit = 16 if row_bytes % 16 == 0 else elem_bytes
+    gy = -(-(row_bytes // unit) // UNPERMUTE_CHUNK)
+    rows = unpermute_rows_max(k)
+    while rows > 1 and -(-t // (UNPERMUTE_LANES * rows)) * gy \
+            < 2 * SMS:
+        rows //= 2
+    return -(-t // (UNPERMUTE_LANES * rows)), gy, rows, unit
+
+
 def unpermute_tokens(buf, src_slot, weights):
     """buf (M, h), src_slot (T, k) int32, weights (T, k) -> (T, h) in buf's
     dtype: each token's k expert rows weighted and summed in float32, in
-    slot order; ``src_slot < 0`` adds 0.  The weights are cast to float32
-    here, as the reference wrapper does.  Contract:
+    slot order; ``src_slot < 0`` adds row 0 times 0.  The weights are cast
+    to float32 here, as the reference wrapper does.  Contract:
     ``ref.unpermute_tokens_ref``."""
     name = "unpermute_tokens"
     dev = _check_inputs(name, (buf,), (src_slot,), (weights,))
@@ -419,16 +517,21 @@ def unpermute_tokens(buf, src_slot, weights):
     m, h = buf.shape
     t, k = src_slot.shape
     _check(m > 0 or t == 0, f"{name}: empty buf with {t} tokens to combine")
+    buf = _aligned(buf)
     out = torch.empty(t, h, dtype=buf.dtype, device=dev)
+    es = buf.element_size()
+    gx, gy, rows, _ = unpermute_plan(t, k, h * es, es)
     _launch(build.load().rt_unpermute_tokens, buf.data_ptr(),
             src_slot.data_ptr(), weights.data_ptr(), out.data_ptr(), t, k, h,
-            m, _DTYPES[buf.dtype], _stream())
+            m, _DTYPES[buf.dtype], gx, gy, rows, _stream())
     counters[name] += 1
     return out
 
 
 __all__ = ["flash_chunk", "flash_decode", "flash_chunk_paged", "flash_plan",
-           "topk_gate", "moe_gemm", "grouped_gemm", "grouped_gemm_visits",
-           "permute_tokens", "permute_plan",
-           "permute_tokens_ragged", "unpermute_tokens", "counters",
-           "reset_counters"]
+           "topk_gate", "moe_gemm", "moe_gemm_plan", "moe_gemm_split",
+           "moe_gemm_bn",
+           "grouped_gemm",
+           "grouped_gemm_visits", "permute_tokens", "permute_plan",
+           "permute_tokens_ragged", "unpermute_tokens", "unpermute_plan",
+           "counters", "reset_counters"]

@@ -112,6 +112,43 @@ def test_moe_gemm_on_card(dev, dtype, c, hd):
     assert ops.counters["moe_gemm"] == 1
 
 
+# (name, E, C, H, D): H just over a multiple of the 64-deep unit, so a
+# split point and the H tail meet; D off the column tile; one expert whose
+# single tile is carried across every SM in turn; fewer units than SMs
+MOE_SPLITS = [("h_tail_split", 4, 40, 4104, 512),
+              ("d_off_tile", 3, 13, 1000, 1288),
+              ("one_expert_large_h", 1, 16, 16384, 256),
+              ("few_units", 2, 5, 64, 100)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MOE_SPLITS, ids=[c[0] for c in MOE_SPLITS])
+def test_moe_gemm_split_tiles_on_card(dev, dtype, case):
+    """The schedule's edges: the split tiles' carried sums match the plain
+    version, an all-zero expert and row stay exact zeros, and two calls
+    give the same bits (every output is summed in one pass in H order)."""
+    _, e, c, h, d = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(h)
+    x = torch.randn(e, c, h, generator=g)
+    x[0, c // 2] = 0
+    if e > 1:
+        x[e - 1] = 0
+    w = torch.randn(e, h, d, generator=g) * h ** -0.5
+    x, w = x.to(dev, dt), w.to(dev, dt)
+    ops.reset_counters()
+    out = ops.moe_gemm(x, w)
+    again = ops.moe_gemm(x, w)
+    assert ops.counters["moe_gemm"] == 2
+    assert out.shape == (e, c, d) and torch.equal(out, again)
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(out.float(), ref.moe_gemm_ref(x, w).float(),
+                               atol=atol, rtol=rtol)
+    assert (out[0, c // 2] == 0).all()
+    if e > 1:
+        assert (out[e - 1] == 0).all()
+
+
 def _segments(lengths, tail):
     """(E+1,) int32 offsets of segments of the given lengths, and N with
     ``tail`` rows past offsets[-1]."""
@@ -291,9 +328,20 @@ def test_flash_decode_on_card(dev, dtype):
     assert ops.counters["flash_decode"] == ops.counters["flash_chunk"] == 1
 
 
+# (tokens, k): the served k (2 phi3.5, 6 deepseek), 1 and 8 (the
+# reference's range), k past 8 (slot groups of 8), one token, the sharded
+# serve's 128 tokens
+COMBINE_SHAPES = [(50, 6), (1, 1), (128, 2), (256, 8), (33, 9)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h", [5120, 36])   # 16-byte rows; element-wise
-def test_permute_and_unpermute_on_card(dev, dtype, h):
+@pytest.mark.parametrize("tk", COMBINE_SHAPES,
+                         ids=[f"t{t}_k{k}" for t, k in COMBINE_SHAPES])
+def test_permute_and_unpermute_on_card(dev, dtype, h, tk):
+    """The gather into 120 rows, then the combine of t tokens from k slots
+    each (some -1, and one token's all -1: an exact-zero row)."""
+    t, k = tk
     dt = getattr(torch, dtype)
     x = torch.randn(50, h, device=dev).to(dt)
     src = torch.randint(0, 50, (120,), dtype=torch.int32, device=dev)
@@ -301,15 +349,85 @@ def test_permute_and_unpermute_on_card(dev, dtype, h):
     got = ops.permute_tokens(x, src)
     assert torch.equal(got, ref.permute_tokens_ref(x, src))
     assert (got[::7] == 0).all()
-    slot = torch.randint(0, 120, (50, 6), dtype=torch.int32, device=dev)
-    slot[::5, 2] = -1
-    w = torch.rand(50, 6, device=dev).to(dt)
+    slot = torch.randint(0, 120, (t, k), dtype=torch.int32, device=dev)
+    slot[::5, k // 2] = -1
+    slot[t // 2] = -1
+    w = torch.rand(t, k, device=dev).to(dt)
+    ops.reset_counters()
     out = ops.unpermute_tokens(got, slot, w)
+    assert ops.counters["unpermute_tokens"] == 1
     want = ref.unpermute_tokens_ref(got, slot, w)
     atol, rtol = (1e-5, 1e-5) if dt == torch.float32 else _tol(dt)
-    assert out.dtype == dt
+    assert out.dtype == dt and out.shape == (t, h)
     torch.testing.assert_close(out.float(), want.float(), atol=atol,
                                rtol=rtol)
+    assert (out[t // 2] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [4096, 36])   # 16-byte rows; element-wise
+def test_unpermute_negative_slot_reads_row_zero_on_card(dev, dtype, h):
+    """A slot < 0 adds row 0 times 0, as the Pallas kernel does: with an
+    inf (and a NaN) in row 0, every token holding a -1 slot comes back NaN
+    exactly where the plain version's does, the others finite."""
+    dt = getattr(torch, dtype)
+    buf = torch.randn(40, h, device=dev).to(dt)
+    buf[0, 3] = float("inf")
+    buf[0, 5] = float("nan")
+    slot = torch.randint(1, 40, (64, 2), dtype=torch.int32, device=dev)
+    slot[::3, 1] = -1
+    w = torch.rand(64, 2, device=dev)
+    out = ops.unpermute_tokens(buf, slot, w)
+    want = ref.unpermute_tokens_ref(buf, slot, w)
+    assert torch.equal(out.isnan(), want.isnan())
+    assert out[::3, 3].isnan().all() and out[1::3].isfinite().all()
+    torch.testing.assert_close(out.float(), want.float(), equal_nan=True,
+                               atol=1e-5 if dt == torch.float32 else 1e-2,
+                               rtol=1e-5 if dt == torch.float32 else 1.6e-2)
+
+
+@pytest.mark.parametrize("short",
+                         ["rows", "units", "y_cap", "rows_per_thread"])
+def test_unpermute_entry_refuses_a_grid_short_of_the_plan(dev, short):
+    """The combine's C entry checks the grid: one row tile or one column
+    chunk fewer than ops.unpermute_plan's, a y past 65535, or more rows a
+    thread than k allows is refused (cudaErrorInvalidConfiguration, 9)
+    and launches nothing."""
+    from repro_torch.kernels import build
+    buf = torch.randn(200, 1024, device=dev).to(torch.bfloat16)
+    slot = torch.randint(0, 200, (100, 6), dtype=torch.int32, device=dev)
+    w = torch.rand(100, 6, device=dev)
+    out = torch.zeros(100, 1024, dtype=torch.bfloat16, device=dev)
+    gx, gy, rows, _ = ops.unpermute_plan(100, 6, 2048, 2)
+    grid = {"rows": (gx - 1, gy, rows), "units": (gx, gy - 1, rows),
+            "y_cap": (gx, 65536, rows),
+            "rows_per_thread": (gx, gy, rows + 1)}[short]
+    rc = build.load().rt_unpermute_tokens(
+        buf.data_ptr(), slot.data_ptr(), w.data_ptr(), out.data_ptr(), 100,
+        6, 1024, 200, 1, *grid, ops._stream())
+    torch.cuda.synchronize()
+    assert rc == 9 and (out == 0).all()
+
+
+@pytest.mark.parametrize("short", ["units", "idle_cta"])
+def test_moe_gemm_entry_refuses_a_plan_off_its_tiling(dev, short):
+    """The capacity GEMM's C entry refuses a unit count that is not its
+    own tiling's (the plan would not cover the work) and a grid with more
+    CTAs than units (cudaErrorInvalidConfiguration, 9)."""
+    from repro_torch.kernels import build
+    x = torch.randn(2, 8, 64, device=dev).to(torch.bfloat16)
+    w = torch.randn(2, 64, 256, device=dev).to(torch.bfloat16)
+    out = torch.zeros(2, 8, 256, dtype=torch.bfloat16, device=dev)
+    ctas, units, _, mt = ops.moe_gemm_plan(2, 8, 64, 256)
+    carry = torch.empty(ctas * 16 * mt * ops.moe_gemm_bn(mt),
+                        dtype=torch.float32, device=dev)
+    flags = torch.zeros(units + 1, dtype=torch.int32, device=dev)
+    plan = {"units": (ctas, units - 1), "idle_cta": (units + 1, units)}[short]
+    rc = build.load().rt_moe_gemm(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), carry.data_ptr(),
+        flags.data_ptr(), 2, 8, 64, 256, *plan, 1, ops._stream())
+    torch.cuda.synchronize()
+    assert rc == 9 and (out == 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -418,9 +418,9 @@ def test_flash_plan_fills_the_card_from_geometry_only():
         bq = rows // -(-g // n_hs)
         ctas = b * -(-sq // bq) * nkv * n_hs * -(-hdv // ops.FLASH_DV)
         assert 1 <= n_split <= ops.FLASH_MAX_SPLIT
-        assert ctas * n_split >= 2 * ops.FLASH_SMS \
+        assert ctas * n_split >= 2 * ops.SMS \
             or n_split == ops.FLASH_MAX_SPLIT
-        assert n_split == 1 or ctas * (n_split - 1) < 2 * ops.FLASH_SMS
+        assert n_split == 1 or ctas * (n_split - 1) < 2 * ops.SMS
 
 
 # --- the gathers' launch plan (csrc/permute.cu takes the grid from
@@ -480,3 +480,177 @@ def test_permute_plan_covers_each_cell_once(case):
     cells, gy = _plan_cells(n, row_bytes, elem_bytes)
     assert cells.min() == 1 and cells.max() == 1
     assert gy <= 65535
+
+
+# --- the capacity GEMM's stream-K plan (csrc/moe_gemm.cu cuts the units,
+# H fastest, into ops.moe_gemm_plan's ctas ranges and refuses a plan whose
+# units are not its tiling's) ---
+
+def _moe_ranges(ctas, units):
+    """Each CTA's [begin, end) of stream-K units, as the kernel's
+    Work::begin cuts them: floor(units / ctas) each, one more for the
+    first units % ctas."""
+    q, r = divmod(units, ctas)
+    begin = [c * q + min(c, r) for c in range(ctas + 1)]
+    return list(zip(begin[:-1], begin[1:]))
+
+
+def _moe_walk(e, c, h, d):
+    """Walk the plan as the kernel does: (ctas, per-CTA weight bytes, how
+    often each (expert, row tile, column tile, H unit) is computed, each
+    CTA's stream-K carry as (carries in, carries out, step it takes the
+    carry in, step its carry is out), each whole round's tiles by CTA).
+    The first ``tsk`` tiles are stream-K: CTA c walks its range [u0, u1)
+    as the head of its last tile [hb, u1), its whole tiles [p0, hb), then
+    the tail of its first tile [u0, p0); then tile tsk + j * ctas + c of
+    round j.  A unit's weight bytes are its rows below H times its
+    columns below D."""
+    ctas, units, tiles, mt = ops.moe_gemm_plan(e, c, h, d)
+    tsk, rounds = ops.moe_gemm_split(tiles, ctas)
+    bk, bn = ops.MOE_BK, ops.moe_gemm_bn(mt)
+    nk = max(1, -(-h // bk))
+    n_rt, n_ct = -(-c // (16 * mt)), -(-d // bn)
+    assert tiles == e * n_rt * n_ct and units == tiles * nk
+    assert tsk + rounds * ctas == tiles
+    seen = np.zeros((e, n_rt, n_ct, nk), np.int64)
+    wbytes, carries = [], []
+
+    def visit(tile, k):
+        ex, rem = divmod(tile, n_rt * n_ct)
+        rt, ct = divmod(rem, n_ct)
+        seen[ex, rt, ct, k] += 1
+        return (2 * max(0, min(bk, h - k * bk))
+                * max(0, min(bn, d - ct * bn)))
+    for cta, (u0, u1) in enumerate(_moe_ranges(ctas, tsk * nk)):
+        hb = max(u0, (u1 - 1) // nk * nk) if u1 > u0 else u0
+        p0 = min(-(-u0 // nk) * nk, hb)
+        order = [*range(hb, u1), *range(p0, hb), *range(u0, p0)]
+        total = sum(visit(*divmod(u, nk)) for u in order)
+        total += sum(visit(tsk + j * ctas + cta, k)
+                     for j in range(rounds) for k in range(nk))
+        wbytes.append(total)
+        takes, gives = u1 > u0 and u0 % nk != 0, u1 > u0 and u1 % nk != 0
+        carries.append((takes, gives, order.index(u0) if takes else None,
+                        order.index(u1 - 1) + 1 if gives else None))
+    whole = [[tsk + j * ctas + cta for cta in range(ctas)]
+             for j in range(rounds)]
+    return ctas, units, wbytes, seen, carries, whole
+
+
+# (E, C, H, D): the served expert GEMMs, w_in / w_gate then w_out
+MOE_SERVED = [("phi3.5_w_in", 16, 40, 4096, 6400),
+              ("phi3.5_w_out", 16, 40, 6400, 4096),
+              ("deepseek_w_in", 160, 16, 5120, 1536),
+              ("deepseek_w_out", 160, 16, 1536, 5120),
+              ("deepseek_c1_w_in", 160, 1, 5120, 1536),
+              ("deepseek_c1_w_out", 160, 1, 1536, 5120)]
+
+
+@pytest.mark.parametrize("case", MOE_SERVED, ids=[c[0] for c in MOE_SERVED])
+def test_moe_gemm_plan_balances_weight_bytes_at_served_shapes(case):
+    """One CTA per SM of the H100, and every CTA's weight bytes within one
+    unit (BK x BN bf16) of the mean: no tail of idle SMs."""
+    _, e, c, h, d = case
+    ctas, _, wbytes, seen, carries, whole = _moe_walk(e, c, h, d)
+    assert ctas == ops.SMS
+    assert sum(wbytes) == e * h * d * 2       # each weight read once
+    mean = sum(wbytes) / ctas
+    mt = ops.moe_gemm_plan(e, c, h, d)[3]
+    unit = ops.MOE_BK * ops.moe_gemm_bn(mt) * 2
+    assert max(abs(b - mean) for b in wbytes) <= unit
+    assert (seen == 1).all()
+    # each whole round is ctas consecutive tiles, one per SM, side by side
+    assert all(r == list(range(r[0], r[0] + ctas)) for r in whole)
+    # at equal rates every carry is out before the next CTA takes it in
+    for (_, _, _, out), (takes, _, at, _) in zip(carries, carries[1:]):
+        assert not takes or out <= at
+
+
+# (E, C, H, D): C 1 / 13 / 70 (two row tiles), H and D off the tiles and
+# off 8, one expert, 160 experts of 1536 columns, H = 0, fewer units than
+# SMs, H just over a multiple of the unit; tiles a multiple of the grid
+# (all whole), between one and two rounds (all stream-K), one round plus
+# a remainder of one
+MOE_EDGES = [(5, 1, 264, 200), (5, 13, 100, 75), (5, 70, 264, 200),
+             (1, 40, 8200, 264), (160, 16, 5120, 1536), (3, 7, 0, 40),
+             (2, 5, 64, 100), (16, 40, 4128, 6400), (7, 64, 33, 1000),
+             (132, 16, 64, 256), (200, 8, 32, 256), (265, 1, 96, 256)]
+
+
+@pytest.mark.parametrize("case", MOE_EDGES,
+                         ids=[f"E{c[0]}_C{c[1]}_H{c[2]}_D{c[3]}"
+                              for c in MOE_EDGES])
+def test_moe_gemm_plan_covers_each_unit_once(case):
+    """Brute force: every (expert, row tile, column tile, H unit) is
+    computed by exactly one CTA; every CTA has a unit and shares differ
+    by at most one; a CTA takes a carry in exactly when the CTA before it
+    hands one out (CTA 0 never takes one), so every split tile is summed
+    along one chain in H order."""
+    e, c, h, d = case
+    ctas, units, _, seen, carries, _ = _moe_walk(e, c, h, d)
+    assert 1 <= ctas <= min(ops.SMS, units)
+    assert (seen == 1).all()
+    _, tiles, _ = ops.moe_gemm_plan(e, c, h, d)[1:]
+    tsk, rounds = ops.moe_gemm_split(tiles, ctas)
+    nk = units // tiles
+    shares = [hi - lo + rounds * nk
+              for lo, hi in _moe_ranges(ctas, tsk * nk)]
+    assert min(shares) >= 1 and max(shares) - min(shares) <= 1
+    assert not carries[0][0] and not carries[-1][1]
+    for (_, gives, _, _), (takes, _, _, _) in zip(carries, carries[1:]):
+        assert gives == takes
+
+
+# --- the combine's launch plan (csrc/permute.cu takes the grid from
+# ops.unpermute_plan and refuses one that does not cover the rows) ---
+
+@pytest.mark.parametrize("elem_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("h", SERVED_GATHER_WIDTHS)
+@pytest.mark.parametrize("k", [2, 6])
+@pytest.mark.parametrize("t", [128, 256])
+def test_unpermute_plan_fills_the_card_at_served_shapes(t, k, h,
+                                                        elem_bytes):
+    """Every served combine launches at least two CTAs per SM on 16-byte
+    units, each thread with at most 8 loads in flight."""
+    gx, gy, rows, unit = ops.unpermute_plan(t, k, h * elem_bytes,
+                                            elem_bytes)
+    assert unit == 16 and gy <= 65535
+    assert gx * gy >= 2 * 132
+    assert 1 <= rows <= ops.unpermute_rows_max(k)
+    assert rows * (2 if k <= 2 else 6) <= 8 and rows <= 2
+
+
+def _unpermute_cells(t, k, row_bytes, elem_bytes):
+    """How often the combine writes each (row, unit) cell under the plan,
+    walked as unpermute_kernel walks it: thread i of CTA (bx, by) owns
+    unit by * CHUNK + i % CHUNK of rows bx * LANES * R + i // CHUNK +
+    r * LANES, r < R."""
+    gx, gy, rows, unit = ops.unpermute_plan(t, k, row_bytes, elem_bytes)
+    w = row_bytes // unit
+    chunk, lanes = ops.UNPERMUTE_CHUNK, ops.UNPERMUTE_LANES
+    i = np.arange(chunk * lanes)
+    r = np.arange(rows)
+    row = (np.arange(gx)[:, None, None, None] * lanes * rows
+           + (i // chunk)[None, None, :, None]
+           + r[None, None, None, :] * lanes)
+    col = (np.arange(gy)[None, :, None, None] * chunk
+           + (i % chunk)[None, None, :, None])
+    row, col = np.broadcast_arrays(row, col)
+    keep = (row < t) & (col < w)
+    return np.bincount(row[keep] * w + col[keep], minlength=t * w), gy, rows
+
+
+# (t, k, row bytes, element bytes): one row; t off every row tile; 70 000
+# rows; k 1 / 3 / 8 / 9; a width off the 8-unit chunk; element-wise rows
+UNPERMUTE_WALKS = [(1, 2, 8192, 2), (75, 2, 4096, 2), (70_000, 6, 64, 4),
+                   (33, 1, 208, 2), (129, 3, 10_240, 4), (256, 8, 10_240, 2),
+                   (50, 9, 4098 * 2, 2), (17, 2, 36 * 4, 4)]
+
+
+@pytest.mark.parametrize("case", UNPERMUTE_WALKS, ids=[
+    f"t{c[0]}_k{c[1]}_b{c[2]}_e{c[3]}" for c in UNPERMUTE_WALKS])
+def test_unpermute_plan_covers_each_cell_once(case):
+    t, k, row_bytes, elem_bytes = case
+    cells, gy, rows = _unpermute_cells(t, k, row_bytes, elem_bytes)
+    assert cells.min() == 1 and cells.max() == 1
+    assert gy <= 65535 and 1 <= rows <= ops.unpermute_rows_max(k)
