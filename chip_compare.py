@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two trees of the port on one CUDA card, in one run.
 
-    python3 chip_compare.py A_ROOT B_ROOT
+    python3 chip_compare.py A_ROOT B_ROOT [MODE,...]
 
 A_ROOT and B_ROOT are checkouts of the port (say, the parent commit's
 ``git archive`` unpacked under ``build/`` and ``.``).  Every measurement
@@ -11,11 +11,13 @@ checkout's ``chip_smoke.py`` driving that tree's
 
   kernels  phase 2 of chip_smoke.py (every kernel held to its plain
            version, then timed: ``kernel_ms`` / ``device_ms`` and the
-           yardstick's; the digests of the checked inputs and outputs)
-           and the gather wrappers' host split; beside the graph-replay
-           device time of each record under 50 µs, and of every capacity
-           GEMM record, the mean duration per call of the CUDA kernels the
-           call ran, from torch.profiler (``profiler_ms``,
+           yardstick's; the digests of the checked inputs and outputs;
+           the empty kernel's launch floor, from each tree whose library
+           has one) and the host split of the gather wrappers and the
+           router; beside the graph-replay device time of each record
+           under 50 µs, and of every capacity GEMM record, the mean
+           duration per call of the CUDA kernels the call ran, from
+           torch.profiler (``profiler_ms``,
            ``library_profiler_ms``); at each ragged gather's inputs, the
            same durations of the ragged kernel, of permute_tokens and of
            index_select side by side
@@ -28,6 +30,7 @@ checkout's ``chip_smoke.py`` driving that tree's
            its prompts and exact launch counts, untimed), then its
            profiler window
 
+MODE,... names the modes to run (default: all three, in this order).
 Each child's whole output goes to ``build/chip_compare.log``; its
 ``[compare] {json}`` lines are gathered, and the last line printed is a
 ``{"compare": ...}`` JSON object holding every value per tree, in run
@@ -216,7 +219,7 @@ def _run(mode, root, log):
 
 KERNEL_FIELDS = ("kernel_ms", "device_ms", "profiler_ms", "library_ms",
                  "library_device_ms", "library_profiler_ms", "digest",
-                 "input_digest")
+                 "ids_digest", "input_digest")
 MODES = ("kernels", "serve", "capacity")   # run in this order
 
 
@@ -228,7 +231,7 @@ def _collect(into, rec):
         fields.setdefault(f, []).append(v)
 
 
-def main(a_root, b_root):
+def main(a_root, b_root, modes=MODES):
     import torch
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device available", file=sys.stderr)
@@ -249,7 +252,7 @@ def main(a_root, b_root):
     res: dict = {t: {"kernels": {}, "host": {}, "ragged_cause": {},
                      "serve": [], "profile": [], "capacity": []}
                  for t in trees}
-    for mode in MODES:
+    for mode in modes:
         for t in ORDER:
             for item in _run(mode, trees[t], log):
                 r = res[t]
@@ -278,7 +281,8 @@ def main(a_root, b_root):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.exit(child(sys.argv[2], sys.argv[3]))
-    if len(sys.argv) != 3:
+    modes = sys.argv[3].split(",") if len(sys.argv) == 4 else MODES
+    if len(sys.argv) not in (3, 4) or not set(modes) <= set(MODES):
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1], sys.argv[2]))
+    sys.exit(main(sys.argv[1], sys.argv[2], modes))

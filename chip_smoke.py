@@ -21,13 +21,18 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              per-segment schedule: 1-row segments, one expert holding all
              rows, boundaries at every residue mod 16 and mod 64, rows past
              offsets[-1]; for attention: split-KV boundaries, q_len 0 with
-             kv_len 0, paged == dense bitwise);
+             kv_len 0, paged == dense bitwise), and the router gate also
+             at the paper's routers (qwen3-235b and deepseek-r1, k 8, at a
+             served step and at the largest auto-resolved one);
              times beside the plain version, the bound and, where one
              exists, a single PyTorch call: ``ms`` by CUDA events over
              back-to-back wrapper calls (the host's launch path
              included), ``device_ms`` from 20 calls captured in a CUDA
-             graph and replayed (device only); then the two gather
-             wrappers' host microseconds per call, cut into their parts
+             graph and replayed (device only); the same two times of an
+             empty kernel, the card's per-launch floor (``launch_floor``);
+             then the two gather wrappers' host microseconds per call, cut
+             into their parts, and the router's device ops and host
+             microseconds per MoE layer around its kernel
   3 parity   f32, full width: capacity-dispatch moe_local with kernels on
              against off on one input, with drops; then the engine (2
              layers) with kernels "on" against kernels "off" on the card —
@@ -174,12 +179,13 @@ def graph_ms(torch, fn, calls=20, replays=5):
 def time_rec(torch, rec, run, iters, plain, plain_iters, library=None):
     """A timed record's times: the wrapper over ``iters`` back-to-back
     calls (CUDA events: the host's launch path included) and its device
-    time (``graph_ms``), the plain version, and ``library`` (one PyTorch
-    call for the same function, already held to the plain version, or
-    None) by both methods."""
+    time (``graph_ms``), the plain version (None for a record that has
+    none), and ``library`` (one PyTorch call for the same function,
+    already held to the plain version, or None) by both methods."""
     rec["kernel_ms"] = cuda_ms(torch, run, iters)
     rec["device_ms"] = graph_ms(torch, run)
-    rec["plain_ms"] = cuda_ms(torch, plain, plain_iters)
+    rec["plain_ms"] = None if plain is None else \
+        cuda_ms(torch, plain, plain_iters)
     rec["library_ms"] = rec["library_device_ms"] = None
     if library is not None:
         rec["library_ms"] = cuda_ms(torch, library, iters)
@@ -632,6 +638,11 @@ def check_flash_split(torch, rng, dev):
 
 
 def check_topk(torch, rng, res, T, E, K, label, dev, primary):
+    """The router gate at (T, E) k K, bf16 and f32: row 0 all tied (ids
+    0, 1, ...), row 1 a tied top pair (ids 3, 5), row 2 -inf in every
+    other entry (zero probabilities, still picked lowest id first); ids
+    equal to the plain version's, weights within 1e-6.  Each record
+    carries the digests of its weights, its ids and its logits."""
     import numpy as np
     ops, ref = _ops()
     for dtype in (torch.bfloat16, torch.float32):
@@ -640,6 +651,7 @@ def check_topk(torch, rng, res, T, E, K, label, dev, primary):
             .to(dev, dtype)
         lg[0] = 0.5                      # all tied -> ids 0, 1, ...
         lg[1, 5] = lg[1, 3] = 6.0        # tied top pair -> ids 3, 5
+        lg[2, 1::2] = -math.inf          # zero probabilities
         w, i = ops.topk_gate(lg, K)
         w_r, i_r = ref.topk_gate_ref(lg, K)
         torch.cuda.synchronize()
@@ -649,6 +661,8 @@ def check_topk(torch, rng, res, T, E, K, label, dev, primary):
               and i[1].tolist()[:2] == [3, 5])
         rec = {"label": f"{label} {d}", "max_err": err, "tol": [1e-6, 0.0],
                "ids_equal": bool((i == i_r).all()), "ok": ok,
+               "digest": digest(torch, w), "ids_digest": digest(torch, i),
+               "input_digest": digest(torch, lg),
                "shape": f"logits {tuple(lg.shape)} k={K}"}
         if dtype == torch.bfloat16:
             time_rec(torch, rec, lambda: ops.topk_gate(lg, K), 200,
@@ -657,6 +671,26 @@ def check_topk(torch, rng, res, T, E, K, label, dev, primary):
                        peak="f32", primary=primary)
         res.add("topk_gate", rec, "disagrees with its plain version (ids or "
                                   "weights)")
+
+
+def check_launch_floor(torch, res):
+    """The card's per-launch floor: an empty kernel (one CTA of one warp)
+    through its C entry, timed as the kernels are (``kernel_ms`` with the
+    host's launch path, ``device_ms`` by graph replay).  It is the bound a
+    kernel of a few microseconds is held to.  A tree whose library has no
+    such kernel prints so and records none."""
+    from repro_torch.kernels import build
+    ops, _ = _ops()
+    lib = build.load()
+    if not hasattr(lib, "rt_launch_floor"):
+        print("[kernels] launch_floor: no rt_launch_floor in this tree's "
+              "library; not recorded")
+        return
+    rec = {"label": "empty kernel", "max_err": 0.0, "tol": [0.0, 0.0],
+           "ok": True, "shape": "1 CTA x 32 threads, no work"}
+    time_rec(torch, rec, lambda: ops._launch(lib.rt_launch_floor,
+                                             ops._stream()), 200, None, 0)
+    res.add("launch_floor", rec, "failed")
 
 
 def check_grouped_gemm(torch, rng, res, offs, n, H, D, label, dev,
@@ -1130,10 +1164,63 @@ def host_split(torch, label, wrapper, cname, x, n, library):
     return us
 
 
+def _device_ops_per_call(torch, fn, calls=20):
+    """{CUDA kernel or memory op name: its events per call} of fn, from
+    torch.profiler (CUPTI) over ``calls`` calls after a warm-up (the trace
+    can miss a few of the window's first events, so a count may fall
+    short of 1)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key[:60]: ev.count / calls for ev in prof.key_averages()
+            if ev.device_type.name == "CUDA" and ev.count}
+
+
+def route_cost(torch, label, t, e, k):
+    """What the router costs a MoE layer on the card around the gate
+    kernel: the device ops each call launches (distinct kernels and
+    memory ops, each once a call) and host us per call of
+    ``moe.route_topk`` with the kernel on (its f32 softmax over (T, E)
+    and the load-balance loss, which the serving engine drops, run
+    beside the kernel), and of ``ops.topk_gate`` alone, on the same bf16
+    logits; then the host us of the gate's two output allocations against
+    one (2, T, k) buffer split into an f32 and an int32 view."""
+    from repro_torch.models.moe import route_topk
+    ops, _ = _ops()
+    lg = torch.randn(t, e, device="cuda").to(torch.bfloat16)
+    calls = {"route_topk": lambda: route_topk(lg, k, use_kernel=True),
+             "topk_gate": lambda: ops.topk_gate(lg, k)}
+    out = {}
+    for name, fn in calls.items():
+        n = _device_ops_per_call(torch, fn)
+        out[name] = {"device_ops": len(n), "host_us": host_us(torch, fn),
+                     "ops": n}
+    def two():
+        return (torch.empty(t, k, dtype=torch.float32, device=lg.device),
+                torch.empty(t, k, dtype=torch.int32, device=lg.device))
+
+    def one_and_views():
+        w, idx = torch.empty(2, t, k, dtype=torch.int32,
+                             device=lg.device).unbind(0)
+        return w.view(torch.float32), idx
+    out["alloc_us"] = {"two": host_us(torch, two),
+                       "one_and_views": host_us(torch, one_and_views)}
+    print(f"[host] router {label} ({t}, {e}) k {k}: {json.dumps(out)}")
+    return out
+
+
 def phase_host(torch, phi, dsh):
     """Host us per call of the two gather wrappers at a served shape each:
     the phi3.5 dropless gather and the sharded serve's ragged send at the
-    row cap."""
+    row cap; then the router's cost around its kernel at the phi3.5 and
+    deepseek-v2 steps."""
+    t = phi["max_batch"] * phi["chunk"]
+    route_cost(torch, "phi3.5", t, 16, 2)
+    route_cost(torch, "deepseek-v2", t, 160, 6)
     ops, _ = _ops()
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -1166,6 +1253,8 @@ def phase_kernels(torch, phi, ds, ds1, dsh):
     ``C`` its capacity-dispatch serve gives; dsh: the distributed serve's
     per-rank shapes."""
     import numpy as np
+    from repro_torch.configs.paper_models import PAPER_MODELS
+    from repro_torch.core.resolve import AUTO_BATCH_CAP
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     res = Results()
@@ -1175,8 +1264,17 @@ def phase_kernels(torch, phi, ds, ds1, dsh):
     check_flash_split(torch, rng, dev)
     t_phi = phi["max_batch"] * phi["chunk"]
     t_ds = ds["max_batch"] * ds["chunk"]
+    check_launch_floor(torch, res)
     check_topk(torch, rng, res, t_phi, 16, 2, "phi3.5", dev, True)
     check_topk(torch, rng, res, t_ds, 160, 6, "deepseek", dev, False)
+    # the paper's routers (configs/paper_models.py), which no serve here
+    # runs: at a served step's rows, and at the largest step auto
+    # resolution gives (AUTO_BATCH_CAP slots x the chunk)
+    for arch, t in (("qwen3-235b-a22b", t_ds), ("deepseek-r1-671b", t_ds),
+                    ("deepseek-r1-671b", AUTO_BATCH_CAP * ds["chunk"])):
+        cfg = PAPER_MODELS[arch]
+        check_topk(torch, rng, res, t, cfg.n_experts, cfg.top_k,
+                   f"{arch} router, {t} rows", dev, False)
     check_grouped_gemm(torch, rng, res, _routing(rng, t_phi, 16, 2, 7)[0],
                        t_phi * 2, 4096, 6400, "phi3.5", dev, True)
     check_grouped_gemm(torch, rng, res, _routing(rng, t_ds, 160, 6, 7)[0],

@@ -40,8 +40,9 @@ SIGNATURES = {
     # q, k, v, q_offset, q_len, kv_len, out, part_o, part_ml,
     # B, sq, nq, nkv, hd, hdv, S, rows, n_split, scale, dtype, stream
     "rt_flash_chunk": [_P] * 9 + [_I] * 9 + [_F, _I, _P],
-    # logits, weights, idx, n_rows, E, k, renorm, dtype, stream
-    "rt_topk_gate": [_P] * 3 + [_I] * 5 + [_P],
+    # logits, weights, idx, n_rows, E, k, renorm, dtype, lanes per row,
+    # warps per CTA, ctas, stream
+    "rt_topk_gate": [_P] * 3 + [_I] * 8 + [_P],
     # x, w, offsets, out, N, H, D, E, visit bound, dtype, stream
     "rt_grouped_gemm": [_P] * 4 + [_I] * 6 + [_P],
     # x, w, out, carried sums, carry flags, E, C, H, D, ctas, units,
@@ -55,6 +56,8 @@ SIGNATURES = {
     # buf, slot, weights, out, T, k, h, M, dtype, grid x, grid y, rows per
     # thread, stream
     "rt_unpermute_tokens": [_P] * 4 + [_I] * 8 + [_P],
+    # stream: the empty kernel that gives the per-launch floor
+    "rt_launch_floor": [_P],
 }
 
 _lock = threading.Lock()

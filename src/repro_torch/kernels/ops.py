@@ -241,6 +241,24 @@ def flash_chunk_paged(q, k_pages, v_pages, block_tables, q_offset, q_len,
     return out
 
 
+TOPK_MAX_WARPS = 8   # MAX_WARPS in csrc/topk_gate.cu: warps per CTA
+
+
+def topk_plan(t: int, e: int) -> tuple[int, int, int]:
+    """(lanes per row, warps per CTA, CTAs) of the router gate's launch
+    over t rows of e logits, from the shape alone (k does not enter).  A
+    row takes one warp: all 32 lanes, or 16 where e <= 16 (the other 16
+    exit at once).  Warps per CTA: the fewest, in powers of two up to
+    ``TOPK_MAX_WARPS``, that keep the grid within one CTA per SM (SMS), so
+    a served call spreads its rows over the SMs a few warps each.  The
+    kernel refuses a launch that does not cover the rows or whose lanes
+    per row are not its own."""
+    wpc = 1
+    while wpc < TOPK_MAX_WARPS and -(-t // wpc) > SMS:
+        wpc *= 2
+    return 16 if e <= 16 else 32, wpc, -(-t // wpc)
+
+
 def topk_gate(logits, k: int, *, renorm: bool = True):
     """logits (T, E) -> (weights (T, k) f32, idx (T, k) int32): softmax,
     top-k with ties to the lowest id, optional renorm.  Contract:
@@ -253,11 +271,13 @@ def topk_gate(logits, k: int, *, renorm: bool = True):
            f"{name}: need E <= 256 and 1 <= k <= min(E, 32), got E={e} k={k}")
     if dev.type == "cpu":
         return ref.topk_gate_ref(logits, k, renorm)
+    # two allocations: one (2, T, k) buffer costs more host time in the
+    # views that split it (chip_smoke.py's [host] router line)
     w = torch.empty(t, k, dtype=torch.float32, device=dev)
     idx = torch.empty(t, k, dtype=torch.int32, device=dev)
     _launch(build.load().rt_topk_gate, logits.data_ptr(), w.data_ptr(),
             idx.data_ptr(), t, e, k, int(bool(renorm)),
-            _DTYPES[logits.dtype], _stream())
+            _DTYPES[logits.dtype], *topk_plan(t, e), _stream())
     counters[name] += 1
     return w, idx
 
@@ -529,8 +549,8 @@ def unpermute_tokens(buf, src_slot, weights):
 
 
 __all__ = ["flash_chunk", "flash_decode", "flash_chunk_paged", "flash_plan",
-           "topk_gate", "moe_gemm", "moe_gemm_plan", "moe_gemm_split",
-           "moe_gemm_bn",
+           "topk_gate", "topk_plan", "moe_gemm", "moe_gemm_plan",
+           "moe_gemm_split", "moe_gemm_bn",
            "grouped_gemm",
            "grouped_gemm_visits", "permute_tokens", "permute_plan",
            "permute_tokens_ragged", "unpermute_tokens", "unpermute_plan",

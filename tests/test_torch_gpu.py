@@ -58,17 +58,125 @@ def test_flash_chunk_paged_on_card(dev, dtype):
     assert ops.counters["flash_chunk_paged"] == 1
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_topk_gate_on_card(dev, dtype):
-    dt = getattr(torch, dtype)
-    logits = torch.randn(300, 16, device=dev).to(dt)
+# (E, k): the served routers (phi3.5, deepseek-v2), the paper's (qwen3-235b,
+# deepseek-r1), k = E at an odd E (16-lane rows, k at run time), k = 32
+TOPK_CASES = [(16, 2), (160, 6), (128, 8), (256, 8), (5, 5), (40, 32)]
+
+
+def _topk_logits(t, e, seed, dt, dev):
+    """Row 0 all tied (ids 0, 1, ...); from T = 3 on, row 1 a tied top pair
+    (ids 1, E - 2) and row 2 -inf in every other entry."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    logits = torch.randn(t, e, generator=g)
     logits[0] = 0.5
-    logits[1, 9] = logits[1, 4] = 3.0
-    w, i = ops.topk_gate(logits, 2)
-    w_r, i_r = ref.topk_gate_ref(logits, 2)
+    if t > 2:
+        logits[1, e - 2] = logits[1, 1] = 3.0
+        logits[2, 1::2] = -float("inf")
+    return logits.to(dev, dt)
+
+
+@pytest.mark.parametrize("renorm", [True, False], ids=["renorm", "raw"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 128, 300, 512])
+@pytest.mark.parametrize("ek", TOPK_CASES,
+                         ids=[f"E{e}_k{k}" for e, k in TOPK_CASES])
+def test_topk_gate_on_card(dev, ek, t, dtype, renorm):
+    """Every lane layout and instantiation the dispatch picks (16-lane rows
+    at E <= 16; k at compile time and at run time): ids equal to the plain
+    version's, weights within 1e-6."""
+    e, k = ek
+    logits = _topk_logits(t, e, t * 1000 + e, getattr(torch, dtype), dev)
+    ops.reset_counters()
+    w, i = ops.topk_gate(logits, k, renorm=renorm)
+    w_r, i_r = ref.topk_gate_ref(logits, k, renorm)
+    assert w.shape == i.shape == (t, k)
+    assert w.dtype == torch.float32 and i.dtype == torch.int32
     assert torch.equal(i, i_r)
-    assert i[0].tolist() == [0, 1] and i[1].tolist() == [4, 9]
+    assert i[0].tolist() == list(range(k))
+    if t > 2:
+        assert i[1].tolist()[:2] == [1, e - 2]
     torch.testing.assert_close(w, w_r, atol=1e-6, rtol=0)
+    assert ops.counters["topk_gate"] == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ek", [(17, 3), (33, 8), (97, 2), (129, 6),
+                                (255, 8)], ids=lambda ek: f"E{ek[0]}_k{ek[1]}")
+def test_topk_gate_on_card_at_row_tails(dev, dtype, ek):
+    """E one past a multiple of 32 (one live slot in a lane's last group)
+    or one short of it, each row's largest logit in its last column, in a
+    buffer of exactly T x E: the tail element is read and picked first,
+    and no row reads its neighbour's."""
+    e, k = ek
+    logits = _topk_logits(301, e, e, getattr(torch, dtype), dev)
+    logits[3:, -1] = 8.0
+    w, i = ops.topk_gate(logits, k)
+    w_r, i_r = ref.topk_gate_ref(logits, k)
+    assert torch.equal(i, i_r) and (i[3:, 0] == e - 1).all()
+    torch.testing.assert_close(w, w_r, atol=1e-6, rtol=0)
+
+
+def _xor_tree(s, lanes):
+    """The kernel's sum over (.., lanes) lane values: an xor butterfly from
+    offset lanes / 2 down, each lane adding its partner's value."""
+    o = lanes // 2
+    while o:
+        s = s + s[..., torch.arange(lanes, device=s.device) ^ o]
+        o //= 2
+    return s[..., 0]
+
+
+@pytest.mark.parametrize("renorm", [True, False], ids=["renorm", "raw"])
+@pytest.mark.parametrize("scale", [1.0, 40.0])
+@pytest.mark.parametrize("ek", [(16, 2), (40, 32), (160, 6), (256, 8)],
+                         ids=lambda ek: f"E{ek[0]}_k{ek[1]}")
+def test_topk_gate_weights_are_the_divisions_bits(dev, ek, scale, renorm):
+    """The kernel's weights bit for bit: each lane sums its slots in order
+    (element lane + 32 i in slot i; 16 lanes where E <= 16), the lanes
+    sum by an xor butterfly, each pick is the correctly rounded quotient
+    of its exp by that sum, and renorm divides it by the picks' xor-tree
+    sum (at least 1e-9).  Rebuilt here from torch.exp and torch's IEEE
+    division in that order; logits 40x wider reach probabilities under
+    2^-60, the kernel's division by the operator."""
+    e, k = ek
+    lanes = 16 if e <= 16 else 32
+    t, epl = 4096, -(-e // lanes)
+    g = torch.Generator(device="cpu").manual_seed(e)
+    logits = (torch.randn(t, e, generator=g) * scale).to(dev)
+    w, i = ops.topk_gate(logits, k, renorm=renorm)
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
+    slots = torch.zeros(t, epl * lanes, device=dev)
+    slots[:, :e] = ex
+    s = torch.zeros(t, lanes, device=dev)
+    for j in range(epl):
+        s = s + slots[:, j * lanes:(j + 1) * lanes]
+    p = torch.gather(ex, 1, i.long()) / _xor_tree(s, lanes)[:, None]
+    if renorm:
+        picks = torch.zeros(t, 32, device=dev)
+        picks[:, :k] = p
+        p = p / _xor_tree(picks, 32).clamp_min(1e-9)[:, None]
+    assert torch.equal(w, p)
+    assert scale == 1.0 or bool(((ex > 0) & (ex < 2 ** -60)).any())
+
+
+@pytest.mark.parametrize("short", ["rows", "lanes", "warps"])
+def test_topk_entry_refuses_a_grid_short_of_the_plan(dev, short):
+    """The gate's C entry checks the launch: one CTA fewer than
+    ops.topk_plan's, lanes per row other than the plan's for the E, or
+    more warps a CTA than its launch bound is refused
+    (cudaErrorInvalidConfiguration, 9) and launches nothing."""
+    from repro_torch.kernels import build
+    logits = torch.randn(300, 16, device=dev).to(torch.bfloat16)
+    w = torch.zeros(300, 2, device=dev)
+    idx = torch.zeros(300, 2, dtype=torch.int32, device=dev)
+    lanes, wpc, ctas = ops.topk_plan(300, 16)
+    plan = {"rows": (lanes, wpc, ctas - 1), "lanes": (32, wpc, ctas),
+            "warps": (lanes, ops.TOPK_MAX_WARPS + 1, ctas)}[short]
+    rc = build.load().rt_topk_gate(logits.data_ptr(), w.data_ptr(),
+                                   idx.data_ptr(), 300, 16, 2, 1, 1, *plan,
+                                   ops._stream())
+    torch.cuda.synchronize()
+    assert rc == 9 and (w == 0).all() and (idx == 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -64,23 +64,54 @@ def test_flash_chunk_paged_wrapper_cpu_is_plain_and_uncounted():
     assert ops.counters["flash_chunk_paged"] == 0
 
 
-def test_topk_gate_plain_matches_reference_ties_lowest_index():
-    rng = np.random.default_rng(0)
-    logits = rng.standard_normal((20, 8)).astype(np.float32)
-    logits[0] = 0.25                       # all tied -> ids 0, 1
-    logits[1, 6] = logits[1, 2] = 5.0      # tied pair -> ids 2, 6
-    for renorm in (True, False):
-        w, i = ref.topk_gate_ref(tt(logits), 2, renorm)
-        rw, ri = rref.topk_gate_ref(jj(logits), 2, renorm)
-        kw, ki = rops.topk_gate(jj(logits), 2, renorm=renorm)
-        np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
-        np.testing.assert_array_equal(i.numpy(), np.asarray(ki))
-        np.testing.assert_allclose(w.numpy(), np.asarray(rw), rtol=1e-6,
-                                   atol=1e-6)
-        np.testing.assert_allclose(w.numpy(), np.asarray(kw), rtol=1e-6,
-                                   atol=1e-6)
-        assert i[0].tolist() == [0, 1] and i[1].tolist() == [2, 6]
-        assert w.dtype == torch.float32 and i.dtype == torch.int32
+# (E, k): the served routers (phi3.5, deepseek-v2), the paper's (qwen3-235b,
+# deepseek-r1), k = E at an odd E, k = 32 (the most the kernel keeps)
+TOPK_CASES = [(16, 2), (160, 6), (128, 8), (256, 8), (5, 5), (40, 32)]
+
+
+def _topk_logits(t, e, seed):
+    """Seeded logits with row 0 all tied (ids 0, 1, ...), row 1 a tied top
+    pair (ids 1, E - 2) and row 2 -inf in every other entry (zero
+    probabilities, picked lowest id first once the finite ones are)."""
+    logits = np.random.default_rng(seed).standard_normal((t, e)) \
+        .astype(np.float32)
+    logits[0] = 0.25
+    logits[1, e - 2] = logits[1, 1] = 5.0
+    logits[2, 1::2] = -np.inf
+    return logits
+
+
+@pytest.mark.parametrize("renorm", [True, False], ids=["renorm", "raw"])
+@pytest.mark.parametrize("ek", TOPK_CASES,
+                         ids=[f"E{e}_k{k}" for e, k in TOPK_CASES])
+def test_topk_gate_plain_matches_reference_ties_lowest_index(ek, renorm):
+    """The plain version against the reference's oracle and its
+    interpret-mode Pallas kernel: ids exact, weights within 1e-6."""
+    e, k = ek
+    logits = _topk_logits(24, e, e * 100 + k)
+    w, i = ref.topk_gate_ref(tt(logits), k, renorm)
+    rw, ri = rref.topk_gate_ref(jj(logits), k, renorm)
+    kw, ki = rops.topk_gate(jj(logits), k, renorm=renorm, interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ki))
+    np.testing.assert_allclose(w.numpy(), np.asarray(rw), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(w.numpy(), np.asarray(kw), rtol=1e-6,
+                               atol=1e-6)
+    assert i[0].tolist() == list(range(k))
+    assert i[1].tolist()[:2] == [1, e - 2]
+    odd = list(range(1, e, 2))                 # the -inf entries of row 2
+    n_fin = e - len(odd)
+    assert all(x % 2 == 0 for x in i[2].tolist()[:n_fin])
+    assert i[2].tolist()[n_fin:] == odd[:max(0, k - n_fin)]
+    assert (w[2, n_fin:] == 0).all()
+    assert w.dtype == torch.float32 and i.dtype == torch.int32
+
+
+@pytest.mark.parametrize("e,k", [(257, 2), (16, 0), (5, 6), (64, 33)])
+def test_topk_gate_wrapper_rejects_outside_the_envelope(e, k):
+    with pytest.raises(ValueError, match="E <= 256"):
+        ops.topk_gate(torch.randn(4, e), k)
 
 
 def test_grouped_gemm_plain_matches_reference():
@@ -654,3 +685,46 @@ def test_unpermute_plan_covers_each_cell_once(case):
     cells, gy, rows = _unpermute_cells(t, k, row_bytes, elem_bytes)
     assert cells.min() == 1 and cells.max() == 1
     assert gy <= 65535 and 1 <= rows <= ops.unpermute_rows_max(k)
+
+
+# --- the router gate's launch plan (csrc/topk_gate.cu takes the grid from
+# ops.topk_plan and refuses one that does not cover the rows) ---
+
+# (T, E, (lanes per row, warps per CTA, CTAs)): the phi3.5 step and one
+# rank of the sharded serve (16-lane rows), the deepseek-v2, qwen3-235b
+# and deepseek-r1 steps, the largest auto-resolved step (8 x chunk 64)
+TOPK_SERVED = [(256, 16, (16, 2, 128)), (128, 16, (16, 1, 128)),
+               (256, 160, (32, 2, 128)), (256, 128, (32, 2, 128)),
+               (256, 256, (32, 2, 128)), (512, 256, (32, 4, 128))]
+
+
+@pytest.mark.parametrize("case", TOPK_SERVED,
+                         ids=[f"T{c[0]}_E{c[1]}" for c in TOPK_SERVED])
+def test_topk_plan_at_served_shapes(case):
+    """At most one CTA per SM of the H100, each of the fewest warps that
+    allow it, so every served call spreads its rows over 128 SMs."""
+    t, e, want = case
+    assert ops.topk_plan(t, e) == want
+    assert want[2] <= ops.SMS
+
+
+def _topk_rows(t, e):
+    """How often the kernel handles each row under the plan, walked as
+    topk_gate_kernel derives it: warp w of CTA c takes row c * warps + w,
+    and only rows below t do any work."""
+    lanes, wpc, ctas = ops.topk_plan(t, e)
+    rows = np.arange(ctas * wpc)
+    return np.bincount(rows[rows < t], minlength=t), lanes, wpc, ctas
+
+
+@pytest.mark.parametrize("e", [1, 5, 16, 17, 40, 160, 256])
+@pytest.mark.parametrize("t", [1, 2, 3, 127, 300, 512, 4097, 70_000])
+def test_topk_plan_covers_each_row_once(t, e):
+    """Every row once, no CTA without a row, warps per CTA within the
+    kernel's launch bound, 16-lane rows exactly where E <= 16."""
+    cells, lanes, wpc, ctas = _topk_rows(t, e)
+    assert cells.min() == 1 and cells.max() == 1
+    assert (ctas - 1) * wpc < t <= ctas * wpc
+    assert 1 <= wpc <= ops.TOPK_MAX_WARPS and ctas <= 2 ** 31 - 1
+    assert wpc == ops.TOPK_MAX_WARPS or ctas <= ops.SMS
+    assert lanes == (16 if e <= 16 else 32)
