@@ -29,8 +29,14 @@ checkout's ``chip_smoke.py`` driving that tree's
   capacity the phi3.5-moe-42b capacity serve of phase 4 (8 of 32 layers,
            its prompts and exact launch counts, untimed), then its
            profiler window
+  dist     the bf16 sharded serve of phase 5 (b) alone: 4 ranks on a 2x2
+           mesh (phi3.5-moe-42b, 8 of 32 layers; over gloo on one card,
+           NCCL with one card a rank on a 4-card host), one untimed
+           serve, then per rank of the timed one: ms/step, host seconds
+           inside collectives, the collectives by kind and axes,
+           weights, KV pool and peak memory
 
-MODE,... names the modes to run (default: all three, in this order).
+MODE,... names the modes to run (default: all four, in this order).
 Each child's whole output goes to ``build/chip_compare.log``; its
 ``[compare] {json}`` lines are gathered, and the last line printed is a
 ``{"compare": ...}`` JSON object holding every value per tree, in run
@@ -39,6 +45,7 @@ order.  Exits non-zero if a child fails or there is no CUDA device.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -178,6 +185,23 @@ def child_capacity(torch, cs, card_line):
     print("[compare] " + json.dumps({"capacity": prof}))
 
 
+def child_dist(torch, cs):
+    from repro_torch.launch.ranks import run_ranks
+    work = HERE / "build" / "compare_dist"
+    work.mkdir(parents=True, exist_ok=True)
+    ranks = run_ranks(cs.dist_serve_rank, 4, (str(work),), workdir=work,
+                      device="cuda", timeout_s=900)
+    for r, s in enumerate(ranks):
+        print("[compare] " + json.dumps({"dist": {
+            "rank": r, "ms_step": s["wall_s"] / s["steps"] * 1e3,
+            "steps": s["steps"], "collective_s": s["collective_s"],
+            "collectives": s["collectives"],
+            "weights_gb": s["weights_gb"], "kv_gb": s.get("kv_gb"),
+            "max_mem_gib": s["max_mem_gib"],
+            "streams_digest": hashlib.sha1(
+                str(s["streams"]).encode()).hexdigest()[:16]}}))
+
+
 def child(mode, root):
     """One measurement on one tree: its ``src`` first on the path, this
     checkout's chip_smoke.py for the phases."""
@@ -197,6 +221,8 @@ def child(mode, root):
         child_serve(torch, cs, card_line)
     elif mode == "capacity":
         child_capacity(torch, cs, card_line)
+    elif mode == "dist":
+        child_dist(torch, cs)
     return 0
 
 
@@ -220,7 +246,7 @@ def _run(mode, root, log):
 KERNEL_FIELDS = ("kernel_ms", "device_ms", "profiler_ms", "library_ms",
                  "library_device_ms", "library_profiler_ms", "digest",
                  "ids_digest", "input_digest")
-MODES = ("kernels", "serve", "capacity")   # run in this order
+MODES = ("kernels", "serve", "capacity", "dist")   # run in this order
 
 
 def _collect(into, rec):
@@ -250,7 +276,7 @@ def main(a_root, b_root, modes=MODES):
         if p.returncode != 0:
             raise SystemExit("chip_compare: a build failed")
     res: dict = {t: {"kernels": {}, "host": {}, "ragged_cause": {},
-                     "serve": [], "profile": [], "capacity": []}
+                     "serve": [], "profile": [], "capacity": [], "dist": []}
                  for t in trees}
     for mode in modes:
         for t in ORDER:
@@ -269,6 +295,8 @@ def main(a_root, b_root, modes=MODES):
                     r["serve"].append(item["serve"]["ms_step"])
                 elif "capacity" in item:
                     r["capacity"].append(item["capacity"])
+                elif "dist" in item:
+                    r["dist"].append(item["dist"])
                 else:
                     r["profile"].append(item["profile"])
             print(f"[compare] {mode} {t} done")

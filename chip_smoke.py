@@ -14,9 +14,10 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
   2 kernels  each hand-written kernel against its plain PyTorch version at
              the shapes each serve phase below resolves to (phi3.5-moe-42b
              and deepseek-v2-236b, full width, dropless and capacity
-             dispatch; one rank of the distributed serve: its router
-             gate, and its EP exchange's gathers, grouped GEMMs and
-             combine at the row cap and at the worst-case extent), bf16
+             dispatch; one rank of the distributed serve: its paged
+             attention at its batch rows and heads, its router gate, and
+             its EP exchange's gathers, grouped GEMMs and combine at the
+             row cap and at the worst-case extent), bf16
              and f32, plus its contract cases (for the grouped GEMM's
              per-segment schedule: 1-row segments, one expert holding all
              rows, boundaries at every residue mod 16 and mod 64, rows past
@@ -56,23 +57,33 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              a torch.profiler window on each long serve's engine for the
              device-time breakdown (phi3.5 dropless and capacity, deepseek
              dropless)
-  5 dist     MixServe's sharded MoE on 4 ranks, a 2x2 (data, model) mesh:
-             4 processes on this card over gloo (with 4 cards, one rank per
+  5 dist     MixServe's layout on 4 ranks, a 2x2 (data, model) mesh:
+             attention on each rank's heads and batch rows, the vocab-
+             sharded embedding and LM head, the TP dense MLP, the
+             residual stream cut along seq (sp), the sharded MoE; 4
+             processes on this card over gloo (with 4 cards, one rank per
              card over NCCL), the kernel library built once above and only
              loaded by the ranks.
-             (a) f32, phi3.5 2 layers, full width: moe_block and
-                 LLM.generate under mixserve fused, mixserve unfused,
-                 dp_ep and pure_tp, dropless and capacity (no-drop
-                 factor), plus the micro-chunked exchange with the auto
-                 row cap and an 8-row cap that overflows, each against the
+             (a) f32, phi3.5 2 layers, full width: moe_block, forward
+                 logits (a 32-row mixed step with the residual stream cut,
+                 then a 1-row step) and LLM.generate under mixserve fused,
+                 mixserve unfused, dp_ep and pure_tp, dropless and
+                 capacity (no-drop factor), mixserve fused also with sp
+                 off, plus the micro-chunked exchange with the auto row
+                 cap and an 8-row cap that overflows, each against the
                  unsharded run on the same weights (moe_block to 1e-4,
-                 greedy streams equal);
+                 logits to rtol 1e-4 plus 1e-3 of the largest logit,
+                 greedy streams equal); deepseek-v2 2 layers (dense + MoE)
+                 at full width, f32, mixserve fused: the same forward
+                 (expanded MLA, then absorbed) and greedy streams;
              (b) bf16, phi3.5 8 layers, full width, mixserve fused,
                  dropless, the resolved ep_overlap: 4 prompts of 64-512
                  tokens (2 sharing a prefix), 16 new tokens; streams equal
                  on every rank, exact launch counts per step and exchange
-                 chunk, ep_load_stats and the A2A byte ledger; times
-                 labelled as ranks sharing one card
+                 chunk, the collectives per step by kind and axes,
+                 ep_load_stats and the A2A byte ledger, weights, KV pool
+                 and peak memory per rank; times labelled as ranks sharing
+                 one card
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -427,14 +438,23 @@ class Results:
         self.recs.setdefault(name, []).append(rec)
 
 
-def check_flash_paged(torch, rng, res, sh, dev):
+def check_flash_paged(torch, rng, res, sh, dev, label="phi3.5", heads=None,
+                      primary=True):
     """The phi3.5 serve's mixed step: prefill chunk mid-prompt, decode deep
-    in the cache, first chunk of a prompt, idle slot."""
+    in the cache, first chunk of a prompt, idle slot.  With ``heads`` =
+    (nq, nkv), one rank of the sharded serve: its batch rows, its heads,
+    every page of the pool; a prefill chunk mid-prompt and a decode at the
+    end of the cache."""
     ops, ref = _ops()
     B, sq = sh["max_batch"], sh["chunk"]
-    nq, nkv, hd, page = 32, 8, 128, 16
-    q_off = [512, 1000, 0, 0][:B] + [0] * max(0, B - 4)
-    q_len = [sq, 1, 37, 0][:B] + [0] * max(0, B - 4)
+    nq, nkv = heads or (32, 8)
+    hd, page = 128, 16
+    if heads is None:
+        q_off = [512, 1000, 0, 0][:B] + [0] * max(0, B - 4)
+        q_len = [sq, 1, 37, 0][:B] + [0] * max(0, B - 4)
+    else:
+        q_off = ([sh["max_len"] // 2, sh["max_len"] - 1] + [0] * B)[:B]
+        q_len = ([sq, 1] + [0] * B)[:B]
     kv_len = [o + n for o, n in zip(q_off, q_len)]
     for dtype in (torch.bfloat16, torch.float32):
         d = dname(dtype)
@@ -447,7 +467,7 @@ def check_flash_paged(torch, rng, res, sh, dev):
         torch.cuda.synchronize()
         ok = within(torch, got, want, *FLASH_TOL[d])
         ok &= all(bool((got[i, q_len[i]:] == 0).all()) for i in range(B))
-        rec = {"label": f"phi3.5 {d}", "max_err": max_err(torch, got, want),
+        rec = {"label": f"{label} {d}", "max_err": max_err(torch, got, want),
                "tol": list(FLASH_TOL[d]), "ok": ok,
                "shape": f"q {tuple(args[0].shape)} pools "
                         f"{tuple(args[1].shape)} q_len {q_len}"}
@@ -460,50 +480,58 @@ def check_flash_paged(torch, rng, res, sh, dev):
                      lambda: ref.flash_chunk_paged_ref(*args), 10)
             bts, flops = _attn_work(q_off, q_len, kv_len, nq, nkv, hd, hd, 2)
             rec.update(bytes=bts + got.numel() * 2 + 4 * args[3].numel(),
-                       flops=flops, peak="bf16", primary=True)
+                       flops=flops, peak="bf16", primary=primary)
         res.add("flash_chunk_paged", rec, "disagrees with its plain version")
 
 
 def check_flash_dense(torch, rng, res, sh, sh1, dev):
     """flash_chunk at the deepseek serve's expanded-MLA step (g = 1,
-    hd 192 / hdv 128) and, through flash_decode, at the chunk=1 serve's
-    absorbed step (nkv = 1, g = 128, hd 576 / hdv 512)."""
+    hd 192 / hdv 128), also at one rank's share of it on a 2x2 mesh (2 of
+    the 4 slots, 64 of the 128 heads), and, through flash_decode, at the
+    chunk=1 serve's absorbed step (nkv = 1, g = 128, hd 576 / hdv 512)."""
     ops, ref = _ops()
     B, sq, S = sh["max_batch"], sh["chunk"], sh["max_len"]
-    nq, hd, hdv = 128, 192, 128
+    hd, hdv = 192, 128
     scale = 192 ** -0.5
-    q_off = [S - 64 - sq, S - 76, 0, 0][:B]
-    q_len = [sq, 1, 37, 0][:B]
-    kv_len = [o + n for o, n in zip(q_off, q_len)]
-    for dtype in (torch.bfloat16, torch.float32):
-        d = dname(dtype)
-        args = _dense_case(torch, rng, b=B, sq=sq, nq=nq, nkv=nq, hd=hd,
-                           hdv=hdv, skv=S, q_off=q_off, q_len=q_len,
-                           kv_len=kv_len, dtype=dtype, dev=dev)
-        got = ops.flash_chunk(*args, scale=scale)
-        want = ref.flash_chunk_ref(*args, scale)
-        torch.cuda.synchronize()
-        ok = within(torch, got, want, *FLASH_TOL[d])
-        ok &= all(bool((got[i, q_len[i]:] == 0).all()) for i in range(B))
-        rec = {"label": f"deepseek expanded {d}",
-               "max_err": max_err(torch, got, want),
-               "tol": list(FLASH_TOL[d]), "ok": ok,
-               "shape": f"q {tuple(args[0].shape)} k {tuple(args[1].shape)} "
-                        f"v {tuple(args[2].shape)} q_len {q_len}"}
-        if dtype == torch.bfloat16:
-            want32 = ref.flash_chunk_ref(*_upcast(args), scale)
-            rec.update(max_err_vs_f32=max_err(torch, got, want32),
-                       tol_vs_f32=list(FLASH_TOL_VS_F32))
-            rec["ok"] = ok and within(torch, got, want32, *FLASH_TOL_VS_F32)
-            time_rec(torch, rec, lambda: ops.flash_chunk(*args, scale=scale),
-                     20, lambda: ref.flash_chunk_ref(*args, scale), 5,
-                     _sdpa_call(torch, *args, scale, want))
-            bts, flops = _attn_work(q_off, q_len, kv_len, nq, nq, hd, hdv, 2)
-            rec.update(bytes=bts + got.numel() * 2, flops=flops, peak="bf16",
-                       primary=True)
-        res.add("flash_chunk", rec, "disagrees with its plain version")
-        del args, got, want
-    free_memory(torch)
+    for b, nq, label, primary in (
+            (B, 128, "deepseek expanded", True),
+            (B // 2, 64, "deepseek expanded, one rank of a 2x2 mesh", False)):
+        q_off = [S - 64 - sq, S - 76, 0, 0][:b]
+        q_len = [sq, 1, 37, 0][:b]
+        kv_len = [o + n for o, n in zip(q_off, q_len)]
+        for dtype in (torch.bfloat16, torch.float32):
+            d = dname(dtype)
+            args = _dense_case(torch, rng, b=b, sq=sq, nq=nq, nkv=nq, hd=hd,
+                               hdv=hdv, skv=S, q_off=q_off, q_len=q_len,
+                               kv_len=kv_len, dtype=dtype, dev=dev)
+            got = ops.flash_chunk(*args, scale=scale)
+            want = ref.flash_chunk_ref(*args, scale)
+            torch.cuda.synchronize()
+            ok = within(torch, got, want, *FLASH_TOL[d])
+            ok &= all(bool((got[i, q_len[i]:] == 0).all()) for i in range(b))
+            rec = {"label": f"{label} {d}",
+                   "max_err": max_err(torch, got, want),
+                   "tol": list(FLASH_TOL[d]), "ok": ok,
+                   "shape": f"q {tuple(args[0].shape)} k "
+                            f"{tuple(args[1].shape)} v {tuple(args[2].shape)}"
+                            f" q_len {q_len}"}
+            if dtype == torch.bfloat16:
+                want32 = ref.flash_chunk_ref(*_upcast(args), scale)
+                rec.update(max_err_vs_f32=max_err(torch, got, want32),
+                           tol_vs_f32=list(FLASH_TOL_VS_F32))
+                rec["ok"] = ok and within(torch, got, want32,
+                                          *FLASH_TOL_VS_F32)
+                time_rec(torch, rec,
+                         lambda: ops.flash_chunk(*args, scale=scale), 20,
+                         lambda: ref.flash_chunk_ref(*args, scale), 5,
+                         _sdpa_call(torch, *args, scale, want))
+                bts, flops = _attn_work(q_off, q_len, kv_len, nq, nq, hd,
+                                        hdv, 2)
+                rec.update(bytes=bts + got.numel() * 2, flops=flops,
+                           peak="bf16", primary=primary)
+            res.add("flash_chunk", rec, "disagrees with its plain version")
+            del args, got, want
+        free_memory(torch)
 
     # flash_decode at the absorbed step of the chunk=1 serve, and at a
     # cache as long as the expanded serve's
@@ -1259,6 +1287,9 @@ def phase_kernels(torch, phi, ds, ds1, dsh):
     rng = np.random.default_rng(0)
     res = Results()
     check_flash_paged(torch, rng, res, phi, dev)
+    check_flash_paged(torch, rng, res, dsh["attn"], dev,
+                      label="phi3.5 one rank of the sharded serve",
+                      heads=dsh["attn"]["heads"], primary=False)
     check_flash_dense(torch, rng, res, ds, ds1, dev)
     check_flash_contracts(torch, rng, dev)
     check_flash_split(torch, rng, dev)
@@ -1558,18 +1589,20 @@ def _serve_capacity(torch, llm, prompts, new, per_step, card_line, label):
           and eng.plan.dispatch_mode == "capacity",
           f"serve {label}: dispatch resolved to {llm.spec.dispatch}")
     sink = []
-    block = moe.moe_block
+    # the forward's MoE entry (a tree from before moe_rank calls moe_block)
+    entry = "moe_rank" if hasattr(moe, "moe_rank") else "moe_block"
+    block = getattr(moe, entry)
 
     def counted(p, x, cfg, plan, **kw):
         r = block(p, x, cfg, plan, **kw)
         sink.append((x.shape[0] * x.shape[1], r[2]))
         return r
     torch.cuda.reset_peak_memory_stats()
-    moe.moe_block = counted
+    setattr(moe, entry, counted)
     try:
         out = _serve(torch, llm, prompts, new, per_step, card_line, label)
     finally:
-        moe.moe_block = block
+        setattr(moe, entry, block)
     n_moe = cfg.n_layers - cfg.first_dense_layers
     check(len(sink) == out["steps"] * n_moe,
           f"serve {label}: {len(sink)} MoE layer runs in {out['steps']} "
@@ -1731,7 +1764,7 @@ def phase_profile(torch, llm, rng, label):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the distributed MoE (4 ranks)
+# phase 5: MixServe's layout on 4 ranks
 # ---------------------------------------------------------------------------
 
 DIST_MESH = (2, 2)                           # (data, model)
@@ -1739,6 +1772,23 @@ DIST_LAYOUTS = (("mixserve", "fused"), ("mixserve", "unfused"),
                 ("dp_ep", "unfused"), ("pure_tp", "unfused"))
 DIST_PARITY = dict(max_len=256, chunk=32, prompt_len=200, max_new_tokens=8)
 DIST_LENS = (40, 100, 200, 150)
+# the sharded forward against the unsharded one: (q_lens, width) steps on
+# a fresh paged cache of 4 slots; the first step's residual stream is cut
+# along seq over TP (32 rows), the second's is not (1 row)
+DIST_FWD = (([32, 20, 5, 0], 32), ([1, 1, 1, 0], 1))
+DIST_FWD_LEN, DIST_FWD_PAGE = 64, 16
+# deepseek-v2 at full width, its dense and its first MoE layer: forward
+# (expanded MLA, then absorbed at width 1) and greedy streams
+DS_DIST = dict(max_len=128, chunk=32, prompt_len=100, max_new_tokens=4)
+DS_DIST_LENS = (30, 70, 100, 50)
+# the sharded forward's f32 logits against the unsharded ones: rtol 1e-4
+# plus 1e-3 of the largest logit.  Only the summation order differs (the
+# TP partial sums of wo / w_out / the expert FFN), but the random init
+# draws q and k at a scale of 1/sqrt(heads), so attention scores grow with
+# the width and their softmax amplifies f32 rounding: the gap grows with
+# d_model at fixed depth (the CPU tests hold 1e-4 of the largest logit
+# at the reduced widths)
+FWD_RTOL, FWD_ATOL_REL = 1e-4, 1e-3
 # per MoE layer and exchange chunk run (counts, dispatch, comb gather, FFN,
 # return, combine) on the dropless EP path
 DIST_PER_CHUNK = {"permute_tokens_ragged": 2, "permute_tokens": 1,
@@ -1780,12 +1830,18 @@ def _dist_shapes(cfg):
     chunks = math.gcd(ovl.chunks, t) if ovl.chunks > 1 else 1
     n_c = t // chunks * cfg.top_k
     cap = cap_rows_for(n_c, plan.ep, ovl)
+    cut = plan.tp if plan.heads_sharded(cfg) else 1
     return {"t": t, "chunks": chunks, "t_c": t // chunks, "n_c": n_c,
             "extents": [cap, n_c] if cap < n_c else [n_c], "ep": plan.ep,
             "tp": plan.tp, "h": cfg.d_model, "d_ff": cfg.d_ff,
             "E": cfg.n_experts, "k": cfg.top_k,
             "ep_overlap": ovl.describe(),
-            "max_batch": res.max_batch, "chunk": res.chunk}
+            "max_batch": res.max_batch, "chunk": res.chunk,
+            # one rank's attention: its batch rows and heads, every page
+            "attn": {"max_batch": res.max_batch // plan.dp,
+                     "chunk": res.chunk, "max_len": res.max_len,
+                     "pool_pages": res.kv.pool_pages,
+                     "heads": (cfg.n_heads // cut, cfg.n_kv_heads // cut)}}
 
 
 def _dist_inputs(torch, cfg, dev):
@@ -1798,10 +1854,57 @@ def _dist_inputs(torch, cfg, dev):
                for n in DIST_LENS]
 
 
+def _dist_forward(torch, cfg, params, plan, dev):
+    """DIST_FWD on a fresh paged cache through ``forward`` under ``plan``
+    (sharded on a mesh, else on one device): each step's logits of every
+    row, on the host."""
+    import numpy as np
+    from repro_torch.models import model as MOD
+    nb = DIST_FWD_LEN // DIST_FWD_PAGE
+    cache = MOD.init_paged_cache(cfg, 4, DIST_FWD_LEN,
+                                 page_size=DIST_FWD_PAGE, pool_pages=4 * nb,
+                                 dtype=torch.float32, device=dev, plan=plan)
+    cache["block_tables"].copy_(torch.arange(
+        4 * nb, dtype=torch.int32, device=dev).reshape(4, nb))
+    rng = np.random.default_rng(3)
+    out = []
+    for q_lens, w in DIST_FWD:
+        toks = rng.integers(0, cfg.vocab_size, (4, w)).astype(np.int32)
+        o = MOD.forward(params, cfg, plan,
+                        tokens=torch.from_numpy(toks).to(dev), cache=cache,
+                        q_lens=torch.tensor(q_lens, dtype=torch.int32,
+                                            device=dev))
+        out.append(o.logits.cpu())
+    return out
+
+
+def _forward_err(torch, got, want):
+    """(max abs error over the valid rows of every step, within the
+    bound, the largest logit) of the sharded forward's logits against the
+    unsharded ones."""
+    err, ok = 0.0, True
+    for (q_lens, _), g, w in zip(DIST_FWD, got, want):
+        for i, n in enumerate(q_lens):
+            a, b = g[i, :n], w[i, :n]
+            err = max(err, max_err(torch, a, b))
+            ok &= within(torch, a, b, FWD_ATOL_REL * float(b.abs().max()),
+                         FWD_RTOL) if n else True
+    return err, ok, max(float(w.abs().max()) for w in want)
+
+
+def _ds_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(2)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in DS_DIST_LENS]
+
+
 def _dist_reference(torch, path):
     """The unsharded f32 runs the ranks are held against: moe_block and
     LLM.generate on one device, both dispatch modes (capacity at a factor
-    at which nothing drops), 2 layers at full width."""
+    at which nothing drops), 2 layers at full width, and the forward's
+    logits; the same forward and greedy streams for deepseek-v2 (a dense
+    and an MoE layer)."""
     from repro_torch.core.partitioner import make_plan
     from repro_torch.kernels.policy import KernelPolicy
     from repro_torch.models import moe
@@ -1822,15 +1925,27 @@ def _dist_reference(torch, path):
                             dtype=torch.float32)
         ref["streams"][d] = llm.generate(prompts, 8)
         del llm
-    torch.save(ref, path)
+    ref["forward"] = _dist_forward(torch, cfg, params, make_plan(
+        "mixserve", kernels=KernelPolicy.all_on()), "cuda")
     del params, x
+    free_memory(torch)
+    cfg = _cut("deepseek-v2-236b", 2)
+    params = init_params(gen.manual_seed(1), cfg, torch.float32, "cuda")
+    ref["ds_forward"] = _dist_forward(torch, cfg, params, make_plan(
+        "mixserve", kernels=KernelPolicy.all_on()), "cuda")
+    llm = LLM.from_spec(_spec(**DS_DIST), cfg=cfg, params=params,
+                        device="cuda", dtype=torch.float32)
+    ref["ds_streams"] = llm.generate(_ds_prompts(cfg), 4)
+    del llm, params
+    torch.save(ref, path)
     free_memory(torch)
 
 
 def _dist_parity_rank(torch, mesh, ref):
-    """(a) on one rank: each layout's moe_block and LLM.generate against
-    the unsharded runs; mixserve fused also micro-chunked, with the auto
-    row cap and with a cap of 8 rows that every chunk overflows."""
+    """(a) on one rank: each layout's moe_block, forward logits and
+    LLM.generate against the unsharded runs; mixserve fused also with the
+    residual stream whole (sp off) and micro-chunked, with the auto row
+    cap and with a cap of 8 rows that every chunk overflows."""
     from repro_torch.core.cost_model import EpOverlap
     from repro_torch.models import moe
     from repro_torch.models.model import init_params
@@ -1842,14 +1957,15 @@ def _dist_parity_rank(torch, mesh, ref):
     out = []
     for lay, algo in DIST_LAYOUTS:
         params = None
-        cases = [("dropless", "off"), ("capacity", "off")]
+        cases = [("dropless", "off", True), ("capacity", "off", True)]
         if (lay, algo) == ("mixserve", "fused"):
-            cases += [("dropless", EpOverlap(chunks=2)),
-                      ("dropless", EpOverlap(chunks=2, cap_rows=8))]
-        for d, ovl in cases:
+            cases += [("dropless", "off", False),
+                      ("dropless", EpOverlap(chunks=2), True),
+                      ("dropless", EpOverlap(chunks=2, cap_rows=8), True)]
+        for d, ovl, sp in cases:
             res = _spec(strategy=_dist_strategy(lay, algo), dispatch=d,
                         ep_overlap=ovl, **DIST_PARITY).resolve(
-                cfg, mesh=mesh, device=dev)
+                cfg, mesh=mesh, device=dev, sp=sp)
             if params is None:      # one draw per layout's weight slicing
                 params = init_params(gen.manual_seed(1), cfg, torch.float32,
                                      dev, plan=res.plan)
@@ -1858,6 +1974,8 @@ def _dist_parity_rank(torch, mesh, ref):
                               res.plan)[0]
             want = ref["moe"][d].to(dev)
             ovf = moe.exchange_counts.get("overflow", 0)
+            fwd_err, fwd_ok, fwd_max = _forward_err(torch, _dist_forward(
+                torch, cfg, params, res.plan, dev), ref["forward"])
             llm = LLM.from_spec(res, cfg=cfg, params=params, device=dev,
                                 dtype=torch.float32)
             t0 = time.perf_counter()
@@ -1865,9 +1983,12 @@ def _dist_parity_rank(torch, mesh, ref):
             torch.cuda.synchronize()
             out.append({
                 "case": f"{lay} {res.plan.comm_algo} {d}"
+                        + ("" if sp else ", sp off")
                         + ("" if ovl == "off" else f" ({ovl.describe()})"),
                 "moe_max_err": max_err(torch, y, want),
                 "moe_ok": within(torch, y, want, *TOL["float32"]),
+                "fwd_max_err": fwd_err, "fwd_ok": fwd_ok,
+                "fwd_max_logit": fwd_max,
                 "moe_overflow": ovf, "cap8": ovl != "off"
                 and ovl.cap_rows == 8, "auto_cap": ovl != "off"
                 and ovl.cap_rows == 0, "streams": streams,
@@ -1876,6 +1997,39 @@ def _dist_parity_rank(torch, mesh, ref):
             del llm
         del params
         free_memory(torch)
+    return out
+
+
+def _dist_deepseek_rank(torch, mesh, ref):
+    """(a) deepseek-v2 on one rank, mixserve fused: its sharded forward
+    (MLA on the rank's heads, the dense MLP's d_ff slice, the MoE) and
+    greedy streams against the unsharded runs."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.api import LLM
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _cut("deepseek-v2-236b", 2)
+    res = _spec(strategy=_dist_strategy("mixserve", "fused"),
+                **DS_DIST).resolve(cfg, mesh=mesh, device=dev)
+    gen = torch.Generator(device=dev)
+    params = init_params(gen.manual_seed(1), cfg, torch.float32, dev,
+                         plan=res.plan)
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    fwd_err, fwd_ok, fwd_max = _forward_err(torch, _dist_forward(
+        torch, cfg, params, res.plan, dev), ref["ds_forward"])
+    llm = LLM.from_spec(res, cfg=cfg, params=params, device=dev,
+                        dtype=torch.float32)
+    streams = llm.generate(_ds_prompts(cfg), 4)
+    torch.cuda.synchronize()
+    out = {"fwd_max_err": fwd_err, "fwd_ok": fwd_ok,
+           "fwd_max_logit": fwd_max, "streams": streams,
+           "streams_equal": streams == ref["ds_streams"],
+           "weights_gb": weights / 1e9,
+           "heads": (params["groups"][0][0]["attn"]["w_uk"].shape[1],
+                     cfg.n_heads),
+           "d_ff": (params["groups"][0][0]["mlp"]["w_in"].shape[1],
+                    cfg.d_ff)}
+    del llm, params
+    free_memory(torch)
     return out
 
 
@@ -1938,6 +2092,7 @@ def _dist_serve_rank(torch, mesh):
             "collectives": {f"{k} {'+'.join(a)}": n for (k, a), n
                             in sorted(collectives.counters.items())},
             "wall_s": wall, "load_s": load_s, "weights_gb": weights / 1e9,
+            "kv_gb": eng.kv.kv_bytes() / 1e9,
             "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "ep_load": eng.ep_load_stats(), "prefix_hits":
             eng.kv.stats.n_prefix_hits, "spec": res.describe(),
@@ -1967,10 +2122,27 @@ def dist_rank(rank, world, workdir):
     ref = torch.load(pathlib.Path(workdir) / "ref.pt")
     parity = _dist_parity_rank(torch, mesh, ref)
     free_memory(torch)
+    deepseek = _dist_deepseek_rank(torch, mesh, ref)
+    free_memory(torch)
     serve = _dist_serve_rank(torch, mesh)
     return {"rank": rank, "backend": mesh.backend, "mesh": repr(mesh),
             "device": torch.cuda.get_device_name(), "parity": parity,
-            "serve": serve}
+            "deepseek": deepseek, "serve": serve}
+
+
+def dist_serve_rank(rank, world, workdir):
+    """One rank of the bf16 sharded serve alone (``chip_compare.py``'s
+    ``dist`` mode, on either tree): an untimed serve first, which sets up
+    the process groups' communicators and the libraries' handles, as
+    phase 5's parity runs do before its serve; then the timed one."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(*DIST_MESH)
+    _dist_serve_rank(torch, mesh)
+    free_memory(torch)
+    return _dist_serve_rank(torch, mesh)
 
 
 def phase_dist(torch, card_line, dsh):
@@ -2007,13 +2179,20 @@ def phase_dist(torch, card_line, dsh):
         per = [r["parity"][i] for r in ranks]
         err = max(c["moe_max_err"] for c in per)
         ovf = [c["moe_overflow"] for c in per]
+        ferr = max(c["fwd_max_err"] for c in per)
         print(f"[dist] (a) {case['case']}: moe_block vs unsharded max err "
               f"{err:.3e} (tol {TOL['float32']}), overflowed chunks per "
-              f"rank {ovf}; LLM.generate streams equal unsharded on every "
-              f"rank: {all(c['streams_equal'] for c in per)} "
+              f"rank {ovf}; forward logits (sharded attention, head and "
+              f"residual) max err {ferr:.3e} (tol rtol {FWD_RTOL} + "
+              f"{FWD_ATOL_REL} x max |logit| {case['fwd_max_logit']:.3f}); "
+              f"LLM.generate streams equal "
+              f"unsharded on every rank: "
+              f"{all(c['streams_equal'] for c in per)} "
               f"({case['generate_s']:.2f}s, {label})")
         check(all(c["moe_ok"] for c in per),
               f"distributed {case['case']}: moe_block differs by {err}")
+        check(all(c["fwd_ok"] for c in per),
+              f"distributed {case['case']}: forward logits differ by {ferr}")
         check(all(c["streams_equal"] for c in per),
               f"distributed {case['case']}: streams differ from unsharded: "
               f"{[c['streams'] for c in per]}")
@@ -2021,6 +2200,22 @@ def phase_dist(torch, card_line, dsh):
               f"distributed {case['case']}: the 8-row cap never overflowed")
         check(not case["auto_cap"] or max(ovf) == 0,
               f"distributed {case['case']}: the auto cap overflowed")
+    ds = [r["deepseek"] for r in ranks]
+    ferr = max(c["fwd_max_err"] for c in ds)
+    print(f"[dist] (a) deepseek-v2 2 layers (dense + MoE) f32 full width, "
+          f"mixserve fused: {ds[0]['heads'][0]} of {ds[0]['heads'][1]} MLA "
+          f"heads and d_ff {ds[0]['d_ff'][0]} of {ds[0]['d_ff'][1]} a rank, "
+          f"weights "
+          f"{[round(c['weights_gb'], 2) for c in ds]} GB per rank; forward "
+          f"logits max err {ferr:.3e} (tol rtol {FWD_RTOL} + {FWD_ATOL_REL} "
+          f"x max |logit| {ds[0]['fwd_max_logit']:.3f}); streams equal "
+          f"unsharded on every rank: "
+          f"{all(c['streams_equal'] for c in ds)}")
+    check(all(c["fwd_ok"] for c in ds),
+          f"distributed deepseek-v2: forward logits differ by {ferr}")
+    check(all(c["streams_equal"] for c in ds),
+          f"distributed deepseek-v2: streams differ from unsharded: "
+          f"{[c['streams'] for c in ds]} vs {ds[0]['streams']}")
     # (b) the bf16 serve
     sv = [r["serve"] for r in ranks]
     s0 = sv[0]
@@ -2038,13 +2233,16 @@ def phase_dist(torch, card_line, dsh):
               f"{s['wall_s'] / s['steps'] * 1e3:.1f} ms/step, {label}; "
               f"{s['collective_s']:.2f}s of it inside collectives, host "
               f"clock); "
-              f"weights {s['weights_gb']:.2f} GB, max_memory_allocated "
-              f"{s['max_mem_gib']:.1f} GiB, load {s['load_s']:.1f}s; "
+              f"weights {s['weights_gb']:.2f} GB, KV pool "
+              f"{s['kv_gb']:.2f} GB, max_memory_allocated "
+              f"{s['max_mem_gib']:.2f} GiB, load {s['load_s']:.1f}s; "
               f"exchange chunks {s['exchange']}; prefix hits "
               f"{s['prefix_hits']} [{card_line}]")
+        per_step = {k: round(n / s["steps"], 3)
+                    for k, n in s["collectives"].items()}
         print(f"[dist] (b) rank {r}: kernel launches {s['launches']} "
-              f"(expect {want}); collectives {s['collectives']}; "
-              f"ep_load_stats {s['ep_load']}")
+              f"(expect {want}); collectives {s['collectives']} "
+              f"({per_step} per step); ep_load_stats {s['ep_load']}")
         check(s["launches"] == want and s["exchange"] == s0["exchange"],
               f"distributed serve rank {r}: launches {s['launches']} != "
               f"{want}")

@@ -23,44 +23,46 @@ def _tensor(a, device, dtype):
                                                         dtype=dtype)
 
 
-def _unstack(tree, spec, i, keep, device, dtype):
+def _cut(a, keep, path, spec):
+    """This rank's block of the numpy leaf ``a`` (``keep`` None: whole)."""
+    sl = keep(path, spec) if keep is not None else None
+    return a if sl is None else a[sl]
+
+
+def _unstack(tree, spec, i, keep, path, device, dtype):
     if isinstance(tree, dict):
-        return {k: _unstack(v, spec[k], i, keep, device, dtype)
+        return {k: _unstack(v, spec[k], i, keep, path + (k,), device, dtype)
                 for k, v in tree.items()}
-    a = np.asarray(tree)[i]
-    if keep is not None:
-        a = a[keep(spec)]
-    return _tensor(a, device, dtype)
+    return _tensor(_cut(np.asarray(tree)[i], keep, path, spec), device,
+                   dtype)
 
 
 def from_reference(params_np: dict, cfg: ModelConfig, device="cpu",
                    dtype=torch.float32,
                    plan: ShardingPlan = NULL_PLAN) -> dict:
     """The port's parameter tree from the reference's numpy tree.  With a
-    mesh plan the MoE weights are cut to this rank's slice, as
-    ``models.model.init_params`` keeps them."""
+    mesh plan every leaf is cut to this rank's block
+    (``plan.keep_hook``), as ``models.model.init_params`` keeps it."""
+    keep = plan.keep_hook(cfg)
+    spec = model_spec(cfg)
     out = {}
-    specs = model_spec(cfg)["groups"]
     for name, leaf in params_np.items():
         if name == "groups":
             groups = []
-            for g, tree, spec in zip(layer_plan(cfg), leaf, specs):
-                layers = []
-                for i in range(g.count):
-                    layer = {}
-                    for sub, sub_tree in tree.items():
-                        keep = (lambda p: plan.local_slices(p.shape, p.axes)) \
-                            if sub == "moe" and plan.enabled else None
-                        layer[sub] = _unstack(sub_tree, spec[i][sub], i, keep,
-                                              device, dtype)
-                    layers.append(layer)
-                groups.append(layers)
+            for gi, (g, tree) in enumerate(zip(layer_plan(cfg), leaf)):
+                groups.append([
+                    {sub: _unstack(sub_tree, spec["groups"][gi][i][sub], i,
+                                   keep, ("groups", gi, i, sub), device,
+                                   dtype)
+                     for sub, sub_tree in tree.items()}
+                    for i in range(g.count)])
             out["groups"] = groups
         elif isinstance(leaf, dict):
             raise NotImplementedError(
                 f"reference subtree {name!r} has no port counterpart yet")
         else:
-            out[name] = _tensor(leaf, device, dtype)
+            out[name] = _tensor(_cut(np.asarray(leaf), keep, (name,),
+                                     spec[name]), device, dtype)
     return out
 
 

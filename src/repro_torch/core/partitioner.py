@@ -1,8 +1,9 @@
 """Hybrid TP-EP partitioner (paper §III-C): logical axes -> mesh axes.
 
 The plan maps the *logical* axes the models declare (``expert``,
-``expert_ffn``, ``batch``, ...) onto the axes of a ``launch.mesh.Mesh`` for
-one of four layouts, exactly as the reference's rules do:
+``expert_ffn``, ``heads``, ``vocab``, ``batch``, ``seq_resid``, ...) onto
+the axes of a ``launch.mesh.Mesh`` for one of four layouts, exactly as the
+reference's rules do:
 
   mixserve   MoE: experts over "data" (EP), the expert FFN over "model"
              (TP); batch over pod + data
@@ -11,20 +12,39 @@ one of four layouts, exactly as the reference's rules do:
   dp_ep      sliced over "model" inside the MoE block
              (``dispatch_mode``/``kernels``/``ep_overlap`` ride along)
 
-What the port shards: only the MoE block, as the reference's ``shard_map``
-body does (``models.moe.moe_block``).  Every other layer runs replicated on
-each rank over the whole step's batch, which is numerically the reference's
-GSPMD layout; ``constrain`` is therefore the identity.  TP-sharded
-attention, the vocab-sharded head and the ``seq_resid`` sequence sharding
-are later work (ROADMAP A8).  With no mesh the plan is the single-device
-one (``enabled`` False).
-"""
+and in every layout the attention half: heads, the dense FFN and the vocab
+over "model" (TP), the batch over pod + data (DP), and with ``sp`` the
+residual stream's sequence over "model" (``seq_resid``, Megatron-SP).
 
+The reference is single-controller GSPMD and hands these rules to XLA as
+sharding hints.  The port runs one process per rank and realises the same
+layout with explicit collectives, through the few helpers the layers call:
+
+  keep_hook(cfg)     each rank's block of every weight: ``heads`` /
+                     ``kv_heads`` (when ``heads_sharded``), ``vocab``,
+                     ``ffn``, ``expert``, ``expert_ffn``; every other axis
+                     (``qk``, ``head_dim``, ``embed``, ...) stays whole
+  heads_sharded(cfg) the TP size divides the query heads and (GQA) the kv
+                     heads; otherwise that model's attention runs
+                     replicated, which gives the same numbers (the
+                     reference would split ``head_dim`` instead)
+  seq_sharded(s)     the residual stream of an s-row step is cut along seq
+                     over the TP axes (``sp`` on and the TP size divides s)
+  gather_seq / reduce_out / cut_seq
+                     a sub-layer's entry (all_gather along seq), its
+                     row-parallel exit (psum_scatter along seq, or psum),
+                     and the cut of a TP-replicated output to this rank's
+                     seq block (no collective)
+
+With no mesh the plan is the single-device one (``enabled`` False) and
+every helper is the identity.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from repro_torch.core import collectives as C
 from repro_torch.core.cost_model import EpOverlap, Strategy
 from repro_torch.kernels.policy import NULL_POLICY, KernelPolicy
 
@@ -164,10 +184,71 @@ class ShardingPlan:
             return t
         return t[self.local_slices(tuple(t.shape), logical_axes)]
 
-    def constrain(self, x, *logical_axes):
-        """Identity: outside the MoE block every rank holds every tensor
-        whole (replicated)."""
-        return x
+    # ------------------------------------------------------------------
+    # the attention half of the layout (what the layers call)
+    # ------------------------------------------------------------------
+    def heads_sharded(self, cfg) -> bool:
+        """Whether ``cfg``'s attention runs on 1/tp of its heads: the TP
+        size divides ``n_heads`` and, for GQA, ``n_kv_heads`` (GQA groups
+        stay whole).  Otherwise it runs replicated on every TP rank."""
+        tp = self.tp
+        if tp <= 1:
+            return False
+        return cfg.n_heads % tp == 0 and (cfg.attention == "mla"
+                                          or cfg.n_kv_heads % tp == 0)
+
+    def seq_sharded(self, s: int) -> bool:
+        """Whether a step of ``s`` rows carries its residual stream cut
+        along seq over the TP axes (``seq_resid``): ``sp`` is on and the
+        TP size divides s (a width-1 decode step is never cut)."""
+        return (self.rules.get("seq_resid") is not None and self.tp > 1
+                and s % self.tp == 0)
+
+    def keep_hook(self, cfg):
+        """The ``models.param.init_tree`` keep-hook: each rank keeps its
+        block of the axes the port shards (``vocab``, ``ffn``, ``expert``,
+        ``expert_ffn``, and ``heads`` / ``kv_heads`` when
+        ``heads_sharded``); every other axis stays whole on every rank.
+        None with no mesh."""
+        if not self.enabled:
+            return None
+        cut = {"vocab", "ffn", "expert", "expert_ffn"}
+        if self.heads_sharded(cfg):
+            cut |= {"heads", "kv_heads"}
+
+        def keep(path, p):
+            axes = tuple(a if a in cut else None for a in p.axes)
+            if all(self.rules.get(a) is None for a in axes if a):
+                return None
+            return self.local_slices(p.shape, axes)
+        return keep
+
+    def gather_seq(self, x, seq_sharded: bool):
+        """Whole rows of a residual-layout ``x``: with the stream cut,
+        (b, s/tp, ...) -> (b, s, ...) by an all_gather over the TP axes."""
+        if not seq_sharded:
+            return x
+        return C.all_gather(x, self.mesh, self.tp_axes, axis=1)
+
+    def reduce_out(self, y, seq_sharded: bool):
+        """A row-parallel output, (b, s, h) partial over the TP axes, into
+        the residual layout: the sum cut along seq (psum_scatter) when the
+        stream is cut, else the whole sum (psum)."""
+        if seq_sharded:
+            return C.psum_scatter(y, self.mesh, self.tp_axes,
+                                  scatter_dimension=1)
+        if self.tp > 1:
+            return C.psum(y, self.mesh, self.tp_axes)
+        return y
+
+    def cut_seq(self, y, seq_sharded: bool):
+        """A (b, s, ...) output replicated over the TP axes into the
+        residual layout: this rank's seq block, no collective."""
+        if not seq_sharded:
+            return y
+        n = y.shape[1] // self.tp
+        j = C.axis_index(self.mesh, self.tp_axes)
+        return y[:, j * n:(j + 1) * n]
 
 
 NULL_PLAN = ShardingPlan()
@@ -175,11 +256,13 @@ NULL_PLAN = ShardingPlan()
 
 def make_plan(strategy: str | Strategy, mesh=None, comm_algo: str = "fused",
               *, kernels: Optional[KernelPolicy] = None,
-              dispatch: str = "auto",
+              sp: bool = True, dispatch: str = "auto",
               ep_overlap: Optional[EpOverlap] = None) -> ShardingPlan:
     """The plan for a layout name (or an analyzer ``Strategy``) on
     ``mesh``.  With no mesh every layout is the single-device plan.
-    ``kernels=None`` leaves every kernel off."""
+    ``kernels=None`` leaves every kernel off.  ``sp=False`` turns off the
+    Megatron-SP cut of the residual stream (``seq_resid`` -> None), as the
+    reference's switch does."""
     kernels = kernels if kernels is not None else NULL_POLICY
     if isinstance(strategy, Strategy):
         # analyzer output: moe_tp > 1 selects the hybrid layout
@@ -196,7 +279,7 @@ def make_plan(strategy: str | Strategy, mesh=None, comm_algo: str = "fused",
               "batch": pod + data, "kv_heads": model, "qk": model,
               "embed": None, "head_dim": model, "kv_head_dim": model,
               "seq": None, "layers": None, "kv_seq": model,
-              "seq_resid": model}
+              "seq_resid": model if sp else None}
     if strategy == "mixserve":
         rules = dict(common, expert=data, expert_ffn=model)
         ep_axes = data

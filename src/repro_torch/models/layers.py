@@ -19,6 +19,18 @@ its block table, and attention reads the pools through the same table.
 Layouts follow the reference at every public function: activations
 ``(b, s, ...)``, ``wq (h, nq, hd)``, ``wo (nq, hd, h)``, pools
 ``(P, page, nkv, hd)``.
+
+On a mesh (``plan.enabled``) each rank runs these on its batch rows with
+its block of the weights (``ShardingPlan.keep_hook``): attention on its
+1/tp of the heads when ``plan.heads_sharded(cfg)`` (``wq``/``wk``/``wv``
+and MLA's ``w_uq``/``w_uk``/``w_uv`` column-parallel, ``wo`` row-parallel),
+the MLP on its 1/tp of ``d_ff``.  ``seq_sharded`` says that ``x`` holds
+this rank's seq block of the residual stream: the normed rows are
+all-gathered along seq on entry, and a row-parallel output leaves through
+``plan.reduce_out`` (psum_scatter along seq, else psum).  The cache's
+``length`` / block tables / ``q_lens`` cover every slot; every rank holds
+every page (the reference's replicated pools), so the new cache rows of
+all batch ranks are gathered before the write.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan
 from repro_torch.kernels.policy import KernelPolicy
 from repro_torch.models.param import P
@@ -196,6 +209,37 @@ def gather_pages(pool, block_table):
     return pages.reshape(b, nb * ps, *pool.shape[2:])
 
 
+def _local_rows(plan: ShardingPlan, *ts):
+    """This rank's batch rows of per-slot tensors (views)."""
+    return tuple(plan.shard(t, ("batch",)) for t in ts)
+
+
+def _write_pools(plan: ShardingPlan, pools, news, idx, block_table,
+                 valid_len):
+    """Write this rank's new cache rows ``news`` (b_loc, s, ...) into
+    ``pools`` at every slot's offset.  Every rank holds every page, so with
+    the batch cut over the plan's batch axes the rows of all of them are
+    gathered first, in one all_gather; ``idx`` / ``block_table`` /
+    ``valid_len`` cover every slot."""
+    if plan.dp > 1:
+        b, s = news[0].shape[:2]
+        flat = [n.reshape(b, s, -1) for n in news]
+        rows = C.all_gather(torch.cat(flat, -1), plan.mesh, plan.dp_axes,
+                            axis=0)
+        news = [r.reshape((rows.shape[0],) + tuple(n.shape[1:])) for r, n
+                in zip(rows.split([f.shape[-1] for f in flat], -1), news)]
+    return tuple(write_cache_paged(pool, n, idx, block_table, valid_len)
+                 for pool, n in zip(pools, news))
+
+
+def _attn_out(plan: ShardingPlan, cfg: ModelConfig, out, seq_sharded):
+    """The ``wo`` product into the residual layout: a TP partial sum when
+    the heads are sharded, else whole on every rank."""
+    if plan.heads_sharded(cfg):
+        return plan.reduce_out(out, seq_sharded)
+    return plan.cut_seq(out, seq_sharded)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention block (paged unified step)
 # ---------------------------------------------------------------------------
@@ -215,7 +259,8 @@ def gqa_spec(cfg: ModelConfig) -> dict:
 class KVView:
     """A paged cache to read and update: k/v are POOLS (P, page, nkv, hd),
     ``length`` (b,) the per-slot cache offsets, ``block_table``
-    (b, max_blocks) the logical-block -> page map."""
+    (b, max_blocks) the logical-block -> page map (on a mesh, of every
+    slot: each rank takes its batch rows)."""
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor
@@ -230,33 +275,35 @@ def _proj_heads(xn, w):
 
 
 def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
-                  cache: KVView, q_lens, positions=None):
+                  cache: KVView, q_lens, positions=None,
+                  seq_sharded: bool = False):
     """The paged unified step.  x (b, s, h); slot i contributes the first
     q_lens[i] of its s rows at cache offset ``cache.length[i]``.  Returns
-    (out (b, s, h), (k_pool, v_pool)) — the pools are updated in place."""
+    (out (b, s, h), (k_pool, v_pool)) — the pools are updated in place.
+    On a mesh x is this rank's rows (seq block when ``seq_sharded``) and
+    so is the output; ``positions`` (b, s) are this rank's rows too."""
     if cache is None or cache.block_table is None or q_lens is None:
         raise NotImplementedError(
             "the port's attention serves the paged unified step only "
             "(cache with block tables + q_lens)")
-    b, s, h = x.shape
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
+    b, s, h = xn.shape
     q = _proj_heads(xn, p["wq"])
     k = _proj_heads(xn, p["wk"])
     v = _proj_heads(xn, p["wv"])
-    idx = cache.length
+    idx, bt, ql = _local_rows(plan, cache.length, cache.block_table, q_lens)
     if positions is None:
         positions = positions_from(idx, s)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    bt = cache.block_table
-    kc = write_cache_paged(cache.k, k, idx, bt, q_lens)
-    vc = write_cache_paged(cache.v, v, idx, bt, q_lens)
-    kv_len = idx + q_lens
+    kc, vc = _write_pools(plan, (cache.k, cache.v), (k, v), cache.length,
+                          cache.block_table, q_lens)
+    kv_len = idx + ql
     pol = plan.kernels
     if pol is not None and pol.flash_chunk:
         from repro_torch.kernels import ops as _kops
-        out = _kops.flash_chunk_paged(q, kc, vc, bt, idx, q_lens, kv_len,
+        out = _kops.flash_chunk_paged(q, kc, vc, bt, idx, ql, kv_len,
                                       scale=float(q.shape[-1] ** -0.5))
     else:
         kd, vd = gather_pages(kc, bt), gather_pages(vc, bt)
@@ -270,7 +317,7 @@ def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     nq, hd = out.shape[2], out.shape[3]
     out = (out.reshape(b * s, nq * hd) @ p["wo"].reshape(nq * hd, h)) \
         .reshape(b, s, h)
-    return plan.constrain(out, "batch", "seq_resid", "embed"), (kc, vc)
+    return _attn_out(plan, cfg, out, seq_sharded), (kc, vc)
 
 
 # ---------------------------------------------------------------------------
@@ -295,10 +342,10 @@ def mla_spec(cfg: ModelConfig) -> dict:
     }
 
 
-def _mla_qkr(p, x, cfg: ModelConfig, positions):
-    """Shared query path + rope'd latent key: (q_nope (b, s, nh, hd),
-    q_rope (b, s, nh, rd), latent c (b, s, r), k_rope (b, s, rd))."""
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+def _mla_qkr(p, xn, cfg: ModelConfig, positions):
+    """Shared query path + rope'd latent key from the normed rows xn:
+    (q_nope (b, s, nh, hd), q_rope (b, s, nh, rd), latent c (b, s, r),
+    k_rope (b, s, rd)); nh is this rank's heads."""
     ql = rms_norm(xn @ p["w_dq"], p["q_norm"], cfg.norm_eps)
     q = _proj_heads(ql, p["w_uq"])
     q_nope, q_rope = q[..., :cfg.head_dim], q[..., cfg.head_dim:]
@@ -311,7 +358,7 @@ def _mla_qkr(p, x, cfg: ModelConfig, positions):
 
 def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                   cache, q_lens, block_table, positions=None,
-                  absorb: Optional[bool] = None):
+                  absorb: Optional[bool] = None, seq_sharded: bool = False):
     """MLA attention on the paged unified step.  x (b, s, h); ``cache`` =
     (c_pool (P, page, r), kr_pool (P, page, rd), length (b,)); slot i
     contributes the first q_lens[i] of its s rows at offset ``length[i]``.
@@ -326,25 +373,31 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
       s == 1  absorbed — w_uk folded into q and w_uv into the output, so
               attention runs in the latent space: one kv head of r + rd
               key dims and r value dims shared by every query head.
-    Both regimes use scale ``(hd + rd) ** -0.5``."""
+    Both regimes use scale ``(hd + rd) ** -0.5``.
+
+    On a mesh the down-projections and their norms run whole on every
+    rank and the up-projections on its heads; the latent pools have no
+    head axis and stay whole."""
     if cache is None or block_table is None or q_lens is None:
         raise NotImplementedError(
             "the port's MLA serves the paged unified step only (latent "
             "pools with block tables + q_lens)")
-    b, s, h = x.shape
-    nh, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
+    b, s, h = xn.shape
+    nh, hd, rd = p["w_uk"].shape[1], cfg.head_dim, cfg.rope_head_dim
     if absorb is None:
         absorb = s == 1
-    c_pool, kr_pool, idx = cache
+    c_pool, kr_pool, length = cache
+    idx, bt, ql = _local_rows(plan, length, block_table, q_lens)
     if positions is None:
         positions = positions_from(idx, s)
-    q_nope, q_rope, c, k_rope = _mla_qkr(p, x, cfg, positions)
-    cc = write_cache_paged(c_pool, c, idx, block_table, q_lens)
-    krc = write_cache_paged(kr_pool, k_rope, idx, block_table, q_lens)
-    src_c = gather_pages(cc, block_table)          # (b, skv, r)
-    src_kr = gather_pages(krc, block_table)        # (b, skv, rd)
+    q_nope, q_rope, c, k_rope = _mla_qkr(p, xn, cfg, positions)
+    cc, krc = _write_pools(plan, (c_pool, kr_pool), (c, k_rope), length,
+                           block_table, q_lens)
+    src_c = gather_pages(cc, bt)                   # (b, skv, r)
+    src_kr = gather_pages(krc, bt)                 # (b, skv, rd)
     skv = src_c.shape[1]
-    kv_len = idx + q_lens
+    kv_len = idx + ql
     scale = (hd + rd) ** -0.5
     pol = plan.kernels
     if not absorb:
@@ -371,7 +424,7 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
         out = torch.einsum("bsnr,rnd->bsnd", o_lat, p["w_uv"])
     nv = out.shape[2] * out.shape[3]
     out = (out.reshape(b * s, nv) @ p["wo"].reshape(nv, h)).reshape(b, s, h)
-    return plan.constrain(out, "batch", "seq_resid", "embed"), (cc, krc)
+    return _attn_out(plan, cfg, out, seq_sharded), (cc, krc)
 
 
 # ---------------------------------------------------------------------------
@@ -391,12 +444,15 @@ def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     return spec
 
 
-def mlp(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN):
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+def mlp(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
+        seq_sharded: bool = False):
+    """On a mesh ``w_in``/``w_gate`` are column-parallel and ``w_out``
+    row-parallel over the TP axes."""
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
     up = xn @ p["w_in"]
     gate = xn @ p["w_gate"] if "w_gate" in p else up
     hmid = activate(gate, up, cfg.activation)
-    return plan.constrain(hmid @ p["w_out"], "batch", "seq_resid", "embed")
+    return plan.reduce_out(hmid @ p["w_out"], seq_sharded)
 
 
 __all__ = [

@@ -13,6 +13,14 @@ is the paged pool (``init_paged_cache``): per group, pools with a leading
 per-slot ``length`` and ``block_tables``.  ``forward`` runs the unified
 mixed prefill/decode step on it and updates the pools and ``length`` IN
 PLACE.
+
+On a mesh (``plan.enabled``, one process per rank) ``forward`` realises
+the reference's GSPMD layout with explicit collectives: each rank takes
+its batch rows (the plan's batch axes), looks up its vocab block of the
+embedding (summed over the TP axes), runs every layer on its rows, its
+heads and its ``d_ff`` / expert slices, carries the residual stream cut
+along seq when ``plan.seq_sharded``, and gathers the logits of its vocab
+block and batch rows back, so every rank returns the whole logits.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -93,26 +102,15 @@ def model_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-def moe_keep(plan: ShardingPlan):
-    """The ``init_tree`` keep-hook of ``plan``: on a mesh, each rank keeps
-    its block of the MoE blocks' weights (the layout ``moe.moe_block``
-    reads); every other leaf stays whole (replicated)."""
-    if not plan.enabled:
-        return None
-
-    def keep(path, p):
-        return plan.local_slices(p.shape, p.axes) if "moe" in path else None
-    return keep
-
-
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 dtype=torch.bfloat16, device="cuda",
                 plan: ShardingPlan = NULL_PLAN):
     """Random weights drawn from ``gen`` (a generator on ``device``).  With
-    a mesh plan each rank holds its slice of the MoE weights, equal to the
-    same slice of the whole tree the same seed gives."""
+    a mesh plan each rank holds its block of the weights
+    (``plan.keep_hook``), equal to the same block of the whole tree the
+    same seed gives."""
     return init_tree(gen, model_spec(cfg), dtype, device,
-                     keep=moe_keep(plan))
+                     keep=plan.keep_hook(cfg))
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -126,7 +124,7 @@ def count_params(cfg: ModelConfig) -> int:
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      page_size: int, pool_pages: int, dtype=torch.bfloat16,
-                     device="cuda"):
+                     device="cuda", plan: ShardingPlan = NULL_PLAN):
     """Paged KV cache: per-group *pools* + per-slot block tables.
 
     Pools are ``k``/``v`` ``(count, pool_pages, page_size, nkv, hd)`` for
@@ -135,7 +133,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     (batch, max_len // page_size) int32 maps a slot's logical block to its
     physical page (-1 = unallocated); ``length`` (batch,) int32 holds the
     per-slot cache offsets.  The host allocator
-    (``serving.kv_cache.PagedKVCache``) owns the tables."""
+    (``serving.kv_cache.PagedKVCache``) owns the tables.  On a mesh whose
+    TP axes shard the heads (``plan.heads_sharded``) the GQA pools hold
+    this rank's ``nkv / tp`` heads; every rank holds every page and
+    tracks every slot."""
     _check_supported(cfg)
     if max_len % page_size:
         raise ValueError(f"page_size {page_size} must divide "
@@ -143,7 +144,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     if cfg.attention == "mla":
         tails = {"c": (cfg.kv_lora_rank,), "kr": (cfg.rope_head_dim,)}
     else:
-        tails = {n: (cfg.n_kv_heads, cfg.head_dim) for n in ("k", "v")}
+        nkv = cfg.n_kv_heads // (plan.tp if plan.heads_sharded(cfg) else 1)
+        tails = {n: (nkv, cfg.head_dim) for n in ("k", "v")}
     groups = [{n: torch.zeros((g.count, pool_pages, page_size) + tail,
                               dtype=dtype, device=device)
                for n, tail in tails.items()} for g in layer_plan(cfg)]
@@ -159,7 +161,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
                    plan: ShardingPlan, positions, length, q_lens,
-                   block_tables, with_stats: bool = False):
+                   block_tables, with_stats: bool = False,
+                   seq_sharded: bool = False):
     """One residual layer of the unified step.  ``c`` holds this layer's
     pools (K/V, or MLA's latent c/kr).  Returns (x, aux, counts): ``counts``
     is the per-expert routed-slot vector (zeros for dense layers) when
@@ -168,26 +171,77 @@ def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
         a_out, _ = L.mla_attention(p["attn"], x, cfg, plan,
                                    cache=(c["c"], c["kr"], length),
                                    q_lens=q_lens, block_table=block_tables,
-                                   positions=positions)
+                                   positions=positions,
+                                   seq_sharded=seq_sharded)
     else:
         kv = L.KVView(c["k"], c["v"], length, block_tables)
         a_out, _ = L.gqa_attention(p["attn"], x, cfg, plan, cache=kv,
-                                   q_lens=q_lens, positions=positions)
+                                   q_lens=q_lens, positions=positions,
+                                   seq_sharded=seq_sharded)
     x = x + a_out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     counts = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
                          device=x.device) if with_stats else None
     if kind == "moe":
-        r = MOE.moe_block(p["moe"], x, cfg, plan, with_stats=with_stats)
+        r = MOE.moe_rank(p["moe"], x, cfg, plan, with_stats=with_stats,
+                         seq_sharded=seq_sharded)
         m_out, aux = r[0], r[1]
         if with_stats:
             counts = r[2]
         x = x + m_out
     elif kind == "dense":
-        x = x + L.mlp(p["mlp"], x, cfg, plan)
+        x = x + L.mlp(p["mlp"], x, cfg, plan, seq_sharded=seq_sharded)
     else:
         raise KeyError(kind)
     return x, aux, counts
+
+
+def _vocab_start(plan: ShardingPlan, n_local: int) -> int:
+    """The first vocab row of this rank's block (0 with no TP)."""
+    return C.axis_index(plan.mesh, plan.tp_axes) * n_local \
+        if plan.tp > 1 else 0
+
+
+def embed_tokens(table, tokens, cfg: ModelConfig,
+                 plan: ShardingPlan = NULL_PLAN):
+    """The embedding lookup.  With TP the table is this rank's vocab block:
+    rows outside it read zero and the blocks are summed over the TP axes,
+    a sum of one row and zeros, so bitwise the whole table's lookup.  The
+    tied-embedding scale follows the sum."""
+    ids = tokens.long()
+    if plan.tp > 1:
+        n = table.shape[0]
+        if n * plan.tp != cfg.padded_vocab:
+            raise ValueError(f"the embedding holds {n} rows; the plan gives "
+                             f"each of {plan.tp} TP ranks "
+                             f"{cfg.padded_vocab // plan.tp}")
+        loc = ids - _vocab_start(plan, n)
+        hit = (loc >= 0) & (loc < n)
+        x = torch.where(hit[..., None], table[loc.clamp(0, n - 1)],
+                        table.new_zeros(()))
+        x = C.psum(x, plan.mesh, plan.tp_axes)
+    else:
+        x = table[ids]
+    if cfg.tie_embeddings:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def lm_head(x, head, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN):
+    """Logits (b, s, padded_vocab) of this rank's rows x (b, s, h).  With
+    TP ``head`` is this rank's vocab block; its padding columns are masked
+    at their global index, and the blocks are gathered along vocab over
+    the TP axes and along batch over the batch axes, so every rank
+    returns every row's logits."""
+    logits = x @ head
+    v0 = _vocab_start(plan, head.shape[1])
+    if cfg.padded_vocab != cfg.vocab_size:   # mask padding columns
+        logits[..., max(0, cfg.vocab_size - v0):] = L.NEG_INF
+    if plan.tp > 1:
+        logits = C.all_gather(logits, plan.mesh, plan.tp_axes, axis=-1)
+    if plan.dp > 1:
+        logits = C.all_gather(logits, plan.mesh, plan.dp_axes, axis=0)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -229,11 +283,13 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
             "the port's forward runs the paged unified step only "
             "(a paged cache and q_lens)")
     length, block_tables = cache["length"], cache["block_tables"]
-    x = params["embed"][tokens.long()]
-    if cfg.tie_embeddings:
-        x = x * math.sqrt(cfg.d_model)
-    b, s, _ = x.shape
-    positions = L.positions_from(length, s)
+    tokens, len_loc, q_loc = (plan.shard(t, ("batch",))
+                              for t in (tokens, length, q_lens))
+    b, s = tokens.shape
+    seq_sharded = plan.seq_sharded(s)
+    x = plan.cut_seq(embed_tokens(params["embed"], tokens, cfg, plan),
+                     seq_sharded)
+    positions = L.positions_from(len_loc, s)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     counts_total = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
@@ -245,24 +301,23 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
             x, a, cnt = apply_sublayer(
                 g.kind, p_l, x, c_l, cfg=cfg, plan=plan, positions=positions,
                 length=length, q_lens=q_lens, block_tables=block_tables,
-                with_stats=expert_stats)
+                with_stats=expert_stats, seq_sharded=seq_sharded)
             aux_total = aux_total + a
             if expert_stats:
                 counts_total = counts_total + cnt
 
+    x = plan.gather_seq(x, seq_sharded)
     if last_only:   # per-slot last valid row; norm/head are per-token ops
-        rows = (q_lens.long() - 1).clamp_min(0)
+        rows = (q_loc.long() - 1).clamp_min(0)
         x = x[torch.arange(b, device=x.device), rows][:, None]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head
-    if cfg.padded_vocab != cfg.vocab_size:   # mask padding columns
-        logits[..., cfg.vocab_size:] = L.NEG_INF
+    logits = lm_head(x, head, cfg, plan)
     length.add_(q_lens)
     return Output(logits=logits, cache=cache, aux=aux_total,
                   expert_counts=counts_total)
 
 
 __all__ = ["Group", "layer_plan", "model_spec", "sublayer_spec",
-           "init_params", "moe_keep", "count_params", "init_paged_cache",
-           "apply_sublayer", "forward", "Output"]
+           "init_params", "count_params", "init_paged_cache",
+           "apply_sublayer", "embed_tokens", "lm_head", "forward", "Output"]

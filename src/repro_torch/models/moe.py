@@ -35,9 +35,11 @@ process per rank, as the reference's ``shard_map`` body does
   dp_ep      experts over data x model, tokens sliced over "model"
   pure_tp    every rank holds all experts, TP-sharded; all-reduce only
 
-The block's boundary slices the batch over the plan's batch axes, runs the
-per-rank body, and all-gathers the batch back; every rank holds only its
-slice of the expert weights.
+The model's forward calls ``moe_rank`` on its rank's batch rows (and its
+seq block of the residual stream, gathered along seq on entry and cut back
+on exit); ``moe_block`` is the whole-batch wrapper: it slices the batch
+over the plan's batch axes, runs ``moe_rank`` and all-gathers the batch
+back.  Every rank holds only its slice of the expert weights.
 """
 
 from __future__ import annotations
@@ -718,17 +720,19 @@ def _moe_shard_dropless_fn(p, x, *, cfg: ModelConfig, mesh, tp_axes,
     return _finish(out_tok, x, aux, idx, **fin)
 
 
-def moe_block(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
-              dispatch: Optional[str] = None, with_stats: bool = False):
-    """The MoE block.  x: (b, s, h) -> (out, aux_loss)
-    [+ per-expert routed counts (E,) int32, replicated, when
+def moe_rank(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
+             dispatch: Optional[str] = None, with_stats: bool = False,
+             seq_sharded: bool = False):
+    """The MoE block on this rank's batch rows: x (b_loc, s, h) -> (out,
+    aux_loss) [+ per-expert routed counts (E,) int32, replicated, when
     ``with_stats``].  ``dispatch`` overrides ``plan.dispatch_mode``.
 
-    With a mesh, ``x`` is the whole batch on every rank and ``p`` this
-    rank's slice of the block's weights (``models.param.init_tree`` /
-    ``bridge.from_reference`` with the plan); the batch is sliced over the
-    plan's batch axes, the per-rank body runs, and the output is gathered
-    back, so every rank returns the whole (b, s, h)."""
+    ``p`` is this rank's slice of the block's weights
+    (``ShardingPlan.keep_hook``).  With ``seq_sharded`` x is this rank's
+    seq block of the residual stream: the rows are all-gathered along seq
+    over the TP axes first, so the body sees the rows it sees on a whole
+    stream, and the output is cut back to the seq block (no collective).
+    With no mesh this is ``moe_local``."""
     mode = resolve_dispatch(dispatch if dispatch is not None
                             else getattr(plan, "dispatch_mode", None))
     if not plan.enabled:
@@ -751,22 +755,40 @@ def moe_block(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
               comm_algo="unfused" if token_sliced else plan.comm_algo,
               token_sliced=token_sliced, mesh_axes=mesh.axis_names,
               policy=plan.kernels, with_stats=with_stats)
-    x_axes = ("batch", "seq", "embed")
-    x_loc = plan.shard(x, x_axes).contiguous()
+    x_loc = plan.gather_seq(x, seq_sharded).contiguous()
     if mode == "dropless":
         r = _moe_shard_dropless_fn(p, x_loc, ep_overlap=plan.ep_overlap,
                                    **kw)
     else:
         r = _moe_shard_fn(p, x_loc, **kw)
+    return (plan.cut_seq(r[0], seq_sharded),) + tuple(r[1:])
+
+
+def moe_block(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
+              dispatch: Optional[str] = None, with_stats: bool = False):
+    """The MoE block on the whole batch: x (b, s, h) -> (out, aux_loss)
+    [+ counts], as ``moe_rank``.
+
+    With a mesh, ``x`` is the whole batch on every rank and ``p`` this
+    rank's slice of the block's weights; the batch is sliced over the
+    plan's batch axes, ``moe_rank`` runs, and the output is gathered back,
+    so every rank returns the whole (b, s, h)."""
+    if not plan.enabled:
+        return moe_rank(p, x, cfg, plan, dispatch=dispatch,
+                        with_stats=with_stats)
+    x_axes = ("batch", "seq", "embed")
+    r = moe_rank(p, plan.shard(x, x_axes), cfg, plan, dispatch=dispatch,
+                 with_stats=with_stats)
     batch_axes = (plan.spec(x_axes) or (None,))[0]
     if batch_axes is None:
         return r
     batch_axes = batch_axes if isinstance(batch_axes, tuple) \
         else (batch_axes,)
-    return (C.all_gather(r[0], mesh, batch_axes, axis=0),) + tuple(r[1:])
+    return (C.all_gather(r[0], plan.mesh, batch_axes, axis=0),) \
+        + tuple(r[1:])
 
 
-__all__ = ["moe_spec", "moe_block", "moe_local", "route_topk",
+__all__ = ["moe_spec", "moe_block", "moe_rank", "moe_local", "route_topk",
            "make_dispatch", "scatter_to_buffers", "gather_from_buffers",
            "expert_ffn", "capacity_for", "positions_in_expert",
            "DispatchInfo", "dispatch_src_tok", "dispatch_src_slot",

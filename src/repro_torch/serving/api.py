@@ -154,7 +154,8 @@ class ServeSpec:
     # ------------------------------------------------------------------
     def resolve(self, cfg: Optional[ModelConfig] = None,
                 cluster: Union[str, ClusterSpec, None] = None, *,
-                mesh=None, device="cuda") -> "ResolvedServeSpec":
+                mesh=None, device="cuda",
+                sp: bool = True) -> "ResolvedServeSpec":
         """Fill every ``"auto"`` field from the analyzer / cost model.
 
         ``cfg`` defaults to the FULL config of ``arch`` (the offline stage
@@ -165,6 +166,8 @@ class ServeSpec:
         best's).
         ``device`` is where the engine will run: ``kernels="auto"`` turns
         the Hopper kernels on exactly when it is CUDA.
+        ``sp=False`` keeps the residual stream whole on every TP rank (no
+        Megatron-SP cut along seq; ``partitioner.make_plan``).
         Deterministic: same inputs, same resolved spec.
         """
         import torch
@@ -325,7 +328,7 @@ class ServeSpec:
             cfg, cost_strat, cluster_spec, batch=max_batch, l_in=l_in,
             l_out=l_out, value=self.ep_overlap)
 
-        plan = make_plan(name, mesh, comm_algo=comm_algo,
+        plan = make_plan(name, mesh, comm_algo=comm_algo, sp=sp,
                          kernels=kernels, dispatch=dispatch,
                          ep_overlap=ep_ovl)
 
@@ -472,9 +475,10 @@ class LLM:
 
         ``mesh``: serve SPMD on a ``launch.mesh.Mesh`` — every rank calls
         this and then ``generate`` with the same arguments.  Each rank
-        keeps its slice of the MoE weights (``params``, when given, must
-        already be that slice); the scheduler, page allocator and sampler
-        run identically on every rank.
+        keeps its slice of the weights (``ShardingPlan.keep_hook``;
+        ``params``, when given, must already be that slice) and of the KV
+        pool's heads; the scheduler, page allocator and sampler run
+        identically on every rank.
         """
         import torch
 

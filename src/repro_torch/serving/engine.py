@@ -19,8 +19,11 @@ rows, admit failures and clock skew deterministically.
 
 The engine runs on one device (``device=``, default CUDA).  On a mesh
 (``spec.plan.enabled``) every rank runs its own engine on the same requests:
-the scheduler, page allocator and sampler are identical on each rank, the
-MoE blocks are sharded across the ranks and everything else is replicated,
+the scheduler, page allocator and sampler are identical on each rank and
+see the whole batch's logits, while the model runs in MixServe's layout
+(``models.model.forward``): each rank computes its batch rows' attention on
+its heads, its vocab block of the embedding and LM head, its slice of the
+dense MLP and the MoE blocks, and holds its heads' slice of every KV page;
 so the greedy streams agree across ranks.  Speculative
 decoding (ROADMAP A7) and the legacy blocking path for recurrent / hybrid /
 frontend families (ROADMAP A10) are not ported: a spec asking for either
@@ -173,7 +176,7 @@ class Engine:
         self.events: Counter = Counter()
         self.kv = make_kv_cache(cfg, getattr(spec, "kv", None),
                                 self.max_batch, self.max_len, dtype,
-                                self.device)
+                                self.device, plan=self.plan)
 
         self.slots: list[Optional[Request]] = [None] * self.max_batch
         self._pending = [None] * self.max_batch   # tokens to prefill

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan
 from repro_torch.core.resolve import KVConfig
 from repro_torch.models.model import init_paged_cache
 
@@ -62,7 +63,8 @@ class KVCache:
                                    enter the prefix index
       flush()                      push dirty host block tables to device
       occupancy() -> float         fraction of KV capacity in use
-      kv_bytes() -> int            device bytes held by the KV buffers
+      kv_bytes() -> int            device bytes held by this rank's KV
+                                   buffers (its heads' pools on a mesh)
     """
 
     backend = "none"
@@ -111,7 +113,8 @@ class PagedKVCache(KVCache):
 
     def __init__(self, cfg: ModelConfig, batch: int, max_len: int, *,
                  page_size: int, pool_pages: int, prefix_cache: bool = True,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda",
+                 plan: ShardingPlan = NULL_PLAN):
         if max_len % page_size:
             raise ValueError(f"page_size {page_size} must divide "
                              f"max_len {max_len}")
@@ -123,7 +126,7 @@ class PagedKVCache(KVCache):
         self.cache = init_paged_cache(cfg, batch, max_len,
                                       page_size=page_size,
                                       pool_pages=pool_pages, dtype=dtype,
-                                      device=device)
+                                      device=device, plan=plan)
         self.stats = KVStats()
         # allocator state (host): pop() hands out pages 0, 1, 2, ...
         self._free: list[int] = list(range(pool_pages - 1, -1, -1))
@@ -265,9 +268,10 @@ class PagedKVCache(KVCache):
 
 
 def make_kv_cache(cfg: ModelConfig, kv: Optional[KVConfig], batch: int,
-                  max_len: int, dtype=torch.bfloat16,
-                  device="cuda") -> KVCache:
-    """Construct the backend a resolved ``ServeSpec.kv`` asks for."""
+                  max_len: int, dtype=torch.bfloat16, device="cuda",
+                  plan: ShardingPlan = NULL_PLAN) -> KVCache:
+    """Construct the backend a resolved ``ServeSpec.kv`` asks for; on a
+    mesh ``plan`` cuts the pools to this rank's heads."""
     if kv is None or kv.backend == "dense":
         raise NotImplementedError(
             "kv='dense' (the per-slot dense backend) is not ported yet "
@@ -278,7 +282,7 @@ def make_kv_cache(cfg: ModelConfig, kv: Optional[KVConfig], batch: int,
     pool = kv.pool_pages or batch * (max_len // ps)
     return PagedKVCache(cfg, batch, max_len, page_size=ps,
                         pool_pages=pool, prefix_cache=kv.prefix_cache,
-                        dtype=dtype, device=device)
+                        dtype=dtype, device=device, plan=plan)
 
 
 __all__ = ["KVCache", "KVStats", "PagedKVCache", "make_kv_cache"]

@@ -5,6 +5,11 @@ inputs as numpy into a work directory; ``run_ranks`` then starts 4 gloo
 ranks on the CPU, each running ``rank_main`` over every case, and hands
 back what each rank computed.  The cases are named here so that the test
 file can parametrise over them before the ranks run.
+
+Forward cases run the whole sharded ``forward`` (embedding, attention on
+the rank's heads, dense MLP, MoE, LM head; the residual stream cut along
+seq with ``sp`` on) over FWD_STEPS on a paged cache, both with every
+row's logits and with ``last_only``.
 """
 
 import dataclasses
@@ -30,6 +35,23 @@ OVERLAP_LAYOUTS = (("mixserve", "fused"), ("mixserve", "unfused"),
 OVERLAPS = ("no_overflow", "overflow")
 SERVE = dict(kv="paged", max_batch=4, max_len=64, chunk=8)
 NEW_TOKENS = 4
+# the whole forward: a GQA MoE model (heads split over TP), an MLA model
+# with a dense and an MoE layer, and smollm, whose 15/5 heads do not split
+# over TP 2 (replicated attention beside a TP dense MLP, tied embedding)
+FWD_ARCHS = ("phi3.5-moe-42b", "deepseek-v2-236b", "smollm-360m")
+FWD_LAYOUTS = (("mixserve", "fused"), ("dp_ep", "auto"), ("pure_tp", "auto"))
+SPS = ("sp", "nosp")
+FWD_B, FWD_PAGE, FWD_MAX_LEN = 4, 4, 16
+# (q_lens, width): prefill, decode and mixed steps 8 rows wide (the
+# residual stream splits over TP 2), then a width-1 step (it does not:
+# MLA's absorbed regime, and the attention output all-reduced)
+FWD_STEPS = (([8, 5, 0, 3], 8), ([1, 1, 0, 1], 8), ([1, 7, 3, 8], 8),
+             ([1, 1, 1, 0], 1))
+# a prefix written by a slot of the second batch rank (slot 2) and hit by
+# a slot of the first (slot 0): the pool's pages must hold every batch
+# rank's rows (prompt lengths; "p<n>" = the shared 16-token prefix + n)
+CROSS_DP = (("40", 12), ("40", 12), ("p3", 2), ("40", 12), ("20", 12),
+            ("p7", 4))
 
 
 def moe_cases():
@@ -49,12 +71,59 @@ def census_cases():
 
 
 def stream_cases():
-    return moe_cases()
+    """The MoE cases, then smollm (replicated-attention fallback), the
+    residual stream whole (``nosp``), and a prefix hit across batch
+    ranks (``cross_dp``)."""
+    return moe_cases() + [
+        ("smollm-360m", m, lay, algo, "dropless") for m in MESHES
+        for lay, algo in (("mixserve", "fused"), ("pure_tp", "auto"))] + [
+        (a, (2, 2), "mixserve", "fused", "dropless", "nosp")
+        for a in ARCHS] + [
+        (a, (2, 2), lay, algo, "dropless", "cross_dp")
+        for a in ("phi3.5-moe-42b", "smollm-360m")
+        for lay, algo in (("mixserve", "fused"), ("pure_tp", "auto"))]
+
+
+def fwd_cases():
+    return [(a, m, lay, algo, sp) for a in FWD_ARCHS for m in MESHES
+            for lay, algo in FWD_LAYOUTS for sp in SPS]
+
+
+def tree_cases():
+    return [(a, m, lay) for a in FWD_ARCHS for m in MESHES
+            for lay, _ in FWD_LAYOUTS]
+
+
+COLL_CASES = ("all_gather_seq", "all_gather_vocab", "psum_scatter_seq",
+              "psum")
 
 
 def case_id(case) -> str:
     return "-".join(f"{v[0]}x{v[1]}" if isinstance(v, tuple) else str(v)
                     for v in case)
+
+
+def cross_dp_prompts(vocab: int):
+    """CROSS_DP's prompts and their token budgets."""
+    rng = np.random.default_rng(5)
+    pre = rng.integers(0, vocab, 16).astype(np.int32)
+    out = []
+    for spec, _ in CROSS_DP:
+        if spec.startswith("p"):
+            out.append(np.concatenate([
+                pre, rng.integers(0, vocab, int(spec[1:])).astype(np.int32)]))
+        else:
+            out.append(rng.integers(0, vocab, int(spec)).astype(np.int32))
+    return out, [n for _, n in CROSS_DP]
+
+
+def drain(llm, prompts, news):
+    """Serve each prompt with its own token budget; outputs in order."""
+    rids = [llm.submit(p, n) for p, n in zip(prompts, news)]
+    outs = {r: [] for r in rids}
+    for rid, tok in llm.stream():
+        outs[rid].append(tok)
+    return [outs[r] for r in rids]
 
 
 def prompts(vocab: int):
@@ -81,10 +150,10 @@ def _cfg(arch):
     return dataclasses.replace(TC.get_reduced(arch), capacity_factor=CF)
 
 
-def _plan(mesh, layout, algo, dispatch, ep_overlap=None):
+def _plan(mesh, layout, algo, dispatch, ep_overlap=None, sp=True):
     from repro_torch.core.partitioner import make_plan
     return make_plan(layout, mesh, "fused" if algo == "auto" else algo,
-                     dispatch=dispatch, ep_overlap=ep_overlap)
+                     dispatch=dispatch, ep_overlap=ep_overlap, sp=sp)
 
 
 def rowwise_grouped_gemm(x, w, group_offsets):
@@ -132,16 +201,28 @@ def rank_main(rank, world, workdir):
     inputs = pickle.loads((pathlib.Path(workdir) / "inputs.pkl")
                           .read_bytes())
     meshes = {m: make_host_mesh(*m) for m in MESHES}
-    out = {"moe": {}, "overlap": {}, "census": {}, "streams": {},
-           "hits": {}}
+    out = {"moe": {}, "moe_rank": {}, "overlap": {}, "census": {},
+           "streams": {}, "hits": {}, "fwd": {}, "fwd_census": {},
+           "coll": _collectives(meshes[(2, 2)])}
 
     for case in moe_cases():
         arch, m, lay, algo, d = case
         plan = _plan(meshes[m], lay, algo, d)
-        y, _ = M.moe_block(_moe_params(inputs, arch, plan),
-                           torch.from_numpy(inputs[arch]["x"]), _cfg(arch),
-                           plan)
+        p, x = _moe_params(inputs, arch, plan), \
+            torch.from_numpy(inputs[arch]["x"])
+        y, _ = M.moe_block(p, x, _cfg(arch), plan)
         out["moe"][case] = y.numpy()
+        # the forward's per-rank entry on this rank's seq block of its
+        # batch rows: the same rows of the wrapper's output, bit for bit
+        seq = plan.seq_sharded(x.shape[1])
+        x_loc = plan.cut_seq(plan.shard(x, ("batch",)), seq)
+        y_loc, _ = M.moe_rank(p, x_loc, _cfg(arch), plan, seq_sharded=seq)
+        want = plan.cut_seq(plan.shard(y, ("batch",)), seq)
+        out["moe_rank"][case] = (seq, bool(torch.equal(y_loc, want)))
+
+    for case in fwd_cases():
+        out["fwd"][case], out["fwd_census"][case] = _forward_case(
+            inputs, meshes, case)
 
     for case in overlap_cases():
         arch, m, lay, algo, kind = case
@@ -171,18 +252,113 @@ def rank_main(rank, world, workdir):
         out["census"][case] = dict(C.counters)
 
     for case in stream_cases():
-        arch, m, lay, algo, d = case
+        arch, m, lay, algo, d = case[:5]
+        kind = case[5] if len(case) > 5 else None
         cfg = _cfg(arch)
         spec = ServeSpec(arch=arch, strategy=lay, dispatch=d,
                          kernels="off", **SERVE)
-        res = spec.resolve(mesh=meshes[m], device="cpu")
+        res = spec.resolve(mesh=meshes[m], device="cpu",
+                           sp=kind != "nosp")
         if algo != "auto":          # the case's mixserve collectives
             res = dataclasses.replace(res, plan=dataclasses.replace(
                 res.plan, comm_algo=algo))
         params = from_reference(inputs[arch]["params"], cfg,
                                 plan=res.plan)
         llm = LLM.from_spec(res, cfg=cfg, params=params, device="cpu")
-        out["streams"][case] = llm.generate(prompts(cfg.vocab_size),
-                                            NEW_TOKENS)
+        if kind == "cross_dp":
+            out["streams"][case] = drain(llm, *cross_dp_prompts(
+                cfg.vocab_size))
+        else:
+            out["streams"][case] = llm.generate(prompts(cfg.vocab_size),
+                                                NEW_TOKENS)
         out["hits"][case] = llm.engine.kv.stats.n_prefix_hits
     return out
+
+
+def _collectives(mesh):
+    """The collectives the sharded forward adds, along seq (dim 1) and
+    vocab (the last dim), over the TP and the batch axes of a 2x2 mesh:
+    (result, the same from every rank's block by hand, contiguous,
+    counters)."""
+    from repro_torch.core import collectives as C
+    out = {}
+    n = mesh.size
+    # every rank's (2, 4, 6) block, distinct values
+    blocks = [torch.arange(48, dtype=torch.float32).reshape(2, 4, 6)
+              + 100 * r for r in range(n)]
+    me = blocks[mesh.rank]
+    for axes in (("model",), ("data",)):
+        group = mesh.group_ranks(axes)
+        mine = [blocks[r] for r in group]
+        for name in COLL_CASES:
+            C.reset_counters()
+            if name == "all_gather_seq":
+                got = C.all_gather(me, mesh, axes, axis=1)
+                want = torch.cat(mine, 1)
+            elif name == "all_gather_vocab":
+                got = C.all_gather(me, mesh, axes, axis=-1)
+                want = torch.cat(mine, -1)
+            elif name == "psum_scatter_seq":
+                got = C.psum_scatter(me, mesh, axes, scatter_dimension=1)
+                blk = 4 // len(group)
+                j = group.index(mesh.rank)
+                want = sum(mine)[:, j * blk:(j + 1) * blk]
+            else:
+                got = C.psum(me, mesh, axes)
+                want = sum(mine)
+            out[(name, axes)] = (bool(torch.equal(got, want)),
+                                 got.is_contiguous(), dict(C.counters))
+    return out
+
+
+def _forward_case(inputs, meshes, case):
+    """One forward case on this rank: FWD_STEPS on two paged caches (every
+    row's logits on one, ``last_only`` on the other), then the census of
+    one forward at each width on a fresh cache."""
+    from repro_torch.bridge import from_reference
+    from repro_torch.core import collectives as C
+    from repro_torch.models import model as MOD
+    arch, m, lay, algo, sp = case
+    cfg = _cfg(arch)
+    plan = _plan(meshes[m], lay, algo, "dropless", sp=sp == "sp")
+    fin = inputs["fwd"][arch]
+    params = from_reference(inputs[arch]["params"], cfg, plan=plan)
+
+    def cache():
+        c = MOD.init_paged_cache(cfg, FWD_B, FWD_MAX_LEN,
+                                 page_size=FWD_PAGE,
+                                 pool_pages=fin["n_pages"],
+                                 dtype=torch.float32, device="cpu",
+                                 plan=plan)
+        c["block_tables"].copy_(torch.from_numpy(fin["bt"]))
+        return c
+    caches = {False: cache(), True: cache()}
+    steps = []
+    for (q_lens, _), toks in zip(FWD_STEPS, fin["tokens"]):
+        rec = {}
+        for last_only, c in caches.items():
+            o = MOD.forward(params, cfg, plan, tokens=torch.from_numpy(toks),
+                            cache=c, q_lens=torch.tensor(q_lens,
+                                                         dtype=torch.int32),
+                            last_only=last_only, expert_stats=cfg.is_moe)
+            rec[last_only] = (o.logits.numpy(), float(o.aux),
+                              None if o.expert_counts is None
+                              else o.expert_counts.numpy())
+        steps.append(rec)
+    c = caches[False]
+    res = {"steps": steps, "length": c["length"].numpy(),
+           "pools": [{k: v.numpy() for k, v in g.items()}
+                     for g in c["groups"]],
+           "tp_index": plan.mesh.axis_index(plan.tp_axes),
+           "dp_index": plan.mesh.axis_index(plan.dp_axes),
+           "heads_sharded": plan.heads_sharded(cfg)}
+    census = {}
+    for q_lens, width in (FWD_STEPS[0], FWD_STEPS[-1]):
+        toks = fin["tokens"][0][:, :width]
+        C.reset_counters()
+        MOD.forward(params, cfg, plan, tokens=torch.from_numpy(toks),
+                    cache=cache(), q_lens=torch.tensor(q_lens,
+                                                       dtype=torch.int32),
+                    last_only=True)
+        census[width] = dict(C.counters)
+    return res, census

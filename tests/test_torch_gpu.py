@@ -58,6 +58,36 @@ def test_flash_chunk_paged_on_card(dev, dtype):
     assert ops.counters["flash_chunk_paged"] == 1
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_chunk_paged_at_a_ranks_heads_on_card(dev, dtype):
+    """One rank of the sharded phi3.5 serve (2x2 mesh): its 2 of 4 slots,
+    16 of 32 query heads and 4 of 8 kv heads, hd 128, page 16, a 64-row
+    prefill chunk mid-prompt beside a decode deep in the cache, every
+    page of the pool."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    b, sq, nq, nkv, hd, page, nb, n_pages = 2, 64, 16, 4, 128, 16, 34, 136
+    q = torch.randn(b, sq, nq, hd, generator=g).to(dev, dt)
+    kp = torch.randn(n_pages, page, nkv, hd, generator=g).to(dev, dt)
+    vp = torch.randn(n_pages, page, nkv, hd, generator=g).to(dev, dt)
+    perm = torch.randperm(n_pages, generator=g).to(torch.int32)
+    bt = torch.full((b, nb), -1, dtype=torch.int32)
+    bt[0, :20], bt[1, :nb] = perm[:20], perm[20:20 + nb]
+    i32 = dict(dtype=torch.int32, device=dev)
+    q_off = torch.tensor([256, nb * page - 1], **i32)
+    q_len = torch.tensor([sq, 1], **i32)
+    kv_len = q_off + q_len
+    args = (q, kp, vp, bt.to(dev), q_off, q_len, kv_len)
+    ops.reset_counters()
+    got = ops.flash_chunk_paged(*args)
+    want = ref.flash_chunk_paged_ref(*args)
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert (got[1, 1:] == 0).all()
+    assert ops.counters["flash_chunk_paged"] == 1
+
+
 # (E, k): the served routers (phi3.5, deepseek-v2), the paper's (qwen3-235b,
 # deepseek-r1), k = E at an odd E (16-lane rows, k at run time), k = 32
 TOPK_CASES = [(16, 2), (160, 6), (128, 8), (256, 8), (5, 5), (40, 32)]
