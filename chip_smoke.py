@@ -24,7 +24,12 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              offsets[-1]; for attention: split-KV boundaries, q_len 0 with
              kv_len 0, paged == dense bitwise), and the router gate also
              at the paper's routers (qwen3-235b and deepseek-r1, k 8, at a
-             served step and at the largest auto-resolved one);
+             served step and at the largest auto-resolved one); the
+             attention of the gemma-2b and minitron-8b serves at their
+             step shapes (flash_chunk on the dense backend's cache and
+             flash_chunk_paged on the same cache as shuffled pages,
+             paged == dense bitwise) and flash_decode at gemma's chunk=1
+             step and at a 1024-key cache;
              times beside the plain version, the bound and, where one
              exists, a single PyTorch call: ``ms`` by CUDA events over
              back-to-back wrapper calls (the host's launch path
@@ -39,8 +44,13 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              layers) with kernels "on" against kernels "off" on the card —
              phi3.5 (chunk 32), deepseek with expanded MLA (chunk 32) and
              with absorbed MLA (chunk 1), and both models in capacity mode
-             with a capacity factor at which nothing drops; first-step
-             logits within 1e-3, greedy streams equal
+             with a capacity factor at which nothing drops; gemma-2b and
+             minitron-8b (chunk 32) on the paged and on the dense KV
+             backend; first-step logits within 1e-3, greedy streams
+             equal; and for gemma and minitron dense against paged (prefix
+             cache off, the same chunking): first-step logits bitwise
+             equal on the scheduled slots, streams equal, kernels on and
+             off
   4 serve    bf16, full width: LLM.from_spec(...) submit + stream (what
              LLM.generate runs), kernel launch counters read from each run
              only, exact per step:
@@ -54,9 +64,14 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                then 2 prompts of 16-24 tokens at chunk=1, 4 new tokens
                (absorbed MLA, flash_decode); then the first serve's prompts
                with dispatch="capacity";
+               gemma-2b (18 layers, MQA 8/1 heads at hd 256) and
+               minitron-8b (32 layers), whole: phi3.5's traffic, paged
+               (flash_chunk_paged), then kv="dense" on the same weights
+               (flash_chunk); gemma also 2 prompts of 16-24 tokens at
+               chunk=1 on the dense backend (flash_decode);
              a torch.profiler window on each long serve's engine for the
              device-time breakdown (phi3.5 dropless and capacity, deepseek
-             dropless)
+             dropless, gemma and minitron paged)
   5 dist     MixServe's layout on 4 ranks, a 2x2 (data, model) mesh:
              attention on each rank's heads and batch rows, the vocab-
              sharded embedding and LM head, the TP dense MLP, the
@@ -663,6 +678,160 @@ def check_flash_split(torch, rng, dev):
           f"keys, a q_len 0 / kv_len 0 slot; vs plain, vs f32, paged == "
           f"dense bitwise): ok={ok}")
     check(ok and min(splits) > 1, "flash_chunk split-KV case failed")
+
+
+# the dense GQA models' attention: (label, n_heads, n_kv_heads, head_dim)
+DENSE_ATTN = (("gemma-2b", 8, 1, 256), ("minitron-8b", 32, 8, 128))
+
+
+def mma_ptxas(tile="Li8ELi64E"):
+    """Registers and spill-store bytes of each built entry point of the
+    bf16 attention body at one tile (``<KV, 8, 64>``: the 128-row tile
+    that hd 256 runs on), from ``build.build_info["ptxas"]``."""
+    from repro_torch.kernels import build
+    out = {}
+    for src, report in build.build_info["ptxas"].items():
+        for part in report.split("Compiling entry function '")[1:]:
+            name = part.split("'", 1)[0]
+            if "flash_attn_kernel_mma" not in name or tile not in name:
+                continue
+            regs = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            kind = "paged" if "Paged" in name else "dense"
+            out[f"{src} {kind}"] = {
+                "registers": int(regs.group(1)) if regs else None,
+                "spill_stores": int(spill.group(1)) if spill else None}
+    return out
+
+
+def check_flash_dense_models(torch, rng, res, gm, mn, gm1, dev):
+    """The attention of the gemma-2b and minitron-8b serves at their step
+    shapes (``gm`` / ``mn``: 4 slots, chunk 64): a prefill chunk ending at
+    key 1024, a decode at key 1001, a prompt's first 37 rows, an idle slot.
+    One dense cache per dtype, (B, max_len, nkv, hd) as the dense backend
+    holds it, and the same cache as shuffled 16-token pages: flash_chunk
+    and flash_chunk_paged against their plain versions (FLASH_TOL; bf16
+    also against the f32 plain version), rows past q_len exact zeros,
+    paged == dense bitwise.  The bf16 records carry their times, the
+    dense one SDPA's with the boolean mask (no single call takes block
+    tables).  Then flash_decode at gemma's chunk-1 step (``gm1``) and at
+    a 1024-key cache."""
+    import numpy as np
+    ops, ref = _ops()
+    print(f"[build] the 128-row bf16 attention tile hd 256 runs on: "
+          f"{json.dumps(mma_ptxas())}")
+    for (label, nq, nkv, hd), sh in zip(DENSE_ATTN, (gm, mn)):
+        B, sq, S = sh["max_batch"], sh["chunk"], sh["max_len"]
+        q_off = ([1024 - sq, 1000, 0, 0] + [0] * B)[:B]
+        q_len = ([sq, 1, 37, 0] + [0] * B)[:B]
+        kv_len = [o + n for o, n in zip(q_off, q_len)]
+        for dtype in (torch.bfloat16, torch.float32):
+            d = dname(dtype)
+            q, k, v, off, ql, kl = _dense_case(
+                torch, rng, b=B, sq=sq, nq=nq, nkv=nkv, hd=hd, hdv=hd,
+                skv=S, q_off=q_off, q_len=q_len, kv_len=kv_len, dtype=dtype,
+                dev=dev)
+            nb = S // 16
+            bt = torch.randperm(B * nb, device=dev).reshape(B, nb) \
+                .to(torch.int32)
+            kp = torch.empty(B * nb, 16, nkv, hd, dtype=dtype, device=dev)
+            vp = torch.empty_like(kp)
+            kp[bt.long()] = k.reshape(B, nb, 16, nkv, hd)
+            vp[bt.long()] = v.reshape(B, nb, 16, nkv, hd)
+            dense_args = (q, k, v, off, ql, kl)
+            paged_args = (q, kp, vp, bt, off, ql, kl)
+            got = ops.flash_chunk(*dense_args)
+            got_p = ops.flash_chunk_paged(*paged_args)
+            want = ref.flash_chunk_ref(*dense_args)
+            torch.cuda.synchronize()
+            same = torch.equal(got, got_p)
+            zeros = all(bool((got[i, q_len[i]:] == 0).all())
+                        for i in range(B))
+            want32 = ref.flash_chunk_ref(*_upcast(dense_args)) \
+                if dtype == torch.bfloat16 else None
+            bts, flops = _attn_work(q_off, q_len, kv_len, nq, nkv, hd, hd, 2)
+            shape = (f"q {tuple(q.shape)} k {tuple(k.shape)} (pools "
+                     f"{tuple(kp.shape)}) q_len {q_len} kv_len {kv_len}")
+            for name, out, args, fn, plain, extra in (
+                    ("flash_chunk", got, dense_args, ops.flash_chunk,
+                     ref.flash_chunk_ref, 0),
+                    ("flash_chunk_paged", got_p, paged_args,
+                     ops.flash_chunk_paged, ref.flash_chunk_paged_ref,
+                     4 * bt.numel())):
+                ok = within(torch, out, want, *FLASH_TOL[d]) and zeros \
+                    and same
+                rec = {"label": f"{label} step {d}",
+                       "max_err": max_err(torch, out, want),
+                       "tol": list(FLASH_TOL[d]), "ok": ok,
+                       "paged_equals_dense": same, "shape": shape}
+                if want32 is not None:
+                    rec.update(max_err_vs_f32=max_err(torch, out, want32),
+                               tol_vs_f32=list(FLASH_TOL_VS_F32))
+                    rec["ok"] = ok and within(torch, out, want32,
+                                              *FLASH_TOL_VS_F32)
+                    lib = _sdpa_call(torch, *dense_args, hd ** -0.5, want) \
+                        if name == "flash_chunk" else None
+                    time_rec(torch, rec, lambda fn=fn, a=args: fn(*a), 50,
+                             lambda pl=plain, a=args: pl(*a), 5, lib)
+                    rec.update(bytes=bts + out.numel() * 2 + extra,
+                               flops=flops, peak="bf16", primary=False)
+                res.add(name, rec, "disagrees with its plain version, or "
+                                   "paged != dense")
+            del q, k, v, kp, vp, got, got_p, want, want32
+        free_memory(torch)
+
+    # flash_decode at gemma's chunk-1 step, and at a cache as long as the
+    # chunk-64 serve's
+    _, nq, nkv, hd = DENSE_ATTN[0]
+    B1, S1, S = gm1["max_batch"], gm1["max_len"], gm["max_len"]
+    for S_, lens in ((S1, ([S1, 1, S1 // 2 + 5, 0] + [0] * B1)[:B1]),
+                     (S, [1024, 1, 517, 0][:gm["max_batch"]])):
+        for dtype in (torch.bfloat16, torch.float32):
+            d = dname(dtype)
+            b = len(lens)
+            q, k, v, *_ = _dense_case(torch, rng, b=b, sq=1, nq=nq, nkv=nkv,
+                                      hd=hd, hdv=hd, skv=S_, q_off=lens,
+                                      q_len=lens, kv_len=lens, dtype=dtype,
+                                      dev=dev)
+            q = q[:, 0].contiguous()
+            ln = _i32(torch, lens, dev)
+            got = ops.flash_decode(q, k, v, ln)
+            want = ref.flash_decode_ref(q, k, v, ln)
+            torch.cuda.synchronize()
+            ok = within(torch, got, want, *FLASH_TOL[d]) and all(
+                bool((got[i] == 0).all()) for i in range(b) if lens[i] == 0)
+            rec = {"label": f"flash_decode gemma-2b S={S_} {d}",
+                   "max_err": max_err(torch, got, want),
+                   "tol": list(FLASH_TOL[d]), "ok": ok,
+                   "shape": f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                            f"lengths {lens}"}
+            if dtype == torch.bfloat16 and S_ == S1:
+                n_ops = _device_ops_per_call(
+                    torch, lambda: ops.flash_decode(q, k, v, ln))
+                print(f"[kernels] flash_decode gemma-2b S={S_}: device ops "
+                      f"per call {json.dumps(n_ops)}")
+            if dtype == torch.bfloat16:
+                want32 = ref.flash_decode_ref(q.float(), k.float(),
+                                              v.float(), ln)
+                rec.update(max_err_vs_f32=max_err(torch, got, want32),
+                           tol_vs_f32=list(FLASH_TOL_VS_F32))
+                rec["ok"] = ok and within(torch, got, want32,
+                                          *FLASH_TOL_VS_F32)
+                q_off = [max(n - 1, 0) for n in lens]
+                q_len = [min(n, 1) for n in lens]
+                lib = _sdpa_call(torch, q[:, None], k, v, *(
+                    _i32(torch, a, dev) for a in (q_off, q_len, lens)),
+                    hd ** -0.5, want[:, None])
+                time_rec(torch, rec, lambda: ops.flash_decode(q, k, v, ln),
+                         50, lambda: ref.flash_decode_ref(q, k, v, ln), 10,
+                         lib)
+                bts, flops = _attn_work(q_off, q_len, lens, nq, nkv, hd, hd,
+                                        2)
+                rec.update(bytes=bts + got.numel() * 2, flops=flops,
+                           peak="bf16")
+            res.add("flash_chunk", rec, "flash_decode disagrees with its "
+                                        "plain version")
+    free_memory(torch)
 
 
 def check_topk(torch, rng, res, T, E, K, label, dev, primary):
@@ -1275,11 +1444,13 @@ def phase_host(torch, phi, dsh):
                lambda: torch.index_select(xsz, 0, sidx))
 
 
-def phase_kernels(torch, phi, ds, ds1, dsh):
+def phase_kernels(torch, phi, ds, ds1, dsh, dense=None):
     """phi / ds / ds1: the resolved shapes of the phi3.5 serve, the
     deepseek serve and the deepseek chunk=1 serve, each with the capacity
     ``C`` its capacity-dispatch serve gives; dsh: the distributed serve's
-    per-rank shapes."""
+    per-rank shapes; ``dense``: those of the gemma-2b, minitron-8b and
+    gemma chunk=1 serves (``resolve_dense_shapes``), or None to skip
+    their attention records."""
     import numpy as np
     from repro_torch.configs.paper_models import PAPER_MODELS
     from repro_torch.core.resolve import AUTO_BATCH_CAP
@@ -1293,6 +1464,8 @@ def phase_kernels(torch, phi, ds, ds1, dsh):
     check_flash_dense(torch, rng, res, ds, ds1, dev)
     check_flash_contracts(torch, rng, dev)
     check_flash_split(torch, rng, dev)
+    if dense is not None:
+        check_flash_dense_models(torch, rng, res, *dense, dev)
     t_phi = phi["max_batch"] * phi["chunk"]
     t_ds = ds["max_batch"] * ds["chunk"]
     check_launch_floor(torch, res)
@@ -1396,9 +1569,10 @@ def _parity(torch, cfg, params, knobs, lens, new, expect):
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
     streams, first, launches = {}, {}, {}
+    knobs = {"kv": "paged", **knobs}
     for kern in ("on", "off"):
         llm = LLM.from_spec(
-            ServeSpec(kernels=kern, kv="paged", reduced=False, max_batch=4,
+            ServeSpec(kernels=kern, reduced=False, max_batch=4,
                       max_new_tokens=new, **knobs), cfg=cfg, params=params,
             device="cuda", dtype=torch.float32)
         eng = llm.engine
@@ -1422,8 +1596,10 @@ def _parity(torch, cfg, params, knobs, lens, new, expect):
     live = torch.from_numpy(q > 0).cuda()
     err = max_err(torch, first["on"][1][live], first["off"][1][live])
     equal = streams["on"] == streams["off"]
+    kv = knobs["kv"]
     print(f"[parity] {cfg.name} f32 full width, chunk {knobs['chunk']}, "
-          f"dispatch {knobs.get('dispatch', 'auto')}: "
+          f"dispatch {knobs.get('dispatch', 'auto')}, kv "
+          f"{getattr(kv, 'backend', kv)}: "
           f"first-step logits max err {err:.3e} (tol 1e-3), greedy streams "
           f"equal: {equal}; kernels-on launches {launches['on']}")
     check(err <= 1e-3, f"parity: first-step logits differ by {err}")
@@ -1433,7 +1609,9 @@ def _parity(torch, cfg, params, knobs, lens, new, expect):
           and not launches["off"],
           f"parity: kernels-on run launched {launches['on']}, expected "
           f"{expect}; kernels-off {launches['off']}")
-    return {"logits_max_err": err, "streams_equal": equal}
+    return {"logits_max_err": err, "streams_equal": equal,
+            "first": {k: v[1][live] for k, v in first.items()},
+            "streams": streams}
 
 
 def phase_capacity_module(torch, phi, ds):
@@ -1525,6 +1703,48 @@ def phase_parity(torch):
         ("flash_chunk",) + cap)
     del params
     free_memory(torch)
+    out.update(phase_parity_dense(torch, gen))
+    return out
+
+
+def phase_parity_dense(torch, gen):
+    """gemma-2b and minitron-8b, 2 layers, f32, full width, chunk 32:
+    kernels on against off on the paged backend (flash_chunk_paged) and on
+    the dense one (flash_chunk); then dense against paged with the prefix
+    cache off and the same chunking: first-step logits bitwise equal on
+    the scheduled slots (an idle slot's row is garbage that differs with
+    the buffer's stale rows) and the streams equal, kernels on and off
+    alike."""
+    from repro_torch.core.resolve import KVConfig
+    from repro_torch.models.model import init_params
+    knobs = dict(max_len=256, chunk=32, prompt_len=200)
+    lens = (40, 100, 200, 150)
+    out = {}
+    for arch in ("gemma-2b", "minitron-8b"):
+        cfg = _cut(arch, 2)
+        params = init_params(gen.manual_seed(1), cfg, torch.float32, "cuda")
+        runs = {}
+        for kv, expect in ((KVConfig(backend="paged", prefix_cache=False),
+                            ("flash_chunk_paged",)),
+                           ("dense", ("flash_chunk",))):
+            name = getattr(kv, "backend", kv)
+            runs[name] = _parity(torch, cfg, params, dict(knobs, kv=kv),
+                                 lens, 8, expect)
+            out[f"{arch} {name}"] = {k: runs[name][k] for k in (
+                "logits_max_err", "streams_equal")}
+        same = {k: bool(torch.equal(runs["dense"]["first"][k],
+                                    runs["paged"]["first"][k]))
+                for k in ("on", "off")}
+        streams = runs["dense"]["streams"] == runs["paged"]["streams"]
+        print(f"[parity] {cfg.name} f32, dense against paged (prefix cache "
+              f"off, chunk 32): first-step logits bitwise equal "
+              f"{same}, streams equal: {streams}")
+        check(all(same.values()) and streams,
+              f"parity: {cfg.name} dense and paged differ ({same}, streams "
+              f"{streams})")
+        out[f"{arch} dense == paged"] = {"bitwise": same, "streams": streams}
+        del params, runs
+        free_memory(torch)
     return out
 
 
@@ -1554,7 +1774,9 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label):
     hits = eng.kv.stats.n_prefix_hits
     mem = torch.cuda.max_memory_allocated() / 2**30
     print(f"[serve] {label}: {len(prompts)} requests, {n_tok} new tokens, "
-          f"{steps} unified steps in {wall:.2f}s: {n_tok / wall:.1f} tok/s, "
+          f"{steps} unified steps in {wall:.2f}s "
+          f"({wall / max(steps, 1) * 1e3:.1f} ms/step): "
+          f"{n_tok / wall:.1f} tok/s, "
           f"TTFT mean {np.mean(ttft) * 1e3:.0f} ms / max "
           f"{max(ttft) * 1e3:.0f} ms, ITL mean {np.mean(itl) * 1e3:.1f} ms, "
           f"prefix hits {hits}, max_memory_allocated {mem:.1f} GiB "
@@ -1570,11 +1792,13 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label):
           f"serve {label}: launch counters {launches} != {want}")
     return {"launches": launches, "steps": steps, "wall_s": wall,
             "tok_s": n_tok / wall,
+            "streams": [outs[r] for r in t_sub],
             "ttft_ms": float(np.mean(ttft) * 1e3),
             "itl_ms": float(np.mean(itl) * 1e3), "prefix_hits": hits,
             "max_mem_gib": mem,
             "shapes": {"max_batch": llm.spec.max_batch, "chunk": eng.chunk,
-                       "max_len": eng.max_len, "pool_pages": eng.kv.n_pages}}
+                       "max_len": eng.max_len,
+                       "pool_pages": getattr(eng.kv, "n_pages", None)}}
 
 
 def _serve_capacity(torch, llm, prompts, new, per_step, card_line, label):
@@ -1629,8 +1853,10 @@ def _load(torch, spec, cfg, card_line):
     llm = LLM.from_spec(spec, cfg=cfg, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name} bf16 weights ready in "
-          f"{time.perf_counter() - t0:.1f}s [{card_line}]; resolved:\n"
-          f"{llm.spec.describe()}")
+          f"{time.perf_counter() - t0:.1f}s, max_memory_allocated while "
+          f"loading {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+          f"(each leaf drawn in float32, then cast) [{card_line}]; "
+          f"resolved:\n{llm.spec.describe()}")
     return llm
 
 
@@ -1717,6 +1943,73 @@ def phase_serve_deepseek(torch, card_line):
         card_line, label + " capacity")
     check(capacity["prefix_hits"] >= 1, "capacity serve: no prefix hit")
     return out, absorbed, capacity
+
+
+def dense_prompts(cfg, seed):
+    """The dense models' serve: 8 prompts of 64-1024 tokens, 4 sharing a
+    512-token prefix (the first, and three admitted after it finishes)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+    tail = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+    prompts = ([np.concatenate([shared, tail(100)])]
+               + [tail(n) for n in (64, 1024, 300)]
+               + [np.concatenate([shared, tail(n)]) for n in (40, 250, 480)]
+               + [tail(700)])
+    return rng, prompts, tail
+
+
+def phase_serve_dense(torch, card_line):
+    """gemma-2b (18 layers) and minitron-8b (32 layers) at full width and
+    depth, bf16: the paged serve (one flash_chunk_paged a layer a step,
+    with a profiler window), then kv="dense" on the same weights (one
+    flash_chunk a layer a step; the dense backend has no prefix index, so
+    the shared-prefix prompts are prefilled whole and the two runs' steps
+    differ: how many streams agree is printed, not held); then gemma at
+    chunk=1 on the dense backend (flash_decode, which launches
+    flash_chunk, a layer a step)."""
+    from repro_torch.serving.api import LLM
+    import repro_torch.configs as C
+    out = {}
+    for arch, seed in (("gemma-2b", 4), ("minitron-8b", 5)):
+        cfg = C.get(arch)
+        n = cfg.n_layers
+        rng, prompts, tail = dense_prompts(cfg, seed)
+        llm = _load(torch, dense_spec(), cfg, card_line)
+        label = f"{arch} ({n} layers)"
+        torch.cuda.reset_peak_memory_stats()     # the serve's own peak
+        paged = _serve(torch, llm, prompts, 32, {"flash_chunk_paged": n},
+                       card_line, label + ", paged")
+        check(paged["prefix_hits"] >= 1, "serve: no prefix hit")
+        phase_profile(torch, llm, rng, label + ", paged")
+        params = llm.params
+        del llm
+        free_memory(torch)
+        torch.cuda.reset_peak_memory_stats()
+        llm = LLM.from_spec(dense_spec("dense"), cfg=cfg, params=params,
+                            device="cuda", dtype=torch.bfloat16)
+        check(llm.engine.kv.backend == "dense", "kv='dense' did not resolve")
+        dense = _serve(torch, llm, prompts, 32, {"flash_chunk": n},
+                       card_line, label + ", dense")
+        same = sum(a == b for a, b in zip(paged["streams"],
+                                          dense["streams"]))
+        print(f"[serve] {label}: {same} of {len(prompts)} streams of the "
+              f"dense serve equal the paged serve's (bf16; not held: the "
+              f"steps differ)")
+        out[arch] = {"paged": paged, "dense": dense}
+        del llm
+        free_memory(torch)
+        if arch == "gemma-2b":
+            small = LLM.from_spec(dense1_spec(), cfg=cfg, params=params,
+                                  device="cuda", dtype=torch.bfloat16)
+            out["gemma-2b chunk=1"] = _serve(
+                torch, small, [tail(16), tail(24)], 4,
+                {"flash_decode": n, "flash_chunk": n}, card_line,
+                f"{label}, dense, chunk=1")
+            del small
+        del params
+        free_memory(torch)
+    return out
 
 
 def phase_profile(torch, llm, rng, label):
@@ -2302,9 +2595,9 @@ def kernels_record(kres, launches):
     return out
 
 
-def _spec(**kw):
+def _spec(kv="paged", **kw):
     from repro_torch.serving.api import ServeSpec
-    return ServeSpec(kernels="auto", kv="paged", reduced=False, max_batch=4,
+    return ServeSpec(kernels="auto", kv=kv, reduced=False, max_batch=4,
                      seed=0, **kw)
 
 
@@ -2320,10 +2613,22 @@ def ds1_spec():
     return _spec(prompt_len=24, max_new_tokens=4, chunk=1)
 
 
+def dense_spec(kv="paged"):
+    """The dense models' serve: as phi3.5's (prompts to 1024 tokens, 32
+    new), on either KV backend."""
+    return _spec(kv, prompt_len=1024, max_new_tokens=32)
+
+
+def dense1_spec():
+    return _spec("dense", prompt_len=24, max_new_tokens=4, chunk=1)
+
+
 def _shapes(spec, cfg):
     res = spec.resolve(cfg, device="cuda")
     return {"max_batch": res.max_batch, "chunk": res.chunk,
-            "max_len": res.max_len, "pool_pages": res.kv.pool_pages}
+            "max_len": res.max_len,
+            "pool_pages": res.kv.pool_pages if res.kv.backend == "paged"
+            else None}
 
 
 def _capacity(sh, cfg):
@@ -2353,6 +2658,23 @@ def resolve_shapes():
     return phi, ds, ds1, dsh
 
 
+def resolve_dense_shapes():
+    """The gemma-2b / minitron-8b serves' shapes (both backends resolve
+    one envelope) and gemma's chunk=1 serve's: (gm, mn, gm1)."""
+    import repro_torch.configs as C
+    gcfg, mcfg = C.get("gemma-2b"), C.get("minitron-8b")
+    gm, mn = _shapes(dense_spec(), gcfg), _shapes(dense_spec(), mcfg)
+    gm1 = _shapes(dense1_spec(), gcfg)
+    for sh, cfg in ((gm, gcfg), (mn, mcfg)):
+        d = _shapes(dense_spec("dense"), cfg)
+        check({k: v for k, v in d.items() if k != "pool_pages"}
+              == {k: v for k, v in sh.items() if k != "pool_pages"},
+              f"{cfg.name}: kv='dense' resolved another envelope {d}")
+    print(f"[shapes] gemma-2b {gm} | minitron-8b {mn} | gemma-2b chunk=1 "
+          f"{gm1}")
+    return gm, mn, gm1
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
@@ -2367,31 +2689,53 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    secs: dict = {}                  # script seconds by phase
+
+    def timed(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        secs[label] = round(time.perf_counter() - t0, 1)
+        return out
     card_line, name = phase_card(torch)
-    phase_build()
+    timed("build", phase_build)
     phi, ds, ds1, dsh = resolve_shapes()
-    kres = phase_kernels(torch, phi, ds, ds1, dsh)
-    phase_host(torch, phi, dsh)
-    phase_capacity_module(torch, phi, ds)
-    phase_parity(torch)
-    serve_phi, cap_phi = phase_serve_phi(torch, card_line)
+    gm, mn, gm1 = resolve_dense_shapes()
+    kres = timed("kernels", phase_kernels, torch, phi, ds, ds1, dsh,
+                 dense=(gm, mn, gm1))
+    timed("host", phase_host, torch, phi, dsh)
+    timed("capacity_module", phase_capacity_module, torch, phi, ds)
+    timed("parity", phase_parity, torch)
+    serve_phi, cap_phi = timed("serve_phi", phase_serve_phi, torch,
+                               card_line)
     free_memory(torch)
-    serve_ds, serve_ds1, cap_ds = phase_serve_deepseek(torch, card_line)
-    for got, want in ((serve_phi, phi), (cap_phi, phi), (serve_ds, ds),
-                      (serve_ds1, ds1), (cap_ds, ds)):
+    serve_ds, serve_ds1, cap_ds = timed("serve_deepseek",
+                                        phase_serve_deepseek, torch,
+                                        card_line)
+    free_memory(torch)
+    dense = timed("serve_dense", phase_serve_dense, torch, card_line)
+    serves = [serve_phi, cap_phi, serve_ds, serve_ds1, cap_ds,
+              dense["gemma-2b chunk=1"]]
+    for arch in ("gemma-2b", "minitron-8b"):
+        serves += [dense[arch]["paged"], dense[arch]["dense"]]
+    checked = [phi, phi, ds, ds1, ds, gm1, gm, gm, mn, mn]
+    for got, want in zip(serves, checked):
         want = {k: v for k, v in want.items() if k != "C"}
-        check(got["shapes"] == want,
-              f"serve ran {got['shapes']}, kernels were checked at {want}")
+        got = got["shapes"]
+        if got["pool_pages"] is None:          # the dense backend
+            want = dict(want, pool_pages=None)
+        check(got == want,
+              f"serve ran {got}, kernels were checked at {want}")
     free_memory(torch)
-    dist = phase_dist(torch, card_line, dsh)
+    dist = timed("dist", phase_dist, torch, card_line, dsh)
     launches: dict = {}
-    for s in (serve_phi, cap_phi, serve_ds, serve_ds1, cap_ds, dist):
+    for s in serves + [dist]:
         for k, v in s["launches"].items():
             launches[k] = launches.get(k, 0) + v
     rec = kernels_record(kres, launches)
     check(all(k["ok"] and k["launches"] > 0 for k in rec),
           "a kernel failed or never launched on a served path")
-    print(f"[done] {time.perf_counter() - t_start:.1f}s [{card_line}]")
+    print(f"[done] {time.perf_counter() - t_start:.1f}s by phase "
+          f"{json.dumps(secs)} [{card_line}]")
     print(json.dumps({"kernels": rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,24 +1,36 @@
 """Transformer layer substrate: norms, RoPE, attention (GQA and MLA), MLP.
 
-The cache-backed attention here is the paged unified step: slot ``i``
-contributes its first ``q_lens[i]`` query rows at cache offset
-``length[i]``, its new cache rows are written into the page pools through
-its block table, and attention reads the pools through the same table.
+The attention blocks run in the reference's modes:
 
-* GQA (``gqa_attention``): with ``KernelPolicy.flash_chunk`` via the
-  hand-written ``flash_chunk_paged`` kernel, otherwise via the plain
-  ``chunked_attention`` / ``decode_attention`` bodies on a gathered
-  slot-major view (the reference's kernels-off routing, kept so the two
-  packages compare like for like).
-* MLA (``mla_attention``): the latent pools ``(P, page, r)`` and
-  ``(P, page, rd)`` are gathered into a slot-major view, as the reference
-  does, and attention runs on it through ``chunked_attention`` (policy
-  ``flash_chunk``: the dense ``flash_chunk`` kernel) or, for a width-1 step
-  in the absorbed regime, ``decode_attention`` (policy ``flash_decode``).
+* the paged unified step: slot ``i`` contributes its first ``q_lens[i]``
+  query rows at cache offset ``length[i]``, its new cache rows are written
+  into the page pools through its block table, and attention reads the
+  pools through the same table;
+* the dense per-slot cache ``(b, max_len, ...)``: the same unified step
+  (``q_lens`` given; ``length`` the per-slot offsets), or a uniform prefill
+  / decode at one offset for every slot; the new rows go in by
+  ``write_cache``;
+* stateless (``cache=None``): fresh K/V, causal attention over the rows
+  themselves, always on the plain body (the reference routes to a kernel
+  only when a cache length is given).
+
+* GQA (``gqa_attention``): on the paged cache with
+  ``KernelPolicy.flash_chunk`` via the hand-written ``flash_chunk_paged``
+  kernel; on the dense cache via ``chunked_attention`` (policy
+  ``flash_chunk``: the dense ``flash_chunk`` kernel) or, for a width-1
+  step, ``decode_attention`` (policy ``flash_decode``); otherwise via those
+  plain bodies (on a gathered slot-major view of the pools when paged: the
+  reference's kernels-off routing, kept so the two packages compare like
+  for like).
+* MLA (``mla_attention``): the latent ``c`` and ``k_rope`` rows, paged
+  ``(P, page, r)`` / ``(P, page, rd)`` pools gathered into a slot-major
+  view as the reference does, or dense per-slot buffers; attention runs
+  through ``chunked_attention`` or, for a width-1 step in the absorbed
+  regime, ``decode_attention``.
 
 Layouts follow the reference at every public function: activations
 ``(b, s, ...)``, ``wq (h, nq, hd)``, ``wo (nq, hd, h)``, pools
-``(P, page, nkv, hd)``.
+``(P, page, nkv, hd)``, dense buffers ``(b, max_len, nkv, hd)``.
 
 On a mesh (``plan.enabled``) each rank runs these on its batch rows with
 its block of the weights (``ShardingPlan.keep_hook``): attention on its
@@ -30,7 +42,9 @@ all-gathered along seq on entry, and a row-parallel output leaves through
 ``plan.reduce_out`` (psum_scatter along seq, else psum).  The cache's
 ``length`` / block tables / ``q_lens`` cover every slot; every rank holds
 every page (the reference's replicated pools), so the new cache rows of
-all batch ranks are gathered before the write.
+all batch ranks are gathered before the write.  A mesh serves the paged
+cache only: the dense cache and the stateless path raise there
+(``single_device``, ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -89,9 +103,24 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
-def positions_from(idx, s: int):
-    """(b, s) absolute positions from a (b,) offset tensor."""
-    return idx[:, None].long() + torch.arange(s, device=idx.device)[None]
+def positions_from(idx, s: int, device=None):
+    """(b, s) absolute positions from a (b,) offset tensor, or (1, s) from
+    a scalar offset (an int or a 0-d tensor: the uniform batch)."""
+    if torch.is_tensor(idx):
+        base = idx.long().reshape(-1)[:, None]
+        return base + torch.arange(s, device=idx.device)[None]
+    return idx + torch.arange(s, device=device)[None]
+
+
+def _per_slot(v, b: int, device):
+    """A per-slot quantity as a contiguous (b,) int32 tensor: a (b,) int32
+    vector passes through as it is (no device op), a scalar or 0-d tensor
+    is broadcast."""
+    if not torch.is_tensor(v):
+        return torch.full((b,), int(v), dtype=torch.int32, device=device)
+    v = v.to(torch.int32)
+    return v.contiguous() if v.dim() == 1 else v.reshape(1).expand(b) \
+        .contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -118,31 +147,40 @@ def _masked_softmax_av(q, k, v, mask, scale):
         .to(q.dtype)
 
 
-def chunked_attention(q, k, v, *, q_offset, kv_len, causal: bool = True,
-                      scale: Optional[float] = None,
+def chunked_attention(q, k, v, *, q_offset=0, kv_len=None,
+                      causal: bool = True, scale: Optional[float] = None,
                       policy: Optional[KernelPolicy] = None):
-    """q (b, sq, nq, hd); k, v (b, skv, nkv, hd[v]); ``q_offset``/``kv_len``
-    (b,) per-slot vectors (the unified mixed step).  Row r of slot i sits at
-    position ``q_offset[i] + r`` and sees keys ``pos < kv_len[i]`` (and
-    ``pos <= q_offset[i] + r`` when causal).
+    """q (b, sq, nq, hd); k, v (b, skv, nkv, hd[v]).  ``q_offset`` and
+    ``kv_len`` are scalars (a uniform batch) or (b,) per-slot vectors (the
+    unified mixed step); ``kv_len=None`` (the stateless path) masks no key
+    tail.  Row r of slot i sits at position ``q_offset[i] + r`` and sees
+    keys ``pos < kv_len[i]`` (and ``pos <= q_offset[i] + r`` when causal).
 
-    ``policy.flash_chunk`` routes the causal case through the dense
-    ``flash_chunk`` kernel with ``q_len = kv_len - q_offset``; its rows
-    past ``q_len`` come back as exact zeros instead of finite garbage."""
+    ``policy.flash_chunk`` routes the cache-backed causal case (``kv_len``
+    given) through the dense ``flash_chunk`` kernel with
+    ``q_len = kv_len - q_offset``; its rows past ``q_len`` come back as
+    exact zeros instead of finite garbage.  The stateless case keeps the
+    plain body, as in the reference."""
     b, sq, _, hd = q.shape
     skv = k.shape[1]
     scale = scale if scale is not None else hd ** -0.5
-    if policy is not None and policy.flash_chunk and causal:
+    if (policy is not None and policy.flash_chunk and causal
+            and kv_len is not None):
         from repro_torch.kernels import ops as _kops
-        off = q_offset.to(torch.int32).contiguous()
-        lens = kv_len.to(torch.int32).contiguous()
+        off = _per_slot(q_offset, b, q.device)
+        lens = _per_slot(kv_len, b, q.device)
         return _kops.flash_chunk(q.contiguous(), k.contiguous(),
                                  v.contiguous(), off, lens - off, lens,
                                  scale=float(scale))
-    q_pos = q_offset[:, None].long() + torch.arange(sq, device=q.device)
+    q_pos = _per_slot(q_offset, b, q.device)[:, None] \
+        + torch.arange(sq, device=q.device)
     k_pos = torch.arange(skv, device=q.device)
-    mask = (k_pos[None, None, :] < kv_len[:, None, None].long()) \
-        .expand(b, sq, skv)
+    if kv_len is None:
+        mask = torch.ones(b, sq, skv, dtype=torch.bool, device=q.device)
+    else:
+        lens = _per_slot(kv_len, b, q.device)
+        mask = (k_pos[None, None, :] < lens[:, None, None]) \
+            .expand(b, sq, skv)
     if causal:
         mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
     return _masked_softmax_av(q, k, v, mask, scale)
@@ -152,24 +190,72 @@ def decode_attention(q, k, v, *, kv_len, q_positions,
                      scale: Optional[float] = None,
                      policy: Optional[KernelPolicy] = None):
     """One-step attention: q (b, 1, nq, hd) vs cache k/v (b, S, nkv, hd[v]);
-    ``kv_len`` (b,) masks slots >= length, ``q_positions`` (b, 1) gives the
-    query's absolute position.
+    ``kv_len`` (scalar or (b,)) masks slots >= length, ``q_positions``
+    ((1|b, 1)) gives the query's absolute position.
 
     ``policy.flash_decode`` routes through ``ops.flash_decode`` (the dense
     ``flash_chunk`` kernel at one row), whose length mask assumes the
     decode invariant ``q_position == kv_len - 1`` that the callers keep; a
     slot with ``kv_len == 0`` comes back as an exact-zero row."""
-    skv = k.shape[1]
+    b, skv = q.shape[0], k.shape[1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    lens = _per_slot(kv_len, b, q.device)
     if policy is not None and policy.flash_decode and q.shape[1] == 1:
         from repro_torch.kernels import ops as _kops
         return _kops.flash_decode(
             q[:, 0].contiguous(), k.contiguous(), v.contiguous(),
-            kv_len.to(torch.int32).contiguous(), scale=float(scale))[:, None]
+            lens, scale=float(scale))[:, None]
     k_pos = torch.arange(skv, device=q.device)
-    mask = (k_pos[None, None, :] < kv_len[:, None, None].long()) \
-        & (k_pos[None, None, :] <= q_positions[:, :, None])
+    mask = (k_pos[None, None, :] < lens[:, None, None]) \
+        & (k_pos[None, None, :] <= q_positions.expand(b, -1)[:, :, None])
     return _masked_softmax_av(q, k, v, mask, scale)
+
+
+# ---------------------------------------------------------------------------
+# Dense per-slot cache
+# ---------------------------------------------------------------------------
+
+def write_cache(buf, new, idx, valid_len=None):
+    """Write ``new`` (b, s, ...) into the dense buffer ``buf`` (b, S, ...)
+    IN PLACE at offset ``idx``; returns ``buf``.
+
+    scalar idx  -> one slice for every slot (a uniform batch); the start is
+                   clamped so the slice fits, as ``dynamic_update_slice``
+    (b,) idx    -> per-slot rows ``idx[i] + r``; ``valid_len`` (b,) keeps
+                   only the first ``valid_len[i]`` rows of slot i (the
+                   unified step's ragged tail), and rows past ``S`` are
+                   dropped, so an idle slot never touches its buffer; with
+                   s == 1 and no ``valid_len``, the one-row decode write
+    """
+    b, skv = buf.shape[:2]
+    s = new.shape[1]
+    new = new.to(buf.dtype)
+    if not torch.is_tensor(idx) or idx.dim() == 0:
+        start = min(max(int(idx), 0), skv - s)
+        buf[:, start:start + s] = new
+        return buf
+    if s == 1 and valid_len is None:        # classic decode: one row a slot
+        rows = idx.long()
+        ok = (rows >= 0) & (rows < skv)
+        bi = torch.arange(b, device=buf.device)
+        buf.index_put_((bi[ok], rows[ok]), new[:, 0][ok])
+        return buf
+    r = torch.arange(s, device=buf.device)[None]
+    rows = idx.long()[:, None] + r                               # (b, s)
+    ok = (rows >= 0) & (rows < skv)
+    if valid_len is not None:
+        ok = ok & (r < valid_len.long()[:, None])
+    bi = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    buf.index_put_((bi[ok], rows[ok]), new[ok])
+    return buf
+
+
+def single_device(plan: ShardingPlan, what: str) -> None:
+    """Raise on a mesh for a path that runs on one device only."""
+    if plan.enabled:
+        raise NotImplementedError(
+            f"{what} on a mesh is not ported yet (ROADMAP A12); a mesh "
+            "serves the paged KV cache")
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +327,7 @@ def _attn_out(plan: ShardingPlan, cfg: ModelConfig, out, seq_sharded):
 
 
 # ---------------------------------------------------------------------------
-# GQA attention block (paged unified step)
+# GQA attention block
 # ---------------------------------------------------------------------------
 
 def gqa_spec(cfg: ModelConfig) -> dict:
@@ -257,14 +343,16 @@ def gqa_spec(cfg: ModelConfig) -> dict:
 
 @dataclasses.dataclass
 class KVView:
-    """A paged cache to read and update: k/v are POOLS (P, page, nkv, hd),
-    ``length`` (b,) the per-slot cache offsets, ``block_table``
-    (b, max_blocks) the logical-block -> page map (on a mesh, of every
-    slot: each rank takes its batch rows)."""
+    """A cache to read and update.  With ``block_table`` (b, max_blocks)
+    k/v are paged POOLS (P, page, nkv, hd) and the table maps each slot's
+    logical blocks to pages (on a mesh, of every slot: each rank takes its
+    batch rows); without it they are dense per-slot buffers
+    (b, max_len, nkv, hd).  ``length`` holds the cache offsets: (b,) per
+    slot, or a 0-d tensor for a uniform dense batch."""
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor
-    block_table: torch.Tensor
+    block_table: Optional[torch.Tensor] = None
 
 
 def _proj_heads(xn, w):
@@ -275,53 +363,86 @@ def _proj_heads(xn, w):
 
 
 def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
-                  cache: KVView, q_lens, positions=None,
-                  seq_sharded: bool = False):
-    """The paged unified step.  x (b, s, h); slot i contributes the first
-    q_lens[i] of its s rows at cache offset ``cache.length[i]``.  Returns
-    (out (b, s, h), (k_pool, v_pool)) — the pools are updated in place.
-    On a mesh x is this rank's rows (seq block when ``seq_sharded``) and
-    so is the output; ``positions`` (b, s) are this rank's rows too."""
-    if cache is None or cache.block_table is None or q_lens is None:
+                  cache: Optional[KVView] = None, q_lens=None,
+                  positions=None, seq_sharded: bool = False):
+    """Returns (out (b, s, h), new K/V).  x (b, s, h).  Four modes, as in
+    the reference:
+
+      cache is None             stateless: fresh K/V, causal attention
+                                over the rows (plain body); returns (k, v)
+      cache + q_lens (b,)       unified mixed step: slot i contributes the
+                                first q_lens[i] of its s rows at offset
+                                ``cache.length[i]``; paged or dense
+      dense cache, s > 1        uniform prefill into the buffers
+      dense cache, s == 1       decode, one token a slot
+
+    A cache is updated in place and returned.  On a mesh (paged only) x is
+    this rank's rows (seq block when ``seq_sharded``) and so is the output;
+    ``positions`` (b, s) are this rank's rows too."""
+    paged = cache is not None and cache.block_table is not None
+    if paged and q_lens is None:
         raise NotImplementedError(
-            "the port's attention serves the paged unified step only "
-            "(cache with block tables + q_lens)")
+            "paged KV cache requires the unified mixed step (q_lens)")
+    if not paged:
+        single_device(plan, "GQA attention on a dense cache or none")
     xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
     b, s, h = xn.shape
     q = _proj_heads(xn, p["wq"])
     k = _proj_heads(xn, p["wk"])
     v = _proj_heads(xn, p["wv"])
-    idx, bt, ql = _local_rows(plan, cache.length, cache.block_table, q_lens)
+    if paged:
+        idx, bt, ql = _local_rows(plan, cache.length, cache.block_table,
+                                  q_lens)
+    else:
+        idx = 0 if cache is None else cache.length
     if positions is None:
-        positions = positions_from(idx, s)
+        positions = positions_from(idx, s, x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    kc, vc = _write_pools(plan, (cache.k, cache.v), (k, v), cache.length,
-                          cache.block_table, q_lens)
-    kv_len = idx + ql
     pol = plan.kernels
-    if pol is not None and pol.flash_chunk:
-        from repro_torch.kernels import ops as _kops
-        out = _kops.flash_chunk_paged(q, kc, vc, bt, idx, ql, kv_len,
-                                      scale=float(q.shape[-1] ** -0.5))
+    if cache is None:
+        out = chunked_attention(q, k, v, causal=True)
+        new_kv = (k, v)
+    elif paged:
+        kc, vc = _write_pools(plan, (cache.k, cache.v), (k, v), cache.length,
+                              cache.block_table, q_lens)
+        kv_len = idx + ql
+        if pol is not None and pol.flash_chunk:
+            from repro_torch.kernels import ops as _kops
+            out = _kops.flash_chunk_paged(q, kc, vc, bt, idx, ql, kv_len,
+                                          scale=float(q.shape[-1] ** -0.5))
+        else:
+            kd, vd = gather_pages(kc, bt), gather_pages(vc, bt)
+            if s == 1:
+                out = decode_attention(q, kd, vd, kv_len=kv_len,
+                                       q_positions=positions_from(idx, s),
+                                       policy=pol)
+            else:
+                out = chunked_attention(q, kd, vd, q_offset=idx,
+                                        kv_len=kv_len, causal=True)
+        new_kv = (kc, vc)
     else:
-        kd, vd = gather_pages(kc, bt), gather_pages(vc, bt)
-        if s == 1:
-            out = decode_attention(q, kd, vd, kv_len=kv_len,
-                                   q_positions=positions_from(idx, s),
+        kc = write_cache(cache.k, k, idx, valid_len=q_lens)
+        vc = write_cache(cache.v, v, idx, valid_len=q_lens)
+        kv_len = idx + (s if q_lens is None else q_lens)
+        if s == 1:            # decode-shaped: flash_decode eligible
+            out = decode_attention(q, kc, vc, kv_len=kv_len,
+                                   q_positions=positions_from(idx, s,
+                                                              x.device),
                                    policy=pol)
         else:
-            out = chunked_attention(q, kd, vd, q_offset=idx, kv_len=kv_len,
-                                    causal=True)
+            out = chunked_attention(q, kc, vc, q_offset=idx, kv_len=kv_len,
+                                    causal=True, policy=pol)
+        new_kv = (kc, vc)
     nq, hd = out.shape[2], out.shape[3]
     out = (out.reshape(b * s, nq * hd) @ p["wo"].reshape(nq * hd, h)) \
         .reshape(b, s, h)
-    return _attn_out(plan, cfg, out, seq_sharded), (kc, vc)
+    return _attn_out(plan, cfg, out, seq_sharded), new_kv
 
 
 # ---------------------------------------------------------------------------
-# MLA (Multi-head Latent Attention) — DeepSeek-V2 / MiniCPM3, paged latent
+# MLA (Multi-head Latent Attention) — DeepSeek-V2 / MiniCPM3
 # ---------------------------------------------------------------------------
 
 def mla_spec(cfg: ModelConfig) -> dict:
@@ -357,47 +478,68 @@ def _mla_qkr(p, xn, cfg: ModelConfig, positions):
 
 
 def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
-                  cache, q_lens, block_table, positions=None,
+                  cache=None, q_lens=None, block_table=None, positions=None,
                   absorb: Optional[bool] = None, seq_sharded: bool = False):
-    """MLA attention on the paged unified step.  x (b, s, h); ``cache`` =
-    (c_pool (P, page, r), kr_pool (P, page, rd), length (b,)); slot i
-    contributes the first q_lens[i] of its s rows at offset ``length[i]``.
-    Returns (out (b, s, h), (c_pool, kr_pool)) — the pools are updated in
-    place.
+    """MLA attention.  x (b, s, h); ``cache`` = (c, kr, length): with
+    ``block_table`` the latent pools (P, page, r) / (P, page, rd) and the
+    unified step's per-slot offsets (``q_lens`` required); without it dense
+    per-slot buffers (b, max_len, r) / (b, max_len, rd) at per-slot or
+    uniform offsets (``q_lens`` optional, as in ``gqa_attention``);
+    ``cache=None`` is the stateless path.  Returns (out (b, s, h), the
+    latent pair): a cache is updated in place and returned; stateless, the
+    fresh (c, k_rope).
 
-    The latent pools are gathered into a slot-major view through
+    A paged latent pool is gathered into a slot-major view through
     ``block_table`` (the latent is rank-r compressed, so the gather is
     cheap).  ``absorb=None`` auto-selects the regime, as the reference does:
-      s > 1   expanded — K/V up-projected per head from the whole latent
-              view, standard attention (hd + rd keys, vd values per head)
-      s == 1  absorbed — w_uk folded into q and w_uv into the output, so
-              attention runs in the latent space: one kv head of r + rd
-              key dims and r value dims shared by every query head.
+      expanded (no cache, or s > 1) — K/V up-projected per head from the
+              whole latent view, standard attention (hd + rd keys, vd
+              values per head)
+      absorbed (a cache and s == 1) — w_uk folded into q and w_uv into the
+              output, so attention runs in the latent space: one kv head
+              of r + rd key dims and r value dims shared by every query
+              head.
     Both regimes use scale ``(hd + rd) ** -0.5``.
 
-    On a mesh the down-projections and their norms run whole on every
-    rank and the up-projections on its heads; the latent pools have no
-    head axis and stay whole."""
-    if cache is None or block_table is None or q_lens is None:
+    On a mesh (paged only) the down-projections and their norms run whole
+    on every rank and the up-projections on its heads; the latent pools
+    have no head axis and stay whole."""
+    paged = cache is not None and block_table is not None
+    if paged and q_lens is None:
         raise NotImplementedError(
-            "the port's MLA serves the paged unified step only (latent "
-            "pools with block tables + q_lens)")
+            "paged KV cache requires the unified mixed step (q_lens)")
+    if not paged:
+        single_device(plan, "MLA attention on a dense cache or none")
     xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
     b, s, h = xn.shape
     nh, hd, rd = p["w_uk"].shape[1], cfg.head_dim, cfg.rope_head_dim
     if absorb is None:
-        absorb = s == 1
-    c_pool, kr_pool, length = cache
-    idx, bt, ql = _local_rows(plan, length, block_table, q_lens)
+        absorb = cache is not None and s == 1
+    if paged:
+        c_pool, kr_pool, length = cache
+        idx, bt, ql = _local_rows(plan, length, block_table, q_lens)
+    else:
+        idx = 0 if cache is None else cache[2]
     if positions is None:
-        positions = positions_from(idx, s)
+        positions = positions_from(idx, s, x.device)
     q_nope, q_rope, c, k_rope = _mla_qkr(p, xn, cfg, positions)
-    cc, krc = _write_pools(plan, (c_pool, kr_pool), (c, k_rope), length,
-                           block_table, q_lens)
-    src_c = gather_pages(cc, bt)                   # (b, skv, r)
-    src_kr = gather_pages(krc, bt)                 # (b, skv, rd)
+    if cache is None:
+        src_c, src_kr, kv_len = c, k_rope, None
+        new_cache = (c, k_rope)
+    elif paged:
+        cc, krc = _write_pools(plan, (c_pool, kr_pool), (c, k_rope), length,
+                               block_table, q_lens)
+        src_c = gather_pages(cc, bt)               # (b, skv, r)
+        src_kr = gather_pages(krc, bt)             # (b, skv, rd)
+        kv_len = idx + ql
+        new_cache = (cc, krc)
+    else:
+        cc = write_cache(cache[0], c, idx, valid_len=q_lens)
+        krc = write_cache(cache[1], k_rope, idx, valid_len=q_lens)
+        src_c, src_kr = cc, krc
+        kv_len = idx + (s if q_lens is None else q_lens)
+        new_cache = (cc, krc)
     skv = src_c.shape[1]
-    kv_len = idx + ql
     scale = (hd + rd) ** -0.5
     pol = plan.kernels
     if not absorb:
@@ -405,6 +547,7 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
         k = torch.cat([_proj_heads(src_c, p["w_uk"]),
                        src_kr[:, :, None].expand(b, skv, nh, rd)], dim=-1)
         v = _proj_heads(src_c, p["w_uv"])
+        # kv_len is None on the stateless path: the plain body, no kernel
         out = chunked_attention(q, k, v, q_offset=idx, kv_len=kv_len,
                                 causal=True, scale=scale, policy=pol)
     else:
@@ -413,9 +556,10 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
         # latent "keys" = [c ; k_rope], latent "values" = c (one kv head)
         k_lat = torch.cat([src_c, src_kr], dim=-1)[:, :, None]
         v_lat = src_c[:, :, None]
-        if s == 1:
+        if cache is not None and s == 1:
             o_lat = decode_attention(q_full, k_lat, v_lat, kv_len=kv_len,
-                                     q_positions=positions_from(idx, s),
+                                     q_positions=positions_from(idx, s,
+                                                                x.device),
                                      scale=scale, policy=pol)
         else:
             o_lat = chunked_attention(q_full, k_lat, v_lat, q_offset=idx,
@@ -424,7 +568,7 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
         out = torch.einsum("bsnr,rnd->bsnd", o_lat, p["w_uv"])
     nv = out.shape[2] * out.shape[3]
     out = (out.reshape(b * s, nv) @ p["wo"].reshape(nv, h)).reshape(b, s, h)
-    return _attn_out(plan, cfg, out, seq_sharded), (cc, krc)
+    return _attn_out(plan, cfg, out, seq_sharded), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +601,8 @@ def mlp(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
 
 __all__ = [
     "rms_norm", "activate", "rope_freqs", "apply_rope", "positions_from",
-    "chunked_attention", "decode_attention", "write_cache_paged",
+    "chunked_attention", "decode_attention", "write_cache",
+    "write_cache_paged", "single_device",
     "gather_pages", "KVView", "gqa_spec", "gqa_attention", "mla_spec",
     "mla_attention", "mlp_spec", "mlp", "NEG_INF",
 ]

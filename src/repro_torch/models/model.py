@@ -2,25 +2,33 @@
 
 One ``ModelConfig`` + this module = a runnable model for the families the
 port serves so far, each with GQA or MLA attention:
-  dense   attention + dense MLP          (smollm-360m, minicpm3-4b, ...)
+  dense   attention + dense MLP          (smollm-360m, gemma-2b,
+                                          minitron-8b, minicpm3-4b, ...)
   moe     attention + dropless MoE       (phi3.5-moe-42b, deepseek-v2-236b)
 
 The reference stacks each homogeneous layer group on a leading axis and
-scans it; the port keeps one parameter dict per layer and loops.  The cache
-is the paged pool (``init_paged_cache``): per group, pools with a leading
-``(count, pool_pages, page)`` — K/V ``(..., nkv, hd)`` for GQA, the latent
-``c (..., kv_lora_rank)`` and ``kr (..., rope_head_dim)`` for MLA — plus
-per-slot ``length`` and ``block_tables``.  ``forward`` runs the unified
-mixed prefill/decode step on it and updates the pools and ``length`` IN
-PLACE.
+scans it; the port keeps one parameter dict per layer and loops.  Two
+caches, as in the reference, each per group with a leading ``count`` axis:
+  paged (``init_paged_cache``)  pools ``(count, pool_pages, page, ...)`` —
+          K/V ``(..., nkv, hd)`` for GQA, the latent ``c (..., r)`` and
+          ``kr (..., rope_head_dim)`` for MLA — plus per-slot ``length``
+          and ``block_tables``;
+  dense (``init_cache``)        per-slot buffers ``(count, batch, max_len,
+          ...)`` and a ``length`` (0-d: one offset for the batch; the
+          serving backend makes it per slot).
+``forward`` runs the unified mixed prefill/decode step on either, a
+uniform prefill or decode on the dense cache, or the stateless forward
+(``cache=None``), and updates a cache's buffers and ``length`` IN PLACE.
 
 On a mesh (``plan.enabled``, one process per rank) ``forward`` realises
-the reference's GSPMD layout with explicit collectives: each rank takes
-its batch rows (the plan's batch axes), looks up its vocab block of the
-embedding (summed over the TP axes), runs every layer on its rows, its
-heads and its ``d_ff`` / expert slices, carries the residual stream cut
-along seq when ``plan.seq_sharded``, and gathers the logits of its vocab
-block and batch rows back, so every rank returns the whole logits.
+the reference's GSPMD layout with explicit collectives on the paged cache:
+each rank takes its batch rows (the plan's batch axes), looks up its vocab
+block of the embedding (summed over the TP axes), runs every layer on its
+rows, its heads and its ``d_ff`` / expert slices, carries the residual
+stream cut along seq when ``plan.seq_sharded``, and gathers the logits of
+its vocab block and batch rows back, so every rank returns the whole
+logits.  The dense cache and the stateless forward raise there (ROADMAP
+A12).
 """
 
 from __future__ import annotations
@@ -155,6 +163,32 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                        dtype=torch.int32, device=device)}
 
 
+def _cache_for(cfg: ModelConfig, kind: str, count: int, batch: int,
+               max_len: int, dtype, device) -> dict:
+    """One layer group's dense per-slot buffers."""
+    if kind not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet (ROADMAP A10)")
+    if cfg.attention == "mla":
+        tails = {"c": (cfg.kv_lora_rank,), "kr": (cfg.rope_head_dim,)}
+    else:
+        tails = {n: (cfg.n_kv_heads, cfg.head_dim) for n in ("k", "v")}
+    return {n: torch.zeros((count, batch, max_len) + tail, dtype=dtype,
+                           device=device) for n, tail in tails.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """Dense KV cache: per group ``k``/``v`` ``(count, batch, max_len, nkv,
+    hd)`` for GQA (MLA: ``c`` / ``kr``), and a 0-d int32 ``length`` — one
+    offset for the whole batch (``serving.kv_cache.make_batched_cache``
+    makes it a per-slot vector)."""
+    _check_supported(cfg)
+    return {"groups": [_cache_for(cfg, g.kind, g.count, batch, max_len,
+                                  dtype, device) for g in layer_plan(cfg)],
+            "length": torch.zeros((), dtype=torch.int32, device=device)}
+
+
 # ---------------------------------------------------------------------------
 # Sub-layer application
 # ---------------------------------------------------------------------------
@@ -163,18 +197,20 @@ def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
                    plan: ShardingPlan, positions, length, q_lens,
                    block_tables, with_stats: bool = False,
                    seq_sharded: bool = False):
-    """One residual layer of the unified step.  ``c`` holds this layer's
-    pools (K/V, or MLA's latent c/kr).  Returns (x, aux, counts): ``counts``
-    is the per-expert routed-slot vector (zeros for dense layers) when
+    """One residual layer.  ``c`` holds this layer's cache buffers (K/V,
+    or MLA's latent c/kr; pools when ``block_tables`` is given), or None
+    on the stateless path.  Returns (x, aux, counts): ``counts`` is the
+    per-expert routed-slot vector (zeros for dense layers) when
     ``with_stats``, else None."""
     if cfg.attention == "mla":
-        a_out, _ = L.mla_attention(p["attn"], x, cfg, plan,
-                                   cache=(c["c"], c["kr"], length),
-                                   q_lens=q_lens, block_table=block_tables,
-                                   positions=positions,
-                                   seq_sharded=seq_sharded)
+        a_out, _ = L.mla_attention(
+            p["attn"], x, cfg, plan,
+            cache=None if c is None else (c["c"], c["kr"], length),
+            q_lens=q_lens, block_table=block_tables, positions=positions,
+            seq_sharded=seq_sharded)
     else:
-        kv = L.KVView(c["k"], c["v"], length, block_tables)
+        kv = None if c is None else L.KVView(c["k"], c["v"], length,
+                                             block_tables)
         a_out, _ = L.gqa_attention(p["attn"], x, cfg, plan, cache=kv,
                                    q_lens=q_lens, positions=positions,
                                    seq_sharded=seq_sharded)
@@ -259,45 +295,65 @@ class Output:
 
 
 def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
-            tokens, cache, q_lens, last_only: bool = False,
+            tokens, cache=None, q_lens=None, last_only: bool = False,
             expert_stats: bool = False) -> Output:
-    """The unified mixed prefill/decode step on a paged cache.
+    """The forward pass, in the reference's modes.
 
-    tokens  (b, s) int    — slot i's valid rows are tokens[i, :q_lens[i]]
-                            (a prefill chunk, one decode token, or 0 = idle)
-                            at its cache offset ``cache["length"][i]``; rows
-                            past q_lens[i] are inert padding whose cache
-                            writes are dropped (they still flow through the
-                            MoE, which keeps routing count-independent)
-    cache                 — from ``init_paged_cache``; its pools and
-                            ``length`` (advanced by q_lens) are updated IN
-                            PLACE and the same dict is returned
-    q_lens  (b,) int32
-    last_only             apply the LM head only to each slot's last valid
-                          row (q_lens[i] - 1), returning (b, 1, v) logits
+    tokens  (b, s) int
+    cache                 — None: the stateless forward (every row sees the
+                            rows before it; returns no cache);
+                            ``init_paged_cache``: the unified step (q_lens
+                            required);
+                            ``init_cache`` / ``make_batched_cache``: the
+                            dense per-slot buffers, a uniform prefill or
+                            decode at ``length``, or with q_lens the
+                            unified step.
+                            Its buffers and ``length`` (advanced by q_lens
+                            per slot, else by s) are updated IN PLACE and
+                            the same dict is returned
+    q_lens  (b,) int32    — the unified mixed step: slot i's valid rows are
+                            tokens[i, :q_lens[i]] (a prefill chunk, one
+                            decode token, or 0 = idle) at its cache offset
+                            ``cache["length"][i]``; rows past q_lens[i] are
+                            inert padding whose cache writes are dropped
+                            (they still flow through the MoE, which keeps
+                            routing count-independent)
+    last_only             with q_lens: apply the LM head only to each
+                          slot's last valid row (q_lens[i] - 1), returning
+                          (b, 1, v) logits
     expert_stats          sum per-expert routed-slot counts over the MoE
                           layers into ``Output.expert_counts``
     """
-    if cache is None or q_lens is None or cache.get("block_tables") is None:
-        raise NotImplementedError(
-            "the port's forward runs the paged unified step only "
-            "(a paged cache and q_lens)")
-    length, block_tables = cache["length"], cache["block_tables"]
-    tokens, len_loc, q_loc = (plan.shard(t, ("batch",))
-                              for t in (tokens, length, q_lens))
+    if q_lens is not None and cache is None:
+        raise ValueError("q_lens (unified mixed step) requires a cache")
+    if last_only and q_lens is None:
+        raise ValueError("last_only requires q_lens (the unified mixed step)")
+    length = None if cache is None else cache["length"]
+    block_tables = None if cache is None else cache.get("block_tables")
+    if block_tables is not None and q_lens is None:
+        raise ValueError("a paged cache (block_tables) requires the unified "
+                         "mixed step (q_lens)")
+    if block_tables is None:
+        L.single_device(plan, "the forward on a dense cache or none")
+        len_loc, q_loc = length, q_lens
+    else:
+        tokens, len_loc, q_loc = (plan.shard(t, ("batch",))
+                                  for t in (tokens, length, q_lens))
     b, s = tokens.shape
     seq_sharded = plan.seq_sharded(s)
     x = plan.cut_seq(embed_tokens(params["embed"], tokens, cfg, plan),
                      seq_sharded)
-    positions = L.positions_from(len_loc, s)
+    positions = L.positions_from(0 if cache is None else len_loc, s,
+                                 x.device)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     counts_total = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
                                device=x.device) if expert_stats else None
     for gi, g in enumerate(layer_plan(cfg)):
-        pools = cache["groups"][gi]
+        bufs = None if cache is None else cache["groups"][gi]
         for li, p_l in enumerate(params["groups"][gi]):
-            c_l = {n: pool[li] for n, pool in pools.items()}
+            c_l = None if bufs is None else {n: t[li]
+                                             for n, t in bufs.items()}
             x, a, cnt = apply_sublayer(
                 g.kind, p_l, x, c_l, cfg=cfg, plan=plan, positions=positions,
                 length=length, q_lens=q_lens, block_tables=block_tables,
@@ -313,11 +369,12 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = lm_head(x, head, cfg, plan)
-    length.add_(q_lens)
+    if cache is not None:
+        length.add_(s if q_lens is None else q_lens)
     return Output(logits=logits, cache=cache, aux=aux_total,
                   expert_counts=counts_total)
 
 
 __all__ = ["Group", "layer_plan", "model_spec", "sublayer_spec",
-           "init_params", "count_params", "init_paged_cache",
+           "init_params", "count_params", "init_cache", "init_paged_cache",
            "apply_sublayer", "embed_tokens", "lm_head", "forward", "Output"]

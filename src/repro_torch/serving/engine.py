@@ -1,4 +1,4 @@
-"""Serving engine: token-budget continuous batching over a paged KV cache.
+"""Serving engine: token-budget continuous batching over a KV cache.
 
 Every iteration runs ONE unified mixed prefill/decode step:
 
@@ -16,6 +16,12 @@ Robustness: every ``Request`` carries a lifecycle ``state``; ``release`` /
 sampled-logits rows quarantines exactly the offending slot (state FAILED);
 a ``FaultInjector`` (``ServeSpec.faults``) injects latency spikes, NaN
 rows, admit failures and clock skew deterministically.
+
+The KV cache is the backend ``spec.kv`` resolves to (``serving.kv_cache``):
+the paged pool, whose host allocator owns the block tables and may grant a
+slot fewer tokens than asked (then the deadlock breaker in ``step``
+preempts a victim), or the dense per-slot buffers, which grant every
+request, keep no host tables and never preempt; both run the same step.
 
 The engine runs on one device (``device=``, default CUDA).  On a mesh
 (``spec.plan.enabled``) every rank runs its own engine on the same requests:
@@ -373,7 +379,8 @@ class Engine:
         q = self.plan_q_lens(token_budget)
         preempted = []
         # paged-pool deadlock breaker: live slots exist but the pool could
-        # not extend ANY of them — free a victim's pages and replan
+        # not extend ANY of them — free a victim's pages and replan.  Never
+        # fires on dense (reserve always grants)
         while (not q.any()
                and any(r is not None and not r.terminal and not r.done
                        for r in self.slots)

@@ -1,9 +1,16 @@
 """KVCache — ONE allocation surface over the engine's device KV state.
 
 The device tensors are defined by ``repro_torch.models.model``
-(``init_paged_cache``: pools + block tables + lengths).  This module is the
-*host-side owner* of that state: the ``KVCache`` interface (begin / reserve
-/ advance / free / evict / flush + occupancy stats) and its paged backend:
+(``init_cache`` for the dense per-slot layout, ``init_paged_cache`` for the
+pools + block tables + lengths).  This module is the *host-side owner* of
+that state: the ``KVCache`` interface (begin / reserve / advance / free /
+evict / flush + occupancy stats) with two backends behind one surface:
+
+``DenseKVCache``
+    the per-slot ``(B, max_len, ...)`` buffers.  Allocation is trivial (a
+    slot always owns its max_len rows): ``reserve`` grants everything,
+    begin/free zero the slot's length, the device ``length`` is
+    authoritative, and there is no prefix index.
 
 ``PagedKVCache``
     fixed ``page_size``-token KV pages in a global ``pool_pages`` pool,
@@ -18,10 +25,12 @@ The device tensors are defined by ``repro_torch.models.model``
     the engine preempts a slot (cache-preserving: its prompt pages stay in
     the index, so the resume re-matches them).
 
-The device state is updated in place: ``begin``/``free`` write the slot's
-``length`` entry, ``flush`` copies the host block tables to the device only
-when they changed.  The dense per-slot backend is not ported yet (ROADMAP
-A5): ``kv="dense"`` raises.
+Which backend a spec gets is the ``ServeSpec.kv`` knob.  The device state
+is updated in place: ``begin``/``free`` write the slot's ``length`` entry,
+the paged ``flush`` copies the host block tables to the device only when
+they changed.  A mesh serves the paged backend only: ``kv="dense"`` raises
+there (ROADMAP A12).  ``rollback`` (speculative decoding, ROADMAP A7) and
+the legacy path's ``insert_slot`` (ROADMAP A10) are not ported.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan
 from repro_torch.core.resolve import KVConfig
-from repro_torch.models.model import init_paged_cache
+from repro_torch.models.model import init_cache, init_paged_cache
 
 
 @dataclasses.dataclass
@@ -94,6 +103,38 @@ class KVCache:
         """Concrete device bytes of the KV buffers."""
         return int(sum(t.numel() * t.element_size()
                        for g in self.cache["groups"] for t in g.values()))
+
+
+class DenseKVCache(KVCache):
+    """Per-slot dense buffers: allocation is the slot itself."""
+
+    backend = "dense"
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_len: int,
+                 dtype=torch.bfloat16, device="cuda"):
+        self.batch, self.max_len = batch, max_len
+        self.cache = make_batched_cache(cfg, batch, max_len, dtype, device)
+        self.stats = KVStats()
+
+    def begin(self, slot: int, tokens) -> int:
+        self.cache["length"][slot] = 0
+        return 0
+
+    def reserve(self, slot: int, n: int) -> int:
+        return n                      # a slot always owns its max_len rows
+
+    def advance(self, q_lens) -> None:
+        pass                          # the device length is authoritative
+
+    def free(self, slot: int, keep_prefix: bool = True) -> None:
+        self.cache["length"][slot] = 0
+
+    def flush(self) -> None:
+        pass
+
+    def occupancy(self) -> float:
+        lens = self.cache["length"].cpu().numpy()
+        return float(lens.sum()) / float(self.batch * self.max_len)
 
 
 class _Node:
@@ -273,9 +314,11 @@ def make_kv_cache(cfg: ModelConfig, kv: Optional[KVConfig], batch: int,
     """Construct the backend a resolved ``ServeSpec.kv`` asks for; on a
     mesh ``plan`` cuts the pools to this rank's heads."""
     if kv is None or kv.backend == "dense":
-        raise NotImplementedError(
-            "kv='dense' (the per-slot dense backend) is not ported yet "
-            "(ROADMAP A5) — use kv='paged' or kv='auto'")
+        if plan.enabled:
+            raise NotImplementedError(
+                "kv='dense' on a mesh is not ported yet (ROADMAP A12) — use "
+                "kv='paged' or kv='auto'")
+        return DenseKVCache(cfg, batch, max_len, dtype, device)
     ps = kv.page_size           # resolver-matching fallback: halve until
     while ps > 1 and max_len % ps:     # the page divides max_len
         ps //= 2
@@ -285,4 +328,23 @@ def make_kv_cache(cfg: ModelConfig, kv: Optional[KVConfig], batch: int,
                         dtype=dtype, device=device, plan=plan)
 
 
-__all__ = ["KVCache", "KVStats", "PagedKVCache", "make_kv_cache"]
+def batched_lengths(cache) -> torch.Tensor:
+    return cache["length"]
+
+
+def with_lengths(cache, lengths):
+    return {**cache, "length": lengths}
+
+
+def make_batched_cache(cfg: ModelConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16, device="cuda"):
+    """A dense batch cache whose ``length`` is a per-slot vector (all
+    zero)."""
+    c = init_cache(cfg, batch, max_len, dtype, device)
+    return with_lengths(c, torch.zeros(batch, dtype=torch.int32,
+                                       device=device))
+
+
+__all__ = ["KVCache", "KVStats", "DenseKVCache", "PagedKVCache",
+           "make_kv_cache", "init_cache", "init_paged_cache",
+           "batched_lengths", "with_lengths", "make_batched_cache"]

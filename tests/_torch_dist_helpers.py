@@ -39,6 +39,10 @@ NEW_TOKENS = 4
 # with a dense and an MoE layer, and smollm, whose 15/5 heads do not split
 # over TP 2 (replicated attention beside a TP dense MLP, tied embedding)
 FWD_ARCHS = ("phi3.5-moe-42b", "deepseek-v2-236b", "smollm-360m")
+# the dense GQA models, in one layout: gemma's MQA (one KV head, which
+# does not split over TP: its attention whole on every rank, as smollm's)
+# and minitron's 8/2 heads (split)
+FWD_DENSE_ARCHS = ("gemma-2b", "minitron-8b")
 FWD_LAYOUTS = (("mixserve", "fused"), ("dp_ep", "auto"), ("pure_tp", "auto"))
 SPS = ("sp", "nosp")
 FWD_B, FWD_PAGE, FWD_MAX_LEN = 4, 4, 16
@@ -86,7 +90,8 @@ def stream_cases():
 
 def fwd_cases():
     return [(a, m, lay, algo, sp) for a in FWD_ARCHS for m in MESHES
-            for lay, algo in FWD_LAYOUTS for sp in SPS]
+            for lay, algo in FWD_LAYOUTS for sp in SPS] + [
+        (a, (2, 2), "mixserve", "fused", "sp") for a in FWD_DENSE_ARCHS]
 
 
 def tree_cases():

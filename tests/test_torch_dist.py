@@ -27,7 +27,10 @@ and the parametrised tests below assert one case each:
   and, with ``sp``, the residual stream's seq cut over TP; the batch over
   the batch axes) under mixserve fused, dp_ep and pure_tp with ``sp`` on
   and off, for phi3.5-moe, deepseek-v2 (MLA, a dense and an MoE layer)
-  and smollm (heads that do not split: replicated attention), equals the
+  and smollm (heads that do not split: replicated attention), and under
+  mixserve fused on the 2x2 mesh with ``sp`` for gemma (MQA: its one KV
+  head does not split, so its attention stays whole) and minitron (GELU
+  MLP without a gate, heads split), equals the
   reference's single-device ``forward`` within rtol 1e-4 plus 1e-4 of the
   largest logit (the bound of tests/test_torch_model.py), with each
   rank's pool the reference pool's slice of its heads and equal across
@@ -117,7 +120,7 @@ def dist(tmp_path_factory):
     work = tmp_path_factory.mktemp("dist")
     inputs, ref_moe, ref_streams, ref_hits = {"fwd": {}}, {}, {}, {}
     ref_fwd = {}
-    for arch in H.FWD_ARCHS:
+    for arch in H.FWD_ARCHS + H.FWD_DENSE_ARCHS:
         rcfg, rp, _, _ = both_params(arch)
         inputs[arch] = {"params": jax.tree.map(np.asarray, rp)}
         nb = H.FWD_MAX_LEN // H.FWD_PAGE

@@ -340,13 +340,15 @@ def test_wrapper_refuses_mixed_devices(dev):
         ops.grouped_gemm(x, w, torch.tensor([0, 3, 8], dtype=torch.int32))
 
 
-# (name, B, sq, nq, nkv, hd, hdv): GQA, MLA expanded (g = 1, hd != hdv) and
-# MLA absorbed (nkv = 1, g = 128 split across CTAs, hd 576 / hdv 512)
+# (name, B, sq, nq, nkv, hd, hdv): GQA, MLA expanded (g = 1, hd != hdv),
+# MLA absorbed (nkv = 1, g = 128 split across CTAs, hd 576 / hdv 512) and
+# gemma-2b's MQA (nkv = 1, g = 8, hd 256: the 128-row tile at its widest)
 ATTN_CASES = [("gqa", 4, 8, 12, 4, 64, 64),
               ("mha_64", 4, 8, 4, 4, 64, 64),
               ("gqa_128", 4, 8, 32, 8, 128, 128),
               ("mla_expanded", 4, 8, 4, 4, 192, 128),
-              ("mla_absorbed", 4, 3, 128, 1, 576, 512)]
+              ("mla_absorbed", 4, 3, 128, 1, 576, 512),
+              ("mqa_hd256", 4, 8, 8, 1, 256, 256)]
 
 
 def _dense_case(dev, dt, b, sq, nq, nkv, hd, hdv, skv=40):
@@ -464,6 +466,93 @@ def test_flash_decode_on_card(dev, dtype):
                                rtol=rtol)
     assert (got[1] == 0).all()
     assert ops.counters["flash_decode"] == ops.counters["flash_chunk"] == 1
+
+
+# the dense models' serve steps: (name, nq, nkv, hd) at 4 slots, chunk 64
+SERVED_ATTN = [("gemma_2b", 8, 1, 256), ("minitron_8b", 32, 8, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SERVED_ATTN, ids=[c[0] for c in SERVED_ATTN])
+def test_attention_at_the_dense_models_served_step(dev, dtype, case):
+    """flash_chunk and flash_chunk_paged at a gemma-2b / minitron-8b step:
+    a prefill chunk ending at key 1024, a decode at key 1001, a prompt's
+    first 37 rows, an idle slot, over a 1088-key cache (the serve's
+    max_len); against the plain version, rows past q_len exact zeros,
+    paged == dense bitwise (one device body)."""
+    _, nq, nkv, hd = case
+    dt = getattr(torch, dtype)
+    b, sq, skv = 4, 64, 1088
+    g = torch.Generator(device="cpu").manual_seed(6)
+    q = torch.randn(b, sq, nq, hd, generator=g).to(dev, dt)
+    k = torch.randn(b, skv, nkv, hd, generator=g).to(dev, dt)
+    v = torch.randn(b, skv, nkv, hd, generator=g).to(dev, dt)
+    i32 = dict(dtype=torch.int32, device=dev)
+    q_off = torch.tensor([1024 - sq, 1000, 0, 0], **i32)
+    q_len = torch.tensor([sq, 1, 37, 0], **i32)
+    kv_len = q_off + q_len
+    args = (q, k, v, q_off, q_len, kv_len)
+    ops.reset_counters()
+    got = ops.flash_chunk(*args)
+    want = ref.flash_chunk_ref(*args)
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    for i, n in enumerate(q_len.tolist()):
+        assert (got[i, n:] == 0).all()
+    kp, vp, bt = _to_pages(k, v, 16)
+    paged = ops.flash_chunk_paged(q, kp, vp, bt, q_off, q_len, kv_len)
+    assert torch.equal(got, paged)
+    assert ops.counters == {"flash_chunk": 1, "flash_chunk_paged": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_at_gemma_geometry_on_card(dev, dtype):
+    """gemma-2b's chunk-1 step: 8 query heads over one KV head at hd 256
+    (a 128-row tile holding 16 positions x 8 heads, one position real),
+    lengths 1024 / 1 / 517 / 0 over a 1088-key cache."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q = torch.randn(4, 8, 256, generator=g).to(dev, dt)
+    k = torch.randn(4, 1088, 1, 256, generator=g).to(dev, dt)
+    v = torch.randn(4, 1088, 1, 256, generator=g).to(dev, dt)
+    lens = torch.tensor([1024, 1, 517, 0], dtype=torch.int32, device=dev)
+    got = ops.flash_decode(q, k, v, lens)
+    want = ref.flash_decode_ref(q, k, v, lens)
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("chunk", [8, 1])
+@pytest.mark.parametrize("arch", ["gemma-2b", "minitron-8b"])
+def test_dense_backend_serve_streams_equal_paged_on_card(dev, arch, chunk):
+    """A reduced serve with kernels on: kv="dense" (flash_chunk, or
+    flash_decode at chunk 1) gives the paged serve's (flash_chunk_paged,
+    prefix cache off) greedy streams, f32."""
+    import numpy as np
+
+    from repro_torch.core.resolve import KVConfig
+    from repro_torch.serving.api import LLM, ServeSpec
+    kw = dict(arch=arch, kernels="on", max_batch=2, max_len=64, chunk=chunk)
+    rng = np.random.default_rng(0)
+    streams, launches = {}, {}
+    params = None
+    for kv in ("dense", KVConfig(backend="paged", prefix_cache=False)):
+        llm = LLM.from_spec(ServeSpec(kv=kv, **kw), params=params,
+                            device=dev)
+        params = llm.params
+        prompts = [rng.integers(0, llm.cfg.vocab_size, n).astype(np.int32)
+                   for n in (19, 7, 33)] if not streams else prompts
+        ops.reset_counters()
+        name = getattr(kv, "backend", kv)
+        streams[name] = llm.generate(prompts, 6)
+        launches[name] = dict(ops.counters)
+    assert streams["dense"] == streams["paged"]
+    assert set(launches["paged"]) == {"flash_chunk_paged"}
+    assert set(launches["dense"]) == ({"flash_chunk", "flash_decode"}
+                                      if chunk == 1 else {"flash_chunk"})
 
 
 # (tokens, k): the served k (2 phi3.5, 6 deepseek), 1 and 8 (the

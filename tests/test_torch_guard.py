@@ -60,11 +60,31 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 
 def test_unported_options_raise():
+    """Each option the port does not serve yet raises, naming its ROADMAP
+    item: the dense KV backend and the stateless forward on a mesh (A12;
+    on one device both run), speculation (A7), the legacy families
+    (A10)."""
+    import repro_torch.configs as TC
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.core.resolve import KVConfig
     from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as MOD
     from repro_torch.serving.api import LLM, ServeSpec
-    with pytest.raises(NotImplementedError, match="A5"):
-        LLM.from_spec(ServeSpec(arch="smollm-360m", kv="dense", max_batch=1,
-                                max_len=64, chunk=8), device="cpu")
+    from repro_torch.serving.kv_cache import make_kv_cache
+    cfg = TC.get_reduced("smollm-360m")
+    plan = make_plan("mixserve", Mesh(("data", "model"), (2, 2), 0))
+    with pytest.raises(NotImplementedError, match="A12"):
+        make_kv_cache(cfg, KVConfig(backend="dense"), 4, 64, torch.float32,
+                      "cpu", plan=plan)
+    params = MOD.init_params(torch.Generator().manual_seed(0), cfg,
+                             torch.float32, "cpu", plan=plan)
+    tokens = torch.zeros(4, 8, dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="A12"):
+        MOD.forward(params, cfg, plan, tokens=tokens)
+    with pytest.raises(NotImplementedError, match="A12"):
+        MOD.forward(params, cfg, plan, tokens=tokens, cache=MOD.init_cache(
+            cfg, 4, 16, torch.float32, "cpu"))
     with pytest.raises(NotImplementedError, match="A7"):
         LLM.from_spec(ServeSpec(arch="smollm-360m", speculation=2,
                                 max_batch=1, max_len=64, chunk=8),

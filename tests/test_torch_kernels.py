@@ -24,12 +24,12 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 RTOL = ATOL = 1e-5
 
 
-def _flash_case(seed=0):
+def _flash_case(seed=0, nq=4, nkv=2, hd=16):
     """A mixed step with every contract: slot 0 prefills mid-prompt, slot 1
     decodes, slot 2 is idle (q_len 0), slot 3 has live rows but kv_len 0;
     block tables end in -1."""
     rng = np.random.default_rng(seed)
-    b, sq, nq, nkv, hd, page, nb = 4, 8, 4, 2, 16, 4, 5
+    b, sq, page, nb = 4, 8, 4, 5
     q_off = np.array([6, 13, 0, 0], np.int32)
     q_len = np.array([8, 1, 0, 3], np.int32)
     kv_len = np.array([14, 14, 0, 0], np.int32)
@@ -53,6 +53,20 @@ def test_flash_chunk_paged_plain_matches_reference():
         assert (got[i, q_len[i]:] == 0).all()      # rows past q_len
     assert (got[3] == 0).all()                     # kv_len == 0
     assert (args[3] == -1).any()
+
+
+def test_flash_chunk_paged_plain_matches_reference_mqa_hd256():
+    """gemma-2b's attention geometry: 8 query heads over one KV head
+    (g = 8) at head_dim 256, against the reference's oracle and its
+    interpret-mode kernel."""
+    args = _flash_case(3, nq=8, nkv=1, hd=256)
+    got = ref.flash_chunk_paged_ref(*map(tt, args)).numpy()
+    want_ref = np.asarray(rref.flash_chunk_paged_ref(*map(jj, args)))
+    want_ker = np.asarray(rops.flash_chunk_paged(*map(jj, args)))
+    np.testing.assert_allclose(got, want_ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, want_ker, rtol=RTOL, atol=ATOL)
+    assert (got[2] == 0).all() and (got[3] == 0).all()
+    assert (got[1, 1:] == 0).all()
 
 
 def test_flash_chunk_paged_wrapper_cpu_is_plain_and_uncounted():
@@ -159,10 +173,12 @@ def _dense_case(b, sq, nq, nkv, hd, hdv, skv=20, seed=0):
 
 
 # (B, sq, nq, nkv, hd, hdv): GQA (g = 3); MLA absorbed-like (nkv = 1,
-# hd != hdv); MLA expanded-like (g = 1, hd != hdv)
+# hd != hdv); MLA expanded-like (g = 1, hd != hdv); gemma-2b's MQA (8 / 1
+# heads at head_dim 256)
 DENSE_CASES = {"gqa": (4, 6, 6, 2, 16, 16),
                "absorbed": (4, 3, 8, 1, 24, 16),
-               "expanded": (4, 6, 4, 4, 24, 16)}
+               "expanded": (4, 6, 4, 4, 24, 16),
+               "mqa_hd256": (4, 6, 8, 1, 256, 256)}
 
 
 @pytest.mark.parametrize("case", sorted(DENSE_CASES))
@@ -180,7 +196,7 @@ def test_flash_chunk_plain_matches_reference(case):
     assert (got[3] == 0).all()                     # kv_len == 0
 
 
-@pytest.mark.parametrize("case", ["gqa", "absorbed"])
+@pytest.mark.parametrize("case", ["gqa", "absorbed", "mqa_hd256"])
 def test_flash_decode_plain_matches_reference(case):
     """The decode wrapper's contract on lengths (a 0 gives an exact-zero
     row, as the reference's kernel does; its jnp oracle has no such row)."""
@@ -423,6 +439,9 @@ FLASH_PLANS = [
     ("gqa_small", (4, 8, 12, 4, 64, 64), (128, 16)),
     ("long_decode", (1, 1, 8, 2, 128, 128), (128, 16)),
     ("hd_768", (2, 3, 16, 1, 768, 512), (64, 16)),
+    ("gemma_step", (4, 64, 8, 1, 256, 256), (128, 9)),
+    ("gemma_decode", (4, 1, 8, 1, 256, 256), (128, 16)),
+    ("minitron_step", (4, 64, 32, 8, 128, 128), (128, 5)),
 ]
 
 

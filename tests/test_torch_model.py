@@ -32,7 +32,8 @@ from repro_torch.models import model as TMOD  # noqa: E402
 STEPS = ([8, 5, 0], [1, 1, 0], [1, 7, 3])   # prefill, decode, mixed
 
 
-@pytest.fixture(scope="module", params=["phi3.5-moe-42b", "smollm-360m"])
+@pytest.fixture(scope="module", params=["phi3.5-moe-42b", "smollm-360m",
+                                        "gemma-2b", "minitron-8b"])
 def arch(request):
     return (request.param,) + both_params(request.param)
 

@@ -19,12 +19,17 @@ from repro.core import topology as RT  # noqa: E402
 from repro.serving import engine as RE  # noqa: E402
 from repro.serving.api import LLM as RLLM  # noqa: E402
 from repro.serving.api import ServeSpec as RSpec  # noqa: E402
+import repro_torch.configs as TC  # noqa: E402
+import repro_torch.configs.paper_models  # noqa: E402,F401
+from repro.configs.paper_models import PAPER_MODELS as R_PAPER  # noqa: E402
 from repro_torch.core import topology as TT  # noqa: E402
 from repro_torch.serving import engine as TE  # noqa: E402
 from repro_torch.serving.api import LLM as TLLM  # noqa: E402
 from repro_torch.serving.api import ServeSpec as TSpec  # noqa: E402
 
-ARCHS = ["phi3.5-moe-42b", "smollm-360m"]
+ARCHS = ["phi3.5-moe-42b", "smollm-360m", "gemma-2b", "minitron-8b"]
+# every registered arch and the paper's two models, for the resolver
+RESOLVE_ARCHS = list(TC.ARCH_IDS) + sorted(TC.paper_models.PAPER_MODELS)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -118,18 +123,38 @@ def _knobs(res):
                 "moe_tp", "prompt_len", "max_new_tokens"))}
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", RESOLVE_ARCHS)
 @pytest.mark.parametrize("cluster", ["h20x16", "h100x1"])
 def test_resolve_equals_reference_on_every_knob(name, cluster, monkeypatch):
+    """Every registered arch (the families the port does not serve yet
+    resolve all the same) and the paper's models, passed as configs;
+    kv="dense" and kv="paged" resolve as the reference does, and "auto"
+    stays paged for the unified families."""
     from repro.kernels import autotune
     monkeypatch.setattr(autotune, "_CACHE", {})          # analytic defaults
     monkeypatch.setattr(autotune, "_persist_loaded", True)
     t_cl = TT.CLUSTERS[cluster]
     r_cl = RT.CLUSTERS.get(cluster) or RT.ClusterSpec(
         **dataclasses.asdict(t_cl))
+    paper = name in R_PAPER
+    r_cfg = R_PAPER[name] if paper else None
+    t_cfg = TC.paper_models.PAPER_MODELS[name] if paper else None
     for kw in (dict(), dict(prompt_len=1024, max_new_tokens=32,
-                            arrival_rate=4.0), dict(max_batch=4, chunk=16)):
-        r = RSpec(arch=name, **kw).resolve(cluster=r_cl)
-        t = TSpec(arch=name, **kw).resolve(cluster=t_cl, device="cpu")
+                            arrival_rate=4.0), dict(max_batch=4, chunk=16),
+               dict(kv="dense"), dict(kv="paged", max_batch=4)):
+        if kw.get("kv") == "paged" and not TE.unified_supported(
+                t_cfg or TC.get(name)):
+            for spec, cl in ((RSpec(arch=name, **kw), r_cl),
+                             (TSpec(arch=name, **kw), t_cl)):
+                with pytest.raises(ValueError, match="unified step"):
+                    spec.resolve(cluster=cl)
+            continue
+        r = RSpec(arch=None if paper else name, **kw).resolve(
+            r_cfg, cluster=r_cl)
+        t = TSpec(arch=None if paper else name, **kw).resolve(
+            t_cfg, cluster=t_cl, device="cpu")
         assert _knobs(t) == _knobs(r)
         assert t.kernels.describe() == r.kernels.describe() == "off"
+        if "kv" not in kw:
+            assert t.kv.backend == ("paged" if TE.unified_supported(
+                t_cfg or TC.get(name)) else "dense")
