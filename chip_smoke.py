@@ -72,6 +72,25 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              a torch.profiler window on each long serve's engine for the
              device-time breakdown (phi3.5 dropless and capacity, deepseek
              dropless, gemma and minitron paged)
+  4b spec    speculative decoding (ServeSpec(speculation=...), k 4):
+             (a) f32, 2 layers, full width: phi3.5 paged and dense,
+                 deepseek-v2 paged, gemma-2b dense; the self draft with
+                 kernels on and off and the plain serve with kernels on:
+                 streams equal, launches exact;
+             (b) bf16, full width, 8 prompts of 32-64 tokens, 64 new
+                 each, the plain serve and then each draft on the same
+                 weights: phi3.5 8 layers paged (self, ngram, a reduced
+                 smollm-360m with random weights), deepseek-v2 4 layers
+                 paged (self), gemma-2b whole on kv="dense" (self, ngram);
+                 steps, ms/step, tok/s, TTFT, ITL, acceptance, tokens a
+                 verify step, draft forwards and the share of wall time
+                 spent drafting; launches exact per verify step and per
+                 draft forward; which streams differ from the plain
+                 serve's, and the top-2 logit margin at the first
+                 differing token (printed, not held: bf16)
+             (phase 2 checks its two geometries: flash_chunk_paged with
+             four 5-row verify blocks in the chunk-64 step, flash_chunk
+             at the draft's (4, 16) step on its (4, 128) cache)
   5 dist     MixServe's layout on 4 ranks, a 2x2 (data, model) mesh:
              attention on each rank's heads and batch rows, the vocab-
              sharded embedding and LM head, the TP dense MLP, the
@@ -834,6 +853,81 @@ def check_flash_dense_models(torch, rng, res, gm, mn, gm1, dev):
     free_memory(torch)
 
 
+def check_flash_spec(torch, rng, res, sp, dev):
+    """The two geometries speculative decoding adds (``sp``: the phi3.5
+    speculated serve's shapes, ``spec_shapes``): flash_chunk_paged with
+    four decode slots verifying 1 + SPEC_K rows each inside the chunk-64
+    step, and flash_chunk at the self draft's (max_batch, DRAFT_CHUNK)
+    step on its (max_batch, max_len) dense cache, one proposal row a slot.
+    bf16 and f32 against the plain versions (FLASH_TOL; bf16 also against
+    the f32 plain version), rows past q_len exact zeros; the bf16 records
+    timed beside SDPA with the boolean mask (for the paged step on the
+    same keys gathered into a dense cache: no single call takes block
+    tables) and their bound."""
+    from repro_torch.serving.draft import DRAFT_CHUNK
+    ops, ref = _ops()
+    B, S, page = sp["max_batch"], sp["max_len"], 16
+    nq, nkv, hd = 32, 8, 128
+    rows = 1 + SPEC_K
+    verify = (sp["chunk"], ([35, 64, 97, S - rows] + [0] * B)[:B],
+              ([rows] * 4 + [0] * B)[:B])
+    draft = (DRAFT_CHUNK, ([36, 71, 99, S - 1] + [0] * B)[:B],
+             ([1] * 4 + [0] * B)[:B])
+    for name, (sq, q_off, q_len) in (("flash_chunk_paged", verify),
+                                     ("flash_chunk", draft)):
+        kv_len = [o + n for o, n in zip(q_off, q_len)]
+        for dtype in (torch.bfloat16, torch.float32):
+            d = dname(dtype)
+            if name == "flash_chunk_paged":
+                args = _paged_case(torch, rng, b=B, sq=sq, nq=nq, nkv=nkv,
+                                   hd=hd, page=page, nb=S // page,
+                                   n_pages=sp["pool_pages"], q_off=q_off,
+                                   q_len=q_len, kv_len=kv_len, dtype=dtype,
+                                   dev=dev)
+                fn, plain = ops.flash_chunk_paged, ref.flash_chunk_paged_ref
+                q, kp, vp, bt = args[:4]
+                dense = (q, *(p[bt.clamp_min(0).long()].reshape(
+                    B, S, nkv, hd) for p in (kp, vp)), *args[4:])
+                label = (f"phi3.5 verify step, {B} slots x {rows} rows in "
+                         f"chunk {sq} {d}")
+                extra = 4 * bt.numel()
+            else:
+                args = _dense_case(torch, rng, b=B, sq=sq, nq=nq, nkv=nkv,
+                                   hd=hd, hdv=hd, skv=S, q_off=q_off,
+                                   q_len=q_len, kv_len=kv_len, dtype=dtype,
+                                   dev=dev)
+                fn, plain, dense = ops.flash_chunk, ref.flash_chunk_ref, args
+                label = (f"phi3.5 self draft step ({B}, {sq}) on a ({B}, "
+                         f"{S}) cache {d}")
+                extra = 0
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            ok = within(torch, got, want, *FLASH_TOL[d]) and all(
+                bool((got[i, q_len[i]:] == 0).all()) for i in range(B))
+            rec = {"label": label, "max_err": max_err(torch, got, want),
+                   "tol": list(FLASH_TOL[d]), "ok": ok,
+                   "shape": f"q {tuple(args[0].shape)} k "
+                            f"{tuple(args[1].shape)} q_len {q_len} "
+                            f"kv_len {kv_len}"}
+            if dtype == torch.bfloat16:
+                want32 = plain(*_upcast(args))
+                rec.update(max_err_vs_f32=max_err(torch, got, want32),
+                           tol_vs_f32=list(FLASH_TOL_VS_F32))
+                rec["ok"] = ok and within(torch, got, want32,
+                                          *FLASH_TOL_VS_F32)
+                time_rec(torch, rec, lambda f=fn, a=args: f(*a), 50,
+                         lambda pl=plain, a=args: pl(*a), 5,
+                         _sdpa_call(torch, *dense, hd ** -0.5, want))
+                bts, flops = _attn_work(q_off, q_len, kv_len, nq, nkv, hd,
+                                        hd, 2)
+                rec.update(bytes=bts + got.numel() * 2 + extra, flops=flops,
+                           peak="bf16", primary=False)
+            res.add(name, rec, "disagrees with its plain version at a "
+                               "speculative geometry")
+            del args, got, want, dense
+        free_memory(torch)
+
+
 def check_topk(torch, rng, res, T, E, K, label, dev, primary):
     """The router gate at (T, E) k K, bf16 and f32: row 0 all tied (ids
     0, 1, ...), row 1 a tied top pair (ids 3, 5), row 2 -inf in every
@@ -1444,13 +1538,14 @@ def phase_host(torch, phi, dsh):
                lambda: torch.index_select(xsz, 0, sidx))
 
 
-def phase_kernels(torch, phi, ds, ds1, dsh, dense=None):
+def phase_kernels(torch, phi, ds, ds1, dsh, dense=None, spec=None):
     """phi / ds / ds1: the resolved shapes of the phi3.5 serve, the
     deepseek serve and the deepseek chunk=1 serve, each with the capacity
     ``C`` its capacity-dispatch serve gives; dsh: the distributed serve's
     per-rank shapes; ``dense``: those of the gemma-2b, minitron-8b and
     gemma chunk=1 serves (``resolve_dense_shapes``), or None to skip
-    their attention records."""
+    their attention records; ``spec``: the phi3.5 speculated serve's
+    (``spec_shapes``), or None to skip the speculative geometries."""
     import numpy as np
     from repro_torch.configs.paper_models import PAPER_MODELS
     from repro_torch.core.resolve import AUTO_BATCH_CAP
@@ -1466,6 +1561,8 @@ def phase_kernels(torch, phi, ds, ds1, dsh, dense=None):
     check_flash_split(torch, rng, dev)
     if dense is not None:
         check_flash_dense_models(torch, rng, res, *dense, dev)
+    if spec is not None:
+        check_flash_spec(torch, rng, res, spec, dev)
     t_phi = phi["max_batch"] * phi["chunk"]
     t_ds = ds["max_batch"] * ds["chunk"]
     check_launch_floor(torch, res)
@@ -1748,12 +1845,29 @@ def phase_parity_dense(torch, gen):
     return out
 
 
-def _serve(torch, llm, prompts, new, per_step, card_line, label):
+def expected_launches(per_step, steps, per_draft=None, d_fwd=0):
+    """Launches of ``steps`` unified steps at ``per_step`` each plus
+    ``d_fwd`` draft forwards at ``per_draft`` each (zero counts left
+    out, as the counters leave them)."""
+    want: dict = {}
+    for per, n in ((per_step, steps), (per_draft or {}, d_fwd)):
+        for k, v in per.items():
+            if v * n:
+                want[k] = want.get(k, 0) + v * n
+    return want
+
+
+def _serve(torch, llm, prompts, new, per_step, card_line, label,
+           per_draft=None):
     """Submit every prompt, stream to the end, check the tokens and the
-    exact launch counts per step; print TTFT / ITL / tok/s / memory."""
+    exact launch counts: ``per_step`` a unified step, plus ``per_draft``
+    a forward of the engine's draft model when speculating; print TTFT /
+    ITL / tok/s / memory."""
     import numpy as np
     from repro_torch.kernels import ops
     eng = llm.engine
+    draft = eng.draft
+    d0 = getattr(draft, "n_forward", 0)
     ops.reset_counters()
     n0 = eng.n_forward
     t0 = time.perf_counter()
@@ -1767,6 +1881,7 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label):
     wall = time.perf_counter() - t0
     launches = dict(ops.counters)
     steps = eng.n_forward - n0
+    d_fwd = getattr(draft, "n_forward", 0) - d0
     n_tok = sum(len(v) for v in outs.values())
     ttft = [t_tok[r][0] - t_sub[r] for r in t_sub]
     itl = [(t_tok[r][-1] - t_tok[r][0]) / (len(t_tok[r]) - 1)
@@ -1781,9 +1896,10 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label):
           f"{max(ttft) * 1e3:.0f} ms, ITL mean {np.mean(itl) * 1e3:.1f} ms, "
           f"prefix hits {hits}, max_memory_allocated {mem:.1f} GiB "
           f"[{card_line}]")
-    want = {k: v * steps for k, v in per_step.items() if v}
+    want = expected_launches(per_step, steps, per_draft, d_fwd)
     print(f"[serve] {label}: kernel launches {launches} (expect per step "
-          f"{per_step})")
+          f"{per_step}" + (f", per draft forward {per_draft} x {d_fwd}"
+                           if per_draft else "") + ")")
     check(all(len(outs.get(r, [])) == new for r in t_sub),
           f"serve {label}: a request did not finish with {new} tokens")
     check(all(0 <= t < llm.cfg.vocab_size for v in outs.values() for t in v),
@@ -1791,7 +1907,7 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label):
     check(steps > 0 and launches == want,
           f"serve {label}: launch counters {launches} != {want}")
     return {"launches": launches, "steps": steps, "wall_s": wall,
-            "tok_s": n_tok / wall,
+            "tok_s": n_tok / wall, "draft_forwards": d_fwd,
             "streams": [outs[r] for r in t_sub],
             "ttft_ms": float(np.mean(ttft) * 1e3),
             "itl_ms": float(np.mean(itl) * 1e3), "prefix_hits": hits,
@@ -1945,6 +2061,10 @@ def phase_serve_deepseek(torch, card_line):
     return out, absorbed, capacity
 
 
+# the indices of dense_prompts' prompts that share the 512-token prefix
+DENSE_SHARED = (0, 4, 5, 6)
+
+
 def dense_prompts(cfg, seed):
     """The dense models' serve: 8 prompts of 64-1024 tokens, 4 sharing a
     512-token prefix (the first, and three admitted after it finishes)."""
@@ -1991,11 +2111,15 @@ def phase_serve_dense(torch, card_line):
         check(llm.engine.kv.backend == "dense", "kv='dense' did not resolve")
         dense = _serve(torch, llm, prompts, 32, {"flash_chunk": n},
                        card_line, label + ", dense")
-        same = sum(a == b for a, b in zip(paged["streams"],
-                                          dense["streams"]))
-        print(f"[serve] {label}: {same} of {len(prompts)} streams of the "
-              f"dense serve equal the paged serve's (bf16; not held: the "
-              f"steps differ)")
+        differ = [i for i, (a, b) in enumerate(zip(paged["streams"],
+                                                   dense["streams"]))
+                  if a != b]
+        print(f"[serve] {label}: {len(prompts) - len(differ)} of "
+              f"{len(prompts)} streams of the dense serve equal the paged "
+              f"serve's (bf16; not held: the steps differ); differing "
+              f"streams {differ}, of which shared-prefix prompts "
+              f"{[i for i in differ if i in DENSE_SHARED]} (the shared-"
+              f"prefix prompts are {list(DENSE_SHARED)})")
         out[arch] = {"paged": paged, "dense": dense}
         del llm
         free_memory(torch)
@@ -2054,6 +2178,290 @@ def phase_profile(torch, llm, rng, label):
         f"{name} {us / 1e3:.1f} ms" for us, name in top[:5]))
     return {"busy_ms": busy / 1e3, "idle_share": max(0.0, 1 - busy / wall_us),
             "family_ms": {k: v / 1e3 for k, v in groups.items() if v > 0}}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4           # draft tokens a verify block
+SPEC_NEW = 64        # new tokens a request of the speculated serves
+# (arch, layers or None for the whole model, prompt seed, runs): the bf16
+# speculated serves, one set of weights an arch; each run (kv backend,
+# chunk or None for the resolved one, drafts) serves the plain serve
+# ("off") and then each draft.  phi3.5's second run verifies at the
+# self draft's own width (chunk 16 = DRAFT_CHUNK, on the dense backend:
+# the draft's geometry), where the draft's rows are the verifier's bit
+# for bit
+SPEC_SERVES = (("phi3.5-moe-42b", 8, 6,
+                (("paged", None, ("self", "ngram", "smollm-360m")),
+                 ("dense", 16, ("self",)))),
+               ("deepseek-v2-236b", 4, 7, (("paged", None, ("self",)),)),
+               ("gemma-2b", None, 8, (("dense", None, ("self", "ngram")),)))
+
+
+def spec_runs():
+    """SPEC_SERVES flattened: (arch, layers, seed, kv, chunk, drafts)."""
+    return [(arch, layers, seed, kv, chunk, drafts)
+            for arch, layers, seed, runs in SPEC_SERVES
+            for kv, chunk, drafts in runs]
+
+
+def spec_spec(draft, kv="paged", chunk=None, **kw):
+    """A speculated serve's envelope (prompts to 64 tokens, 64 new) with
+    ``draft`` drafting SPEC_K tokens, or "off" for the plain serve;
+    ``chunk`` None resolves it."""
+    from repro_torch.serving.api import SpeculationConfig
+    sc = "off" if draft == "off" else SpeculationConfig(k=SPEC_K,
+                                                        draft=draft)
+    if chunk is not None:
+        kw["chunk"] = chunk
+    return _spec(kv, **{"prompt_len": 64, "max_new_tokens": SPEC_NEW,
+                        **kw}, speculation=sc)
+
+
+def spec_prompts(cfg, seed, n=8):
+    """``n`` prompts of 32-64 tokens (short prompts, long generations: the
+    regime where a model draft's one-slot catch-up stays cheap)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, int(m)).astype(np.int32)
+            for m in rng.integers(32, 65, n)]
+
+
+def step_launches(cfg, kv):
+    """Kernel launches of one unified step of a dropless serve on ``kv``,
+    or of one draft-model forward (``kv="dense"``): the attention kernel a
+    layer (MLA's expanded attention runs flash_chunk on either backend),
+    the router gate, both gathers and three grouped GEMMs a MoE layer."""
+    attn = "flash_chunk" if cfg.attention == "mla" or kv == "dense" \
+        else "flash_chunk_paged"
+    out = {attn: cfg.n_layers}
+    n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.is_moe else 0
+    if n_moe:
+        out.update(topk_gate=n_moe, permute_tokens=n_moe,
+                   unpermute_tokens=n_moe, grouped_gemm=3 * n_moe)
+    return out
+
+
+def _spec_parity(torch, cfg, params, kv, lens, new):
+    """f32, 2 layers: the self-draft serve with kernels on and off and the
+    plain serve with kernels on, on the same weights and prompts; every
+    stream equal, the kernels-on launches exact (verify steps and draft
+    forwards), the kernels-off run launching none."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import LLM
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    runs = {}
+    for kern, draft in (("on", "self"), ("off", "self"), ("on", "off")):
+        llm = LLM.from_spec(
+            spec_spec(draft, kv, 16, kernels=kern, max_len=128,
+                      max_new_tokens=new), cfg=cfg, params=params,
+            device="cuda", dtype=torch.float32)
+        eng = llm.engine
+        ops.reset_counters()
+        streams = llm.generate(prompts, new)
+        torch.cuda.synchronize()
+        d_fwd = getattr(eng.draft, "n_forward", 0)
+        want = {} if kern == "off" else expected_launches(
+            step_launches(cfg, kv), eng.n_forward,
+            step_launches(cfg, "dense"), d_fwd)
+        runs[(kern, draft)] = (streams, dict(ops.counters), want,
+                               eng.spec_stats(), eng.n_forward, d_fwd)
+        del llm, eng
+        free_memory(torch)
+    base = runs[("on", "off")][0]
+    equal = {f"{k[0]} {k[1]}": r[0] == base for k, r in runs.items()}
+    st = runs[("on", "self")][3]
+    print(f"[spec] {cfg.name} f32, kv {kv}, chunk 16, self draft k "
+          f"{SPEC_K}: streams equal the kernels-on plain serve's "
+          f"{json.dumps(equal)}; kernels-on spec: {runs[('on', 'self')][4]}"
+          f" verify steps, {runs[('on', 'self')][5]} draft forwards, "
+          f"acceptance {st['spec_accept_rate']:.4f}, "
+          f"{st['spec_tokens_per_step']:.3f} tokens a verify step, "
+          f"launches {runs[('on', 'self')][1]}")
+    check(all(equal.values()), f"spec parity {cfg.name} {kv}: streams "
+                               f"differ {equal}")
+    for k, (_, got, want, *_) in runs.items():
+        check(got == want, f"spec parity {cfg.name} {kv} {k}: launches "
+                           f"{got} != {want}")
+    check(st["n_spec_steps"] > 0, f"spec parity {cfg.name}: no verify step")
+    return {"equal": equal, "spec": st}
+
+
+def spec_parity(torch):
+    """phase 4b (a): phi3.5 (paged and dense), deepseek-v2 (paged) and
+    gemma-2b (dense), 2 layers each, f32, full width."""
+    from repro_torch.models.model import init_params
+    gen = torch.Generator(device="cuda")
+    lens, new = (40, 33, 57, 48), 12
+    out = {}
+    for arch, kvs in (("phi3.5-moe-42b", ("paged", "dense")),
+                      ("deepseek-v2-236b", ("paged",)),
+                      ("gemma-2b", ("dense",))):
+        cfg = _cut(arch, 2)
+        params = init_params(gen.manual_seed(1), cfg, torch.float32, "cuda")
+        for kv in kvs:
+            out[f"{arch} {kv}"] = _spec_parity(torch, cfg, params, kv, lens,
+                                               new)
+        del params
+        free_memory(torch)
+    return out
+
+
+def _spec_serve(torch, llm, prompts, kv, card_line, label):
+    """``_serve`` on a (possibly) speculating engine: launches exact per
+    verify step and per draft forward; the host seconds inside
+    ``draft.propose`` (the draft model's forwards, which end in a host
+    read, included) give the share of wall time spent drafting."""
+    eng = llm.engine
+    draft, spent = eng.draft, [0.0]
+    per_draft = None
+    if draft is not None:
+        if getattr(draft, "cfg", None) is not None:      # a model draft
+            per_draft = step_launches(draft.cfg, "dense")
+        propose = draft.propose
+
+        def timed(ctx, want):
+            t0 = time.perf_counter()
+            try:
+                return propose(ctx, want)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        draft.propose = timed
+    out = _serve(torch, llm, prompts, SPEC_NEW, step_launches(llm.cfg, kv),
+                 card_line, label, per_draft=per_draft)
+    st = eng.spec_stats()
+    out.update(spec=st, draft_s=spent[0],
+               draft_share=spent[0] / out["wall_s"])
+    if draft is not None:
+        print(f"[spec] {label}: {out['steps']} steps, "
+              f"{out['wall_s'] / out['steps'] * 1e3:.1f} ms/step, "
+              f"{out['tok_s']:.1f} tok/s, TTFT {out['ttft_ms']:.0f} ms, ITL "
+              f"{out['itl_ms']:.1f} ms; {st['n_spec_steps']} slot verify "
+              f"steps, {st['n_spec_drafted']} drafted, "
+              f"{st['n_spec_accepted']} accepted (rate "
+              f"{st['spec_accept_rate']:.4f}), "
+              f"{st['spec_tokens_per_step']:.3f} tokens a verify step, "
+              f"{out['draft_forwards']} draft forwards, drafting "
+              f"{spent[0]:.2f} s = {out['draft_share']:.3f} of wall time "
+              f"[{card_line}]")
+    return out
+
+
+def _stream_report(torch, spec, cfg, params, prompts, off, got, label):
+    """Which speculated streams differ from the plain serve's, and where;
+    on a difference, the plain serve is replayed with a hook that keeps
+    the top-2 logit margin of every token it samples, and the margin at
+    each first differing token is printed."""
+    from repro_torch.serving.api import LLM
+    differ = [i for i, (a, b) in enumerate(zip(off, got)) if a != b]
+    print(f"[spec] {label}: {len(off) - len(differ)} of {len(off)} streams "
+          f"equal the plain serve's (bf16); differing {differ}")
+    if not differ:
+        return {"equal": True, "differ": []}
+    llm = LLM.from_spec(spec, cfg=cfg, params=params, device="cuda",
+                        dtype=torch.bfloat16)
+    eng = llm.engine
+    orig, margins = eng._unified_impl, {}
+
+    def hooked(tokens, q_lens, v_lens):
+        res = orig(tokens, q_lens, v_lens)
+        top = torch.topk(res[2].float(), 2, -1).values
+        m, q = (top[:, 0] - top[:, 1]).tolist(), q_lens.tolist()
+        for i, r in enumerate(eng.slots):
+            if r is not None and q[i] > 0:
+                margins[(r.rid, len(r.out_tokens))] = m[i]
+        return res
+    eng._unified_impl = hooked
+    again = llm.generate(prompts, SPEC_NEW)
+    firsts = []
+    for i in differ:
+        t = next(j for j, (a, b) in enumerate(zip(off[i], got[i])) if a != b)
+        firsts.append({"stream": i, "token": t, "plain": off[i][t],
+                       "spec": got[i][t], "margin": margins.get((i, t))})
+    print(f"[spec] {label}: first differing tokens {json.dumps(firsts)} "
+          f"(top-2 logit margin of the plain serve there; its replay "
+          f"equal to it: {again == off})")
+    del llm, eng
+    free_memory(torch)
+    return {"equal": False, "differ": differ, "first": firsts}
+
+
+def phase_spec(torch, card_line):
+    """phase 4b: speculative decoding.  (a) f32 parity (``spec_parity``);
+    (b) the bf16 serves of SPEC_SERVES at full width: for each run the
+    plain serve, then each draft, on one set of weights and prompts."""
+    import repro_torch.configs as C
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.draft import DRAFT_CHUNK
+    out = {"parity": spec_parity(torch), "serves": []}
+    for arch, layers, seed, runs in SPEC_SERVES:
+        cfg = _cut(arch, layers) if layers else C.get(arch)
+        depth = (f"{layers} of {C.get(arch).n_layers} layers" if layers
+                 else f"{cfg.n_layers} layers")
+        prompts = spec_prompts(cfg, seed)
+        params, plain = None, []
+        for kv, chunk, drafts in runs:
+            label = (f"{arch} ({depth}), {kv}"
+                     + (f", chunk {chunk}" if chunk else "")
+                     + f", {len(prompts)} prompts of 32-64")
+            if params is None:
+                llm = _load(torch, spec_spec("off", kv, chunk), cfg,
+                            card_line)
+                params = llm.params
+            else:
+                llm = LLM.from_spec(spec_spec("off", kv, chunk), cfg=cfg,
+                                    params=params, device="cuda",
+                                    dtype=torch.bfloat16)
+            base = _spec_serve(torch, llm, prompts, kv, card_line,
+                               f"{label}, plain")
+            del llm
+            free_memory(torch)
+            out["serves"].append(base)
+            if plain:
+                # one model, one prompt set, another step width: how far
+                # the width alone moves the bf16 greedy streams
+                first = [next((j for j, (a, b) in enumerate(zip(x, y))
+                               if a != b), None)
+                         for x, y in zip(plain[0][1], base["streams"])]
+                print(f"[spec] {arch}: the plain serve at {kv}, chunk "
+                      f"{chunk} against {plain[0][0]}: "
+                      f"{first.count(None)} of {len(first)} streams equal; "
+                      f"first differing token of each {first} [bf16]")
+            plain.append((f"{kv}, chunk {chunk or 'resolved'}",
+                          base["streams"]))
+            for d in drafts:
+                llm = LLM.from_spec(spec_spec(d, kv, chunk), cfg=cfg,
+                                    params=params, device="cuda",
+                                    dtype=torch.bfloat16)
+                check(llm.engine.spec_k == SPEC_K,
+                      f"spec {arch} {d}: k resolved to {llm.engine.spec_k}")
+                check(d != "self" or llm.engine.draft.params is params,
+                      f"spec {arch}: the self draft copied the weights")
+                r = _spec_serve(torch, llm, prompts, kv, card_line,
+                                f"{label}, draft {d} k {SPEC_K}")
+                del llm
+                free_memory(torch)
+                r["streams_vs_plain"] = _stream_report(
+                    torch, spec_spec("off", kv, chunk), cfg, params,
+                    prompts, base["streams"], r["streams"],
+                    f"{label}, draft {d}")
+                check(r["spec"]["n_spec_steps"] > 0 or d == "ngram",
+                      f"spec {arch} {d}: the draft never verified")
+                if d == "self" and chunk == DRAFT_CHUNK:
+                    # the draft's step and the verifier's share one
+                    # geometry: every draft is the verifier's own token
+                    check(r["spec"]["spec_accept_rate"] == 1.0,
+                          f"spec {label}: the self draft at the verifier's "
+                          f"width was rejected: {r['spec']}")
+                out["serves"].append(r)
+        del params
+        free_memory(torch)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2597,8 +3005,8 @@ def kernels_record(kres, launches):
 
 def _spec(kv="paged", **kw):
     from repro_torch.serving.api import ServeSpec
-    return ServeSpec(kernels="auto", kv=kv, reduced=False, max_batch=4,
-                     seed=0, **kw)
+    return ServeSpec(**{"kernels": "auto", "kv": kv, "reduced": False,
+                        "max_batch": 4, "seed": 0, **kw})
 
 
 def phi_spec(dispatch="auto"):
@@ -2675,6 +3083,21 @@ def resolve_dense_shapes():
     return gm, mn, gm1
 
 
+def resolve_spec_shapes():
+    """The shapes of each run of SPEC_SERVES (``spec_runs`` order), one
+    envelope with and without speculation."""
+    import repro_torch.configs as C
+    out = []
+    for arch, layers, _, kv, chunk, drafts in spec_runs():
+        cfg = _cut(arch, layers) if layers else C.get(arch)
+        out.append(_shapes(spec_spec("off", kv, chunk), cfg))
+        for d in drafts:
+            check(_shapes(spec_spec(d, kv, chunk), cfg) == out[-1],
+                  f"{arch}: draft {d} resolved another envelope")
+    print(f"[shapes] speculated serves {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
@@ -2700,8 +3123,9 @@ def main() -> int:
     timed("build", phase_build)
     phi, ds, ds1, dsh = resolve_shapes()
     gm, mn, gm1 = resolve_dense_shapes()
+    sp = resolve_spec_shapes()
     kres = timed("kernels", phase_kernels, torch, phi, ds, ds1, dsh,
-                 dense=(gm, mn, gm1))
+                 dense=(gm, mn, gm1), spec=sp[0])
     timed("host", phase_host, torch, phi, dsh)
     timed("capacity_module", phase_capacity_module, torch, phi, ds)
     timed("parity", phase_parity, torch)
@@ -2718,6 +3142,12 @@ def main() -> int:
     for arch in ("gemma-2b", "minitron-8b"):
         serves += [dense[arch]["paged"], dense[arch]["dense"]]
     checked = [phi, phi, ds, ds1, ds, gm1, gm, gm, mn, mn]
+    free_memory(torch)
+    spec = timed("spec", phase_spec, torch, card_line)
+    for run, shapes in zip(spec_runs(), sp):
+        checked += [shapes] * (1 + len(run[-1]))
+    serves += spec["serves"]
+    check(len(serves) == len(checked), "a serve's shapes went unchecked")
     for got, want in zip(serves, checked):
         want = {k: v for k, v in want.items() if k != "C"}
         got = got["shapes"]

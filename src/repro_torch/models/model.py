@@ -296,7 +296,7 @@ class Output:
 
 def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
             tokens, cache=None, q_lens=None, last_only: bool = False,
-            expert_stats: bool = False) -> Output:
+            logit_rows=None, expert_stats: bool = False) -> Output:
     """The forward pass, in the reference's modes.
 
     tokens  (b, s) int
@@ -321,6 +321,10 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     last_only             with q_lens: apply the LM head only to each
                           slot's last valid row (q_lens[i] - 1), returning
                           (b, 1, v) logits
+    logit_rows  (b, n) int  with last_only: the rows the LM head is applied
+                          to instead of q_lens[i] - 1, returning (b, n, v)
+                          logits (speculative verify scores one row per
+                          draft position this way)
     expert_stats          sum per-expert routed-slot counts over the MoE
                           layers into ``Output.expert_counts``
     """
@@ -328,6 +332,9 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
         raise ValueError("q_lens (unified mixed step) requires a cache")
     if last_only and q_lens is None:
         raise ValueError("last_only requires q_lens (the unified mixed step)")
+    if logit_rows is not None and not last_only:
+        raise ValueError("logit_rows requires last_only (it overrides the "
+                         "per-slot head-row selection)")
     length = None if cache is None else cache["length"]
     block_tables = None if cache is None else cache.get("block_tables")
     if block_tables is not None and q_lens is None:
@@ -335,10 +342,12 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                          "mixed step (q_lens)")
     if block_tables is None:
         L.single_device(plan, "the forward on a dense cache or none")
-        len_loc, q_loc = length, q_lens
+        len_loc, q_loc, rows_loc = length, q_lens, logit_rows
     else:
         tokens, len_loc, q_loc = (plan.shard(t, ("batch",))
                                   for t in (tokens, length, q_lens))
+        rows_loc = None if logit_rows is None \
+            else plan.shard(logit_rows, ("batch",))
     b, s = tokens.shape
     seq_sharded = plan.seq_sharded(s)
     x = plan.cut_seq(embed_tokens(params["embed"], tokens, cfg, plan),
@@ -363,7 +372,9 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                 counts_total = counts_total + cnt
 
     x = plan.gather_seq(x, seq_sharded)
-    if last_only:   # per-slot last valid row; norm/head are per-token ops
+    if last_only and rows_loc is not None:   # the rows asked for
+        x = x[torch.arange(b, device=x.device)[:, None], rows_loc.long()]
+    elif last_only:   # per-slot last valid row; norm/head are per-token ops
         rows = (q_loc.long() - 1).clamp_min(0)
         x = x[torch.arange(b, device=x.device), rows][:, None]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -2,14 +2,16 @@
 
 Every iteration runs ONE unified mixed prefill/decode step:
 
-  forward(params, tokens(B, chunk), q_lens(B,), cache) -> last logits (B, V)
+  forward(params, tokens(B, chunk), q_lens(B,), cache) -> logits (B, n, V)
 
-Each slot contributes ``q_lens[i] ∈ {0, 1, …, chunk}`` tokens against the
-fixed (B, chunk) buffer: a decoding slot its 1 sampled token, a prefilling
-slot the next chunk of its pending tokens, an idle slot 0.  Admission is
-bookkeeping (the slot's pending buffer is ``prompt + tokens generated so
-far`` — the recompute-on-resume suffix that makes preemption exact); a long
-prompt never stalls the decode slots.
+(n = 1 + speculation k).  Each slot contributes ``q_lens[i] ∈ {0, 1, …,
+chunk}`` tokens against the fixed (B, chunk) buffer: a decoding slot its 1
+sampled token — or, when speculating, 1 + k rows whose draft tail is
+greedy-verified in the same pass (``v_lens`` marks the verify slots) — a
+prefilling slot the next chunk of its pending tokens, an idle slot 0.
+Admission is bookkeeping (the slot's pending buffer is ``prompt + tokens
+generated so far`` — the recompute-on-resume suffix that makes preemption
+exact); a long prompt never stalls the decode slots.
 
 Robustness: every ``Request`` carries a lifecycle ``state``; ``release`` /
 ``cancel`` / ``preempt`` free a slot mid-flight; a NaN/Inf guard on the
@@ -30,10 +32,15 @@ see the whole batch's logits, while the model runs in MixServe's layout
 (``models.model.forward``): each rank computes its batch rows' attention on
 its heads, its vocab block of the embedding and LM head, its slice of the
 dense MLP and the MoE blocks, and holds its heads' slice of every KV page;
-so the greedy streams agree across ranks.  Speculative
-decoding (ROADMAP A7) and the legacy blocking path for recurrent / hybrid /
-frontend families (ROADMAP A10) are not ported: a spec asking for either
-raises.
+so the greedy streams agree across ranks.
+
+Speculative decoding (``spec.speculation``, greedy only): a draft source
+(``serving.draft``) proposes up to k tokens a decoding slot, the planner
+prices them as budget rows before prefill, the step verifies them, and the
+rejected tail rolls back (the device length inside the step, the paged
+pages through ``kv.rollback``).  On a mesh only the n-gram draft is served.
+The legacy blocking path for recurrent / hybrid / frontend families
+(ROADMAP A10) is not ported: a config that needs it raises.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cost_model import cap_rows_for
 from repro_torch.models.model import forward
+from repro_torch.serving.draft import make_draft
 from repro_torch.serving.faults import FaultInjector, InjectedFault
 from repro_torch.serving.kv_cache import make_kv_cache
 
@@ -151,9 +159,6 @@ class Engine:
             raise NotImplementedError(
                 f"{cfg.name} (family {cfg.family}) needs the legacy blocking "
                 "path, which is not ported yet (ROADMAP A10)")
-        if getattr(spec, "speculation", None) is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP A7)")
         self.device = resolve_device(device)
         self.spec = spec
         self.cfg, self.params, self.plan = cfg, params, spec.plan
@@ -183,6 +188,34 @@ class Engine:
         self.kv = make_kv_cache(cfg, getattr(spec, "kv", None),
                                 self.max_batch, self.max_len, dtype,
                                 self.device, plan=self.plan)
+
+        # speculative decoding (resolved ``spec.speculation`` or None): a
+        # speculating slot contributes 1 + k rows to the same unified step,
+        # greedy verify accepts the longest matching draft prefix plus one
+        # bonus token, and the rejected tail rolls back.  Greedy only; the
+        # resolver enforces it, this re-checks.
+        sc = getattr(spec, "speculation", None)
+        self.spec_cfg = self.draft = None
+        self.spec_k = 0
+        if sc is not None and self.temperature == 0:
+            k = min(int(sc.k), self.chunk - 1)
+            if k >= 1:
+                self.spec_cfg = sc if sc.k == k \
+                    else dataclasses.replace(sc, k=k)
+                self.spec_k = k
+                self.draft = make_draft(self.spec_cfg, cfg, params,
+                                        plan=self.plan,
+                                        max_batch=self.max_batch,
+                                        max_len=self.max_len, dtype=dtype,
+                                        device=self.device)
+        self.n_logits = self.spec_k + 1   # logit rows a slot a step
+        # per-slot draft tokens planned for the next unified step
+        self._drafts: list[Optional[np.ndarray]] = [None] * self.max_batch
+        # acceptance accounting: slot-steps that drafted, tokens proposed /
+        # accepted, and the EMA that gates drafting (optimistic start, so
+        # the first steps always probe)
+        self.spec_steps = self.spec_drafted = self.spec_accepted = 0
+        self.accept_ema = 1.0
 
         self.slots: list[Optional[Request]] = [None] * self.max_batch
         self._pending = [None] * self.max_batch   # tokens to prefill
@@ -220,13 +253,19 @@ class Engine:
                 "ServeSpec.kv pool_pages (or leave kv='auto')")
 
     # -- the step program --------------------------------------------------
-    def _unified_impl(self, tokens, q_lens):
-        """One mixed token-budget iteration (non-speculative).
+    def _unified_impl(self, tokens, q_lens, v_lens):
+        """One mixed token-budget iteration.
 
-        tokens (B, chunk), q_lens (B,) int32 on the device.  Returns
-        (next tokens (B, 1), n_emit (B,), last logits (B, V), step_logits,
-        bad (B,), expert_counts): ``bad[i]`` flags a non-finite
-        sampled-logits row on a scheduled slot."""
+        tokens (B, chunk), q_lens (B,) int32 on the device; ``v_lens[i] >
+        0`` marks a decode slot whose rows are [last committed token, its
+        drafts] (None when not speculating).  Returns (tokens (B, n),
+        n_emit (B,), last logits (B, V), step_logits, bad (B,),
+        expert_counts) with n = 1 + spec_k: slot
+        i's committed tokens are ``tokens[i, :n_emit[i]]``; ``bad[i]``
+        flags a non-finite sampled-logits row on a scheduled slot.  With
+        spec_k == 0 this is the non-speculative program."""
+        if self.n_logits > 1:
+            return self._verify_impl(tokens, q_lens, v_lens)
         out = forward(self.params, self.cfg, self.plan, tokens=tokens,
                       cache=self.cache, q_lens=q_lens,
                       last_only=not self.debug_logits,
@@ -249,6 +288,48 @@ class Engine:
             nxt = torch.argmax(last, -1)
         emit = (q_lens > 0).to(torch.int32)
         return (nxt.to(torch.int32)[:, None], emit, last, step_logits, bad,
+                out.expert_counts)
+
+    def _verify_impl(self, tokens, q_lens, v_lens):
+        """The speculative step: one logit row per draft position.  Row j
+        is the prediction after rows 0..j (attention is causal per row),
+        so draft j+1 is accepted iff it equals row j's argmax; the first
+        rejected position's argmax is the bonus token, and the streams are
+        the non-speculative greedy ones by construction.  Non-verify slots
+        (prefill, v = 0) pin every row to their last valid row.  The
+        rejected tail is subtracted from ``cache["length"]`` in place."""
+        n = self.n_logits
+        dev = tokens.device
+        last_row = (q_lens.long() - 1).clamp_min(0)
+        j = torch.arange(n, device=dev)
+        rows = torch.where((v_lens > 0)[:, None],
+                           torch.minimum(j[None, :], last_row[:, None]),
+                           last_row[:, None])                  # (B, n)
+        out = forward(self.params, self.cfg, self.plan, tokens=tokens,
+                      cache=self.cache, q_lens=q_lens,
+                      last_only=not self.debug_logits,
+                      logit_rows=None if self.debug_logits else rows,
+                      expert_stats=self.cfg.is_moe)
+        if self.debug_logits:
+            sel = out.logits[torch.arange(tokens.shape[0],
+                                          device=dev)[:, None], rows]
+            step_logits = out.logits
+        else:
+            sel = out.logits                                   # (B, n, V)
+            step_logits = None
+        bad = (q_lens > 0) & ~torch.isfinite(sel).all(-1).all(-1)
+        greedy = torch.argmax(sel, -1).to(torch.int32)         # (B, n)
+        s = (v_lens - 1).clamp_min(0)                          # drafted
+        ok = (tokens[:, 1:n] == greedy[:, :n - 1]) \
+            & (j[None, :n - 1] < s[:, None])
+        # accepted = the longest matching prefix
+        acc = torch.cumprod(ok.to(torch.int32), 1).sum(1).to(torch.int32)
+        emit = torch.where(q_lens > 0,
+                           torch.where(v_lens > 0, acc + 1, 1),
+                           0).to(torch.int32)
+        rollback = torch.where(v_lens > 0, s - acc, 0).to(torch.int32)
+        self.cache["length"].sub_(rollback)
+        return (greedy, emit, sel[:, 0], step_logits, bad,
                 out.expert_counts)
 
     # -- slot management -------------------------------------------------
@@ -286,6 +367,8 @@ class Engine:
         # prefix reuse: prefill starts past the cached leading tokens
         self._prompt_pos[slot] = self.kv.begin(slot, self._pending[slot])
         self._last_tok[slot] = 0
+        if self.draft is not None:
+            self.draft.begin(slot, self._pending[slot])
         self._admit_seq[slot] = self._seq
         self._seq += 1
         if req.t_admitted == 0.0:
@@ -302,6 +385,7 @@ class Engine:
             return None
         self.slots[slot] = None
         self._pending[slot] = None
+        self._free_draft(slot)
         # a quarantined slot's pages may hold the very NaNs we are
         # quarantining, so they never enter the prefix index
         self.kv.free(slot, keep_prefix=state != RequestState.FAILED)
@@ -349,11 +433,13 @@ class Engine:
         """Per-slot token counts for the next unified step: decode slots
         get their 1 token first, the remaining budget (default
         ``max_batch * chunk``) goes to prefill chunks in admission order,
-        each capped at ``chunk`` and at what ``kv.reserve`` grants."""
+        each capped at ``chunk`` and at what ``kv.reserve`` grants.  When
+        speculating, draft rows are priced after the decode rows and
+        before prefill (``_plan_drafts``)."""
         budget = int(token_budget) if token_budget else \
             self.max_batch * self.chunk
         q = np.zeros((self.max_batch,), np.int32)
-        prefilling = []
+        prefilling, decoding = [], []
         for i, r in enumerate(self.slots):
             if r is None or r.terminal:
                 continue
@@ -361,7 +447,12 @@ class Engine:
                 prefilling.append(i)
             elif not r.done:
                 q[i] = self.kv.reserve(i, 1)
+                decoding.append(i)
         budget -= int(q.sum())
+        if self.draft is not None:
+            # a speculating slot costs 1 + k rows; the auto budget
+            # max_batch * (1 + k) + chunk keeps the prefill chunk funded
+            budget = self._plan_drafts(decoding, q, budget)
         for i in sorted(prefilling, key=lambda j: self._admit_seq[j]):
             if budget <= 0:
                 break
@@ -371,6 +462,60 @@ class Engine:
             q[i] = n
             budget -= n
         return q
+
+    def _plan_drafts(self, decoding: list, q: np.ndarray,
+                     budget: int) -> int:
+        """Extend decode slots with draft rows, priced against the budget.
+
+        A slot's grant grows from 1 to 1 + k rows, k <= spec_k trimmed by
+        the request's remaining generation room, the budget, what the KV
+        pool can reserve, and the first proposed id outside the verifier's
+        vocabulary (the embedding lookup would fail on it; a draft model
+        with a smaller vocabulary never proposes one).  Drafting pauses
+        while the acceptance EMA is under the gate, re-probing every
+        ``probe_every`` steps.  Returns the remaining budget."""
+        self._drafts = [None] * self.max_batch
+        sc = self.spec_cfg
+        if not decoding or budget <= 0:
+            return budget
+        if self.accept_ema < sc.min_accept \
+                and self._step_idx % sc.probe_every != 0:
+            return budget                  # gated off; periodic re-probe
+        want, ctx = {}, {}
+        for i in decoding:
+            if q[i] < 1:
+                continue                   # the pool could not extend by 1
+            r = self.slots[i]
+            # full acceptance commits k + 1 tokens; keep <= max_new_tokens
+            room = r.max_new_tokens - len(r.out_tokens) - 1
+            k = min(self.spec_k, room, budget)
+            if k < 1:
+                continue
+            ctx[i] = np.concatenate([np.asarray(r.prompt, np.int64),
+                                     np.asarray(r.out_tokens, np.int64)])
+            want[i] = k
+        if not want:
+            return budget
+        props = self.draft.propose(ctx, want)
+        for i in sorted(props, key=lambda jj: self._admit_seq[jj]):
+            if budget <= 0:
+                break
+            d = np.asarray(props[i], np.int64)[:want[i]][:budget]
+            bad = np.flatnonzero((d < 0) | (d >= self.cfg.vocab_size))
+            if bad.size:
+                d = d[:bad[0]]
+            if d.size == 0:
+                continue
+            # the decode row already reserved 1; extend to 1 + k rows (an
+            # exhausted pool grants fewer: trim the draft to fit)
+            grant = self.kv.reserve(i, 1 + int(d.size))
+            d = d[:max(0, grant - 1)]
+            if d.size == 0:
+                continue
+            self._drafts[i] = d
+            q[i] += int(d.size)
+            budget -= int(d.size)
+        return budget
 
     # -- stepping --------------------------------------------------------
     def step(self, token_budget: Optional[int] = None) -> list:
@@ -410,7 +555,13 @@ class Engine:
             self.slots[i] = None
             self._pending[i] = None
             self.kv.free(i)
+            self._free_draft(i)
         return retired
+
+    def _free_draft(self, slot: int) -> None:
+        self._drafts[slot] = None
+        if self.draft is not None:
+            self.draft.release(slot)
 
     def unified_step(self, q_lens) -> list:
         """Run the unified step with an explicit per-slot plan."""
@@ -426,6 +577,7 @@ class Engine:
         if not q_lens.any():
             return retired
         toks = np.zeros((self.max_batch, self.chunk), np.int32)
+        v_lens = np.zeros((self.max_batch,), np.int32)
         for i, r in enumerate(self.slots):
             n = int(q_lens[i])
             if r is None or n == 0:
@@ -435,17 +587,24 @@ class Engine:
                 toks[i, :n] = self._pending[i][pos:pos + n]
             else:
                 toks[i, 0] = self._last_tok[i]
+                d = self._drafts[i]
+                if d is not None and n == 1 + len(d):
+                    toks[i, 1:n] = d          # verify rows: [t0, d1..dk]
+                    v_lens[i] = n
+                else:
+                    v_lens[i] = min(n, 1)     # plain decode
         self.kv.flush()          # push dirty block tables to device
         self.n_forward += 1
         dev = self.device
         (nxt, emit, self.last_logits, self.step_logits, bad,
-         ecnt) = self._unified_impl(torch.from_numpy(toks).to(dev),
-                                    torch.from_numpy(q_lens).to(dev))
+         ecnt) = self._unified_impl(
+            torch.from_numpy(toks).to(dev), torch.from_numpy(q_lens).to(dev),
+            torch.from_numpy(v_lens).to(dev) if self.spec_k else None)
         if ecnt is not None:
             self.expert_counts += ecnt.cpu().numpy().astype(np.int64)
             self._account_a2a(int(q_lens.sum()))
         self.kv.advance(q_lens)  # host length mirror follows the device
-        # one (B, 1) host read per step, for request bookkeeping
+        # one (B, n) host read per step, for request bookkeeping
         nxt_host = nxt.cpu().numpy()
         emit_host = emit.cpu().numpy()
         bad_host = bad.cpu().numpy().copy()   # fault injection writes here
@@ -476,12 +635,28 @@ class Engine:
                     r.t_first_token = now              # prompt done: TTFT
             if r.done:                                 # zero-token budget:
                 continue                               # reaped next sweep
-            m = min(int(emit_host[i]), r.max_new_tokens - len(r.out_tokens))
+            m = int(emit_host[i])                      # accepted + bonus
+            s_i = max(int(v_lens[i]) - 1, 0)           # draft rows fed
+            if s_i:
+                # free the rejected tail's pages (the step already rolled
+                # the device length back); counters and the EMA that
+                # gates the next plan's drafting
+                a_i = m - 1
+                self.kv.rollback(i, s_i - a_i)
+                self.spec_steps += 1
+                self.spec_drafted += s_i
+                self.spec_accepted += a_i
+                al = self.spec_cfg.ema_alpha
+                self.accept_ema = ((1 - al) * self.accept_ema
+                                   + al * (a_i / s_i))
+            m = min(m, r.max_new_tokens - len(r.out_tokens))
             if m <= 0:
                 continue
             committed = [int(t) for t in nxt_host[i, :m]]
             r.out_tokens.extend(committed)
             self._last_tok[i] = committed[-1]
+            if self.draft is not None:
+                self.draft.observe(i, np.asarray(committed, np.int64))
             r.t_done = now
             if r.done:
                 r.state = RequestState.DONE
@@ -489,13 +664,22 @@ class Engine:
                 self.slots[i] = None
                 self._pending[i] = None
                 self.kv.free(i)
+                self._free_draft(i)
+        self._drafts = [None] * self.max_batch    # drafts are one-shot
         return retired
 
     def spec_stats(self) -> dict:
-        """Speculation counters for ServeMetrics (always off here)."""
-        return {"n_spec_steps": 0, "n_spec_drafted": 0,
-                "n_spec_accepted": 0, "spec_accept_rate": 0.0,
-                "spec_tokens_per_step": 0.0}
+        """Speculation counters for ServeMetrics."""
+        steps, drafted = self.spec_steps, self.spec_drafted
+        return {
+            "n_spec_steps": int(steps),
+            "n_spec_drafted": int(drafted),
+            "n_spec_accepted": int(self.spec_accepted),
+            "spec_accept_rate":
+                float(self.spec_accepted / drafted) if drafted else 0.0,
+            "spec_tokens_per_step":
+                float((self.spec_accepted + steps) / steps) if steps else 0.0,
+        }
 
     # -- expert-load / EP-exchange observability -------------------------
     def _account_a2a(self, step_tokens: int) -> None:

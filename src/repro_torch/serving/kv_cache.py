@@ -4,7 +4,8 @@ The device tensors are defined by ``repro_torch.models.model``
 (``init_cache`` for the dense per-slot layout, ``init_paged_cache`` for the
 pools + block tables + lengths).  This module is the *host-side owner* of
 that state: the ``KVCache`` interface (begin / reserve / advance / free /
-evict / flush + occupancy stats) with two backends behind one surface:
+evict / rollback / flush + occupancy stats) with two backends behind one
+surface:
 
 ``DenseKVCache``
     the per-slot ``(B, max_len, ...)`` buffers.  Allocation is trivial (a
@@ -29,8 +30,8 @@ Which backend a spec gets is the ``ServeSpec.kv`` knob.  The device state
 is updated in place: ``begin``/``free`` write the slot's ``length`` entry,
 the paged ``flush`` copies the host block tables to the device only when
 they changed.  A mesh serves the paged backend only: ``kv="dense"`` raises
-there (ROADMAP A12).  ``rollback`` (speculative decoding, ROADMAP A7) and
-the legacy path's ``insert_slot`` (ROADMAP A10) are not ported.
+there (ROADMAP A12).  ``rollback`` drops a slot's rejected speculative
+tail.  The legacy path's ``insert_slot`` (ROADMAP A10) is not ported.
 """
 
 from __future__ import annotations
@@ -67,6 +68,9 @@ class KVCache:
       reserve(slot, n) -> int      guarantee capacity for the slot's next
                                    n tokens; returns how many fit
       advance(q_lens)              the step landed: lengths += q_lens
+      rollback(slot, n) -> int     drop the slot's last n tokens (a
+                                   rejected speculative tail); returns
+                                   the pages freed
       free(slot, keep_prefix=...)  release the slot's pages; with
                                    keep_prefix the prompt's full pages
                                    enter the prefix index
@@ -88,6 +92,9 @@ class KVCache:
         raise NotImplementedError
 
     def advance(self, q_lens) -> None:
+        raise NotImplementedError
+
+    def rollback(self, slot: int, n: int) -> int:
         raise NotImplementedError
 
     def free(self, slot: int, keep_prefix: bool = True) -> None:
@@ -125,6 +132,11 @@ class DenseKVCache(KVCache):
 
     def advance(self, q_lens) -> None:
         pass                          # the device length is authoritative
+
+    def rollback(self, slot: int, n: int) -> int:
+        # the verify step already subtracted the rejected tail from the
+        # device length; the stale rows past it are inert ragged-tail rows
+        return 0
 
     def free(self, slot: int, keep_prefix: bool = True) -> None:
         self.cache["length"][slot] = 0
@@ -278,6 +290,32 @@ class PagedKVCache(KVCache):
 
     def advance(self, q_lens) -> None:
         self.lengths += np.asarray(q_lens, np.int64)
+
+    def rollback(self, slot: int, n: int) -> int:
+        """Shrink the slot by its rejected speculative tail: drop the last
+        ``n`` tokens and return the pages past ``ceil(new_len / page)``
+        to the pool.  Shared prefix pages sit at the front of the block
+        table and a draft tail starts past the prompt, so the released
+        blocks are the slot's own newest pages; an indexed or still
+        referenced page never reaches the free list (as in ``free``)."""
+        if n <= 0:
+            return 0
+        new_len = max(0, int(self.lengths[slot]) - int(n))
+        keep = -(-new_len // self.ps)            # a partial page stays
+        freed = 0
+        for b in range(keep, int(self.n_blocks[slot])):
+            p = int(self.bt[slot, b])
+            if p < 0:
+                continue
+            self.ref[p] -= 1
+            if self.ref[p] == 0 and p not in self._node_of_page:
+                self._free.append(p)
+                freed += 1
+            self.bt[slot, b] = -1
+        self.n_blocks[slot] = keep
+        self.lengths[slot] = new_len
+        self._dirty = True
+        return freed
 
     def free(self, slot: int, keep_prefix: bool = True) -> None:
         n = int(self.n_blocks[slot])

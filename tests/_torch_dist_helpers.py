@@ -35,6 +35,12 @@ OVERLAP_LAYOUTS = (("mixserve", "fused"), ("mixserve", "unfused"),
 OVERLAPS = ("no_overflow", "overflow")
 SERVE = dict(kv="paged", max_batch=4, max_len=64, chunk=8)
 NEW_TOKENS = 4
+# speculative decoding on the mesh: the n-gram draft (a model draft needs
+# the dense cache, not ported on a mesh), bigram matches, 12 new tokens
+SPEC_CASE = ("phi3.5-moe-42b", (2, 2), "mixserve", "fused", "dropless",
+             "ngram")
+SPEC = dict(k=2, draft="ngram", ngram=2, min_accept=0.0)
+SPEC_NEW_TOKENS = 12
 # the whole forward: a GQA MoE model (heads split over TP), an MLA model
 # with a dense and an MoE layer, and smollm, whose 15/5 heads do not split
 # over TP 2 (replicated attention beside a TP dense MLP, tied embedding)
@@ -201,7 +207,7 @@ def rank_main(rank, world, workdir):
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe as M
-    from repro_torch.serving.api import LLM, ServeSpec
+    from repro_torch.serving.api import LLM, ServeSpec, SpeculationConfig
 
     inputs = pickle.loads((pathlib.Path(workdir) / "inputs.pkl")
                           .read_bytes())
@@ -277,6 +283,16 @@ def rank_main(rank, world, workdir):
             out["streams"][case] = llm.generate(prompts(cfg.vocab_size),
                                                 NEW_TOKENS)
         out["hits"][case] = llm.engine.kv.stats.n_prefix_hits
+
+    arch, m, lay, _, d, _ = SPEC_CASE
+    cfg = _cfg(arch)
+    res = ServeSpec(arch=arch, strategy=lay, dispatch=d, kernels="off",
+                    speculation=SpeculationConfig(**SPEC), **SERVE).resolve(
+        mesh=meshes[m], device="cpu")
+    llm = LLM.from_spec(res, cfg=cfg, params=from_reference(
+        inputs[arch]["params"], cfg, plan=res.plan), device="cpu")
+    out["spec"] = (llm.generate(prompts(cfg.vocab_size), SPEC_NEW_TOKENS),
+                   llm.engine.spec_stats(), type(llm.engine.draft).__name__)
     return out
 
 

@@ -40,7 +40,8 @@ and the parametrised tests below assert one case each:
 * ``LLM.generate`` on 4 ranks gives the reference's single-device greedy
   streams on every rank, with a prefix hit (also for smollm, with the
   residual stream whole, and with a prefix written on one batch rank and
-  hit on the other).
+  hit on the other), and with the n-gram speculative draft (its
+  acceptance counters too).
 
 Checks that need no ranks: the plans' axis rules and specs equal the
 reference's with ``sp`` on and off, a rank's index over an axis tuple is
@@ -69,6 +70,7 @@ from repro.core.partitioner import make_plan as r_make_plan  # noqa: E402
 from repro.models.param import init_tree as r_init_tree  # noqa: E402
 from repro.serving.api import LLM as RLLM  # noqa: E402
 from repro.serving.api import ServeSpec as RSpec  # noqa: E402
+from repro.core.resolve import SpeculationConfig as RSC  # noqa: E402
 from repro_torch.core.cost_model import Workload  # noqa: E402
 from repro_torch.core.cost_model import comm_census  # noqa: E402
 from repro_torch.bridge import from_reference  # noqa: E402
@@ -156,11 +158,19 @@ def dist(tmp_path_factory):
             ref_streams[key] = llm.generate(H.prompts(rcfg.vocab_size),
                                             H.NEW_TOKENS)
         ref_hits[key] = llm.engine.kv.stats.n_prefix_hits
+    arch, _, _, _, d, _ = H.SPEC_CASE
+    rcfg, rp, _, _ = both_params(arch)
+    llm = RLLM.from_spec(RSpec(arch=arch, dispatch=d,
+                               speculation=RSC(**H.SPEC), **H.SERVE),
+                         cfg=dataclasses.replace(rcfg, capacity_factor=H.CF),
+                         params=rp)
+    ref_spec = (llm.generate(H.prompts(rcfg.vocab_size), H.SPEC_NEW_TOKENS),
+                llm.engine.spec_stats())
     (work / "inputs.pkl").write_bytes(pickle.dumps(inputs))
     ranks = run_ranks(H.rank_main, 4, (str(work),), workdir=work,
                       device="cpu", threads=1, timeout_s=600)
     return {"ranks": ranks, "moe": ref_moe, "streams": ref_streams,
-            "hits": ref_hits, "fwd": ref_fwd}
+            "hits": ref_hits, "fwd": ref_fwd, "spec": ref_spec}
 
 
 @pytest.mark.parametrize("case", H.moe_cases(), ids=H.case_id)
@@ -225,6 +235,19 @@ def test_generate_streams_equal_reference(dist, case):
     for r in dist["ranks"]:
         assert r["streams"][case] == want
         assert r["hits"][case] == hits
+
+
+def test_speculated_streams_equal_reference(dist):
+    """The n-gram draft on the 2x2 mixserve mesh (paged): every rank's
+    streams and acceptance counters equal the reference's single-device
+    speculated serve (whose streams are its non-speculative ones)."""
+    want, want_stats = dist["spec"]
+    assert want_stats["n_spec_drafted"] > 0
+    for r in dist["ranks"]:
+        streams, stats, draft = r["spec"]
+        assert draft == "NGramDraft"
+        assert streams == want
+        assert stats == want_stats
 
 
 @pytest.mark.parametrize("case", H.moe_cases(), ids=H.case_id)

@@ -555,6 +555,36 @@ def test_dense_backend_serve_streams_equal_paged_on_card(dev, arch, chunk):
                                       if chunk == 1 else {"flash_chunk"})
 
 
+@pytest.mark.parametrize("kv", ["paged", "dense"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "phi3.5-moe-42b",
+                                  "minicpm3-4b"])
+def test_speculated_serve_streams_equal_plain_on_card(dev, arch, kv):
+    """A reduced serve with kernels on, f32: the self draft (k 4) and the
+    n-gram draft give the plain serve's greedy streams; the verify steps
+    launch the serve's attention kernel, the self draft's forwards
+    flash_chunk on its dense cache."""
+    import numpy as np
+
+    from repro_torch.serving.api import LLM, ServeSpec, SpeculationConfig
+    kw = dict(arch=arch, kernels="on", kv=kv, max_batch=2, max_len=64,
+              chunk=8)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in (19, 7, 33)]
+    streams, params = {}, None
+    for draft in ("off", "self", "ngram"):
+        sc = "off" if draft == "off" else SpeculationConfig(k=4, draft=draft)
+        llm = LLM.from_spec(ServeSpec(speculation=sc, **kw), params=params,
+                            device=dev)
+        params = llm.params
+        ops.reset_counters()
+        streams[draft] = llm.generate(prompts, 8)
+        if draft == "self":
+            assert llm.engine.spec_stats()["n_spec_steps"] > 0
+            assert ops.counters["flash_chunk"] >= \
+                llm.engine.draft.n_forward * llm.cfg.n_layers
+    assert streams["self"] == streams["off"] == streams["ngram"]
+
+
 # (tokens, k): the served k (2 phi3.5, 6 deepseek), 1 and 8 (the
 # reference's range), k past 8 (slot groups of 8), one token, the sharded
 # serve's 128 tokens

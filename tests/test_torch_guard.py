@@ -61,8 +61,9 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 def test_unported_options_raise():
     """Each option the port does not serve yet raises, naming its ROADMAP
-    item: the dense KV backend and the stateless forward on a mesh (A12;
-    on one device both run), speculation (A7), the legacy families
+    item: the dense KV backend, the stateless forward and a model draft
+    for speculative decoding on a mesh (A12; on one device all three run,
+    and the n-gram draft runs on a mesh too), the legacy families
     (A10)."""
     import repro_torch.configs as TC
     from repro_torch.core.partitioner import make_plan
@@ -71,7 +72,9 @@ def test_unported_options_raise():
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import model as MOD
     from repro_torch.serving.api import LLM, ServeSpec
+    from repro_torch.serving.draft import make_draft
     from repro_torch.serving.kv_cache import make_kv_cache
+    from repro_torch.core.resolve import SpeculationConfig
     cfg = TC.get_reduced("smollm-360m")
     plan = make_plan("mixserve", Mesh(("data", "model"), (2, 2), 0))
     with pytest.raises(NotImplementedError, match="A12"):
@@ -85,10 +88,12 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A12"):
         MOD.forward(params, cfg, plan, tokens=tokens, cache=MOD.init_cache(
             cfg, 4, 16, torch.float32, "cpu"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        LLM.from_spec(ServeSpec(arch="smollm-360m", speculation=2,
-                                max_batch=1, max_len=64, chunk=8),
-                      device="cpu")
+    for draft in ("self", "gemma-2b"):
+        with pytest.raises(NotImplementedError, match="A12"):
+            make_draft(SpeculationConfig(k=2, draft=draft), cfg, params,
+                       plan=plan, dtype=torch.float32, device="cpu")
+    assert make_draft(SpeculationConfig(k=2, draft="ngram"), cfg, params,
+                      plan=plan).name == "ngram"
     with pytest.raises(NotImplementedError, match="A10"):
         LLM.from_spec(ServeSpec(arch="rwkv6-1.6b", max_batch=1, max_len=64,
                                 chunk=8, kv="auto"), device="cpu")
