@@ -72,6 +72,24 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              a torch.profiler window on each long serve's engine for the
              device-time breakdown (phi3.5 dropless and capacity, deepseek
              dropless, gemma and minitron paged)
+  4c recurrent  the legacy blocking path (no kernel lies on it):
+             (a) bf16, full width and depth: rwkv6-1.6b (24 layers) and
+                 recurrentgemma-9b (38 layers, window 2048), max_batch 4,
+                 max_len 2048, 8 prompts of 64-1024 tokens (two exactly a
+                 bucket long) padded to their buckets, 32 new tokens each:
+                 ms per decode step, TTFT, ITL, tok/s, peak memory, the
+                 blocking prefills' share of the wall time, a profiler
+                 window over 4 short (32-token) prompts, which decode
+                 dominates; no kernel counter moves;
+             (b) f32 and f64, full width: rwkv6 2 layers,
+                 recurrentgemma 3 layers (one pattern) with window 64:
+                 one 64-token prompt (its own bucket), max_batch 1,
+                 max_len 256: the engine's 48-token greedy stream equals a
+                 greedy loop through forward(cache=), whose logits at
+                 every step match the stateless forward within rtol 1e-4
+                 plus 1e-4 of the largest |logit| (recurrentgemma in f32:
+                 1e-3) (the ring wraps); the recurrent leaves that
+                 init_params zeroes are drawn
   4b spec    speculative decoding (ServeSpec(speculation=...), k 4):
              (a) f32, 2 layers, full width: phi3.5 paged and dense,
                  deepseek-v2 paged, gemma-2b dense; the self draft with
@@ -2136,15 +2154,15 @@ def phase_serve_dense(torch, card_line):
     return out
 
 
-def phase_profile(torch, llm, rng, label):
+def phase_profile(torch, llm, rng, label, prompt_len=256):
     """Where the device time goes: torch.profiler over a short extra run
-    on the same engine (4 fresh prompts of 256 tokens, 8 new tokens each;
-    not part of the counted main-path run).  Prints each kernel family's
-    share of device time and the device's idle share of the window, and
-    returns the device busy ms and the idle share."""
+    on the same engine (4 fresh prompts of ``prompt_len`` tokens, 8 new
+    tokens each; not part of the counted main-path run).  Prints each
+    kernel family's share of device time and the device's idle share of
+    the window, and returns the device busy ms and the idle share."""
     from torch.profiler import ProfilerActivity, profile
-    prompts = [rng.integers(0, llm.cfg.vocab_size, 256).astype("int32")
-               for _ in range(4)]
+    prompts = [rng.integers(0, llm.cfg.vocab_size, prompt_len)
+               .astype("int32") for _ in range(4)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2169,15 +2187,230 @@ def phase_profile(torch, llm, rng, label):
               f"reported no CUDA kernel time)")
         return
     shares = {k: round(v / busy, 4) for k, v in groups.items() if v > 0}
-    print(f"[profile] {label}, 4x256-token prompts + 8 new tokens: window "
-          f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
-          f"share {max(0.0, 1 - busy / wall_us):.3f} (profiler on); "
+    print(f"[profile] {label}, 4x{prompt_len}-token prompts + 8 new tokens: "
+          f"window {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, "
+          f"idle share {max(0.0, 1 - busy / wall_us):.3f} (profiler on); "
           f"device-time shares {json.dumps(shares)}")
     top.sort(reverse=True)
     print(f"[profile] {label}: largest other kernels: " + "; ".join(
         f"{name} {us / 1e3:.1f} ms" for us, name in top[:5]))
     return {"busy_ms": busy / 1e3, "idle_share": max(0.0, 1 - busy / wall_us),
             "family_ms": {k: v / 1e3 for k, v in groups.items() if v > 0}}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the recurrent families on the legacy blocking path
+# ---------------------------------------------------------------------------
+
+# 8 prompts of 64-1024 tokens, two exactly a bucket long (64 and 512)
+REC_LENS = (64, 1000, 300, 512, 130, 700, 250, 900)
+REC_NEW = 32
+REC_PARITY = (("rwkv6-1.6b", 2, {}),
+              ("recurrentgemma-9b", 3, {"window_size": 64}))
+
+
+def rec_spec(**kw):
+    """The recurrent serves: kv="auto" (the dense cache of the legacy
+    path), max_batch 4, max_len 2048."""
+    return _spec("auto", **{"prompt_len": 1024, "max_new_tokens": REC_NEW,
+                            "max_len": 2048, **kw})
+
+
+def _greedy_loop(torch, cfg, params, prompt, new, max_len, dtype):
+    """Greedy decode through forward(cache=) from an unpadded prefill:
+    (tokens, each step's logits (new, V))."""
+    from repro_torch.models.model import forward, init_cache
+    cache = init_cache(cfg, 1, max_len, dtype, "cuda")
+    out = forward(params, cfg, tokens=torch.as_tensor(
+        prompt, device="cuda").long()[None], cache=cache)
+    rows = [out.logits[0, -1]]
+    toks = [int(rows[-1].argmax())]
+    while len(toks) < new:
+        out = forward(params, cfg, tokens=torch.tensor(
+            [[toks[-1]]], device="cuda"), cache=cache)
+        rows.append(out.logits[0, 0])
+        toks.append(int(rows[-1].argmax()))
+    return toks, torch.stack(rows)
+
+
+# loop against stateless logits: rtol 1e-4 plus this share of the largest
+# |logit|, by arch and dtype.  1e-4 is the CPU tests' bound.  Only
+# recurrentgemma's attention needs 1e-3 in f32, as the sharded logits of
+# phase 5 do: the random init's attention scores reach ~1e3 there (wq and
+# wk drawn with the head count as fan-in), where an f32 score carries
+# ~6e-5 of rounding, and the one-row ring decode sums them in another
+# order than the stateless forward (1.545e-03 against a 1e-4 bound of
+# 6.693e-04 on an H100; rwkv6 1.287e-05 against 4.994e-04).  f64 holds
+# 1e-4 for both (the attention body still sums its scores in f32, as the
+# reference's does: 3.750e-04); a wrong ring or state would miss either
+# by far
+REC_ATOL = {"rwkv6-1.6b": {"float32": 1e-4, "float64": 1e-4},
+            "recurrentgemma-9b": {"float32": 1e-3, "float64": 1e-4}}
+
+# the recurrent leaves init_params sets to zero (as the reference does), by
+# the sublayer that holds them: at zero the token shift ignores the
+# previous row (mu), the bonus vanishes, and the conv taps keep the RG-LRU's
+# input and state at zero, so a fault in the carried state would not show.
+# The parity checks draw them
+REC_LEAVES = {"tm": ("mu", "w0", "bonus", "ln_x"), "cm": ("mu",),
+              "rglru": ("conv_w", "conv_b", "b_input_gate", "b_rec_gate",
+                        "lambda_p")}
+
+
+def draw_recurrent_leaves(torch, tree, gen):
+    """``tree`` (the port's params) with every REC_LEAVES leaf drawn from
+    ``gen``: the mixes uniform in [0, 1], lambda_p from N(-2, 1) (decays
+    ~0.3-0.8), the rest from N(0, 0.25)."""
+    def leaf(old, name):
+        z = torch.randn(old.shape, generator=gen, device=old.device)
+        if name == "mu":
+            z = torch.rand(old.shape, generator=gen, device=old.device)
+        elif name == "lambda_p":
+            z = z - 2.0
+        else:
+            z = 0.5 * z
+        return z.to(old.dtype)
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            names = REC_LEAVES.get(key, ())
+            return {k: leaf(v, k) if k in names else walk(v, k)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, key) for v in node)
+        return node
+    return walk(tree)
+
+
+def rec_parity(torch, gen, arch, layers, over):
+    """Full width, reduced depth, f32 and then f64 on the same weights: the
+    engine's 48-token greedy stream of one 64-token prompt (its own
+    bucket: no padding) equals a greedy loop through forward(cache=), and
+    the loop's logits at every step match the stateless forward over the
+    same tokens within rtol 1e-4 plus REC_ATOL of the largest |logit|
+    (recurrentgemma: window 64, so the ring wraps); no kernel launches.
+    The zero-initialised recurrent leaves are drawn
+    (``draw_recurrent_leaves``)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.serving.api import LLM
+    cfg = dataclasses.replace(_cut(arch, layers), **over)
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, 64).astype(np.int32)
+    new = 48
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        dn = dname(dtype)
+        params = draw_recurrent_leaves(
+            torch, init_params(gen.manual_seed(1), cfg, dtype, "cuda"), gen)
+        ops.reset_counters()
+        llm = LLM.from_spec(_spec("auto", max_batch=1, max_len=256,
+                                  prompt_len=64, max_new_tokens=new),
+                            cfg=cfg, params=params, device="cuda",
+                            dtype=dtype)
+        check(llm.engine.legacy and llm.engine.kv.backend == "dense",
+              f"{arch}: not on the legacy path's dense cache")
+        served = llm.generate([prompt], new)[0]
+        loop, rows = _greedy_loop(torch, cfg, params, prompt, new, 256,
+                                  dtype)
+        full = forward(params, cfg, tokens=torch.as_tensor(
+            np.concatenate([prompt, loop[:-1]]), device="cuda").long()[None])
+        want = full.logits[0, len(prompt) - 1:]
+        # the stateless forward's last prompt row over the prompt alone
+        alone = forward(params, cfg, tokens=torch.as_tensor(
+            prompt, device="cuda").long()[None]).logits[0, -1]
+        gap = max_err(torch, alone, want[0])
+        torch.cuda.synchronize()
+        err = max_err(torch, rows, want)
+        bound = REC_ATOL[arch][dn] * float(want.abs().max())
+        ok = bool(((rows - want).abs() <= 1e-4 * want.abs() + bound).all())
+        launches = dict(ops.counters)
+        print(f"[recurrent] {cfg.name} {dn} full width, {layers} layers"
+              + (f", window {cfg.window_size}" if cfg.window_size else "")
+              + f": engine stream == greedy loop: {served == loop}; loop "
+              f"logits vs stateless forward max err {err:.3e} (bound rtol "
+              f"1e-4 + {bound:.3e}, {REC_ATOL[arch][dn]:g} of the largest "
+              f"|logit| {float(want.abs().max()):.3f}): {ok}; the "
+              f"stateless forward's row {len(prompt) - 1} over "
+              f"{len(prompt)} rows against over {len(loop) + len(prompt) - 1}"
+              f" rows (shape_gap) {gap:.3e}; kernel launches {launches}")
+        check(served == loop,
+              f"{arch} {dn}: engine stream {served} != loop {loop}")
+        check(ok, f"{arch} {dn}: cached logits differ from the stateless "
+                  f"forward by {err}")
+        check(not launches, f"{arch}: the recurrent path launched "
+                            f"{launches}")
+        out[dn] = {"logits_max_err": err, "bound": bound, "shape_gap": gap}
+        del llm, params, full
+        free_memory(torch)
+    return out
+
+
+def _serve_legacy(torch, llm, prompts, card_line, label):
+    """``_serve`` on a legacy-path engine (no kernel may launch), with the
+    blocking prefills' share of the wall time: admission runs the prefill
+    and reads its first token back, so its host time is device-complete."""
+    eng = llm.engine
+    admit = eng._admit_legacy
+    spent = [0.0, 0]
+
+    def timed(req, slot):
+        t0 = time.perf_counter()
+        try:
+            return admit(req, slot)
+        finally:
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+    eng._admit_legacy = timed
+    try:
+        out = _serve(torch, llm, prompts, REC_NEW, {}, card_line, label)
+    finally:
+        del eng._admit_legacy
+    share = spent[0] / out["wall_s"]
+    from repro_torch.serving.engine import _bucket
+    print(f"[serve] {label}: {spent[1]} blocking prefills "
+          f"({sum(_bucket(len(p)) for p in prompts)} bucket rows) "
+          f"{spent[0]:.2f}s = {share:.3f} of the wall time; "
+          f"{out['steps']} decode steps, "
+          f"{(out['wall_s'] - spent[0]) / out['steps'] * 1e3:.1f} ms a "
+          f"decode step (the rest of the wall time over them)")
+    out.update(prefill_s=spent[0], prefill_share=share)
+    return out
+
+
+def phase_serve_recurrent(torch, card_line):
+    """rwkv6-1.6b (24 layers) and recurrentgemma-9b (38 layers) whole, bf16,
+    on the legacy blocking path: 8 prompts (REC_LENS) padded to their
+    buckets, 32 new tokens each, max_batch 4, max_len 2048; no kernel
+    counter may move; a profiler window on each; then the f32 checks at
+    reduced depth (``rec_parity``)."""
+    import numpy as np
+    import repro_torch.configs as C
+    out = {}
+    for arch, seed in (("rwkv6-1.6b", 6), ("recurrentgemma-9b", 7)):
+        cfg = C.get(arch)
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in REC_LENS]
+        llm = _load(torch, rec_spec(), cfg, card_line)
+        check(llm.engine.legacy and llm.engine.kv.backend == "dense"
+              and llm.engine.draft is None,
+              f"{arch}: not on the legacy path's dense cache")
+        label = f"{arch} ({cfg.n_layers} layers, legacy path)"
+        torch.cuda.reset_peak_memory_stats()
+        out[arch] = _serve_legacy(torch, llm, prompts, card_line, label)
+        # short prompts: the recurrences' per-token prefill loop emits
+        # ~100k events a 1024-token bucket, which the profiler takes
+        # minutes to reduce
+        out[arch]["profile"] = phase_profile(torch, llm, rng, label,
+                                             prompt_len=32)
+        del llm
+        free_memory(torch)
+    gen = torch.Generator(device="cuda")
+    for arch, layers, over in REC_PARITY:
+        out[f"{arch} parity"] = rec_parity(torch, gen, arch, layers, over)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3142,6 +3375,14 @@ def main() -> int:
     for arch in ("gemma-2b", "minitron-8b"):
         serves += [dense[arch]["paged"], dense[arch]["dense"]]
     checked = [phi, phi, ds, ds1, ds, gm1, gm, gm, mn, mn]
+    free_memory(torch)
+    # the recurrent families: no kernel lies on their path, so their
+    # serves add no launches and no shapes to check
+    recurrent = timed("serve_recurrent", phase_serve_recurrent, torch,
+                      card_line)
+    check(all(not recurrent[a]["launches"]
+              for a in ("rwkv6-1.6b", "recurrentgemma-9b")),
+          "a recurrent serve launched a kernel")
     free_memory(torch)
     spec = timed("spec", phase_spec, torch, card_line)
     for run, shapes in zip(spec_runs(), sp):

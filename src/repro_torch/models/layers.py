@@ -147,68 +147,97 @@ def _masked_softmax_av(q, k, v, mask, scale):
         .to(q.dtype)
 
 
+def _key_mask(q_pos, k_pos, base, causal: bool, window: int):
+    """(b, sq, skv) visibility: ``base`` (1|b, skv) valid keys, then the
+    causal and sliding-window tests on absolute positions ``q_pos``
+    (b, sq) and ``k_pos`` (1|b, skv)."""
+    mask = base[:, None, :].expand(q_pos.shape[0], q_pos.shape[1], -1)
+    if causal:
+        mask = mask & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window > 0:
+        mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+    return mask
+
+
+def _abs_keys(k_positions, kv_len, b: int, skv: int, device):
+    """(k_pos (1|b, skv), valid (1|b, skv)): explicit ring positions
+    (negative = invalid) replace the slot index; otherwise the slot index
+    with the ``kv_len`` tail masked (``kv_len=None``: every key)."""
+    if k_positions is not None:
+        k_pos = k_positions.long().reshape(-1, skv)
+        return k_pos, k_pos >= 0
+    k_pos = torch.arange(skv, device=device)[None]
+    if kv_len is None:
+        return k_pos, torch.ones(1, skv, dtype=torch.bool, device=device)
+    return k_pos, k_pos < _per_slot(kv_len, b, device)[:, None]
+
+
 def chunked_attention(q, k, v, *, q_offset=0, kv_len=None,
-                      causal: bool = True, scale: Optional[float] = None,
+                      causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None, k_positions=None,
                       policy: Optional[KernelPolicy] = None):
     """q (b, sq, nq, hd); k, v (b, skv, nkv, hd[v]).  ``q_offset`` and
     ``kv_len`` are scalars (a uniform batch) or (b,) per-slot vectors (the
     unified mixed step); ``kv_len=None`` (the stateless path) masks no key
     tail.  Row r of slot i sits at position ``q_offset[i] + r`` and sees
     keys ``pos < kv_len[i]`` (and ``pos <= q_offset[i] + r`` when causal).
+    ``window`` > 0 adds the sliding-window test ``pos > q_pos - window``;
+    ``k_positions`` ((skv,) or (b, skv)) gives each key's absolute position
+    for a ring-buffer cache (negative = invalid; ``kv_len`` is then
+    ignored).
 
     ``policy.flash_chunk`` routes the cache-backed causal case (``kv_len``
-    given) through the dense ``flash_chunk`` kernel with
-    ``q_len = kv_len - q_offset``; its rows past ``q_len`` come back as
-    exact zeros instead of finite garbage.  The stateless case keeps the
-    plain body, as in the reference."""
+    given, no window, slot-indexed keys) through the dense ``flash_chunk``
+    kernel with ``q_len = kv_len - q_offset``; its rows past ``q_len`` come
+    back as exact zeros instead of finite garbage.  The stateless case, a
+    window and a ring keep the plain body, as in the reference."""
     b, sq, _, hd = q.shape
     skv = k.shape[1]
     scale = scale if scale is not None else hd ** -0.5
     if (policy is not None and policy.flash_chunk and causal
-            and kv_len is not None):
+            and window == 0 and k_positions is None and kv_len is not None):
         from repro_torch.kernels import ops as _kops
         off = _per_slot(q_offset, b, q.device)
         lens = _per_slot(kv_len, b, q.device)
         return _kops.flash_chunk(q.contiguous(), k.contiguous(),
                                  v.contiguous(), off, lens - off, lens,
                                  scale=float(scale))
-    q_pos = _per_slot(q_offset, b, q.device)[:, None] \
+    q_pos = _per_slot(q_offset, b, q.device)[:, None].long() \
         + torch.arange(sq, device=q.device)
-    k_pos = torch.arange(skv, device=q.device)
-    if kv_len is None:
-        mask = torch.ones(b, sq, skv, dtype=torch.bool, device=q.device)
-    else:
-        lens = _per_slot(kv_len, b, q.device)
-        mask = (k_pos[None, None, :] < lens[:, None, None]) \
-            .expand(b, sq, skv)
-    if causal:
-        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
-    return _masked_softmax_av(q, k, v, mask, scale)
+    k_pos, base = _abs_keys(k_positions, kv_len, b, skv, q.device)
+    return _masked_softmax_av(q, k, v,
+                              _key_mask(q_pos, k_pos, base, causal, window),
+                              scale)
 
 
-def decode_attention(q, k, v, *, kv_len, q_positions,
+def decode_attention(q, k, v, *, kv_len=None, q_positions,
+                     window: int = 0, k_positions=None,
                      scale: Optional[float] = None,
                      policy: Optional[KernelPolicy] = None):
-    """One-step attention: q (b, 1, nq, hd) vs cache k/v (b, S, nkv, hd[v]);
-    ``kv_len`` (scalar or (b,)) masks slots >= length, ``q_positions``
-    ((1|b, 1)) gives the query's absolute position.
+    """One-step attention: q (b, sq, nq, hd) vs cache k/v (b, S, nkv,
+    hd[v]); ``kv_len`` (scalar or (b,)) masks slots >= length,
+    ``q_positions`` ((1|b, sq)) gives the queries' absolute positions;
+    ``window`` and ``k_positions`` as in ``chunked_attention`` (the ring
+    buffer's decode).
 
-    ``policy.flash_decode`` routes through ``ops.flash_decode`` (the dense
-    ``flash_chunk`` kernel at one row), whose length mask assumes the
-    decode invariant ``q_position == kv_len - 1`` that the callers keep; a
-    slot with ``kv_len == 0`` comes back as an exact-zero row."""
+    ``policy.flash_decode`` routes the slot-indexed, window-free one-row
+    case through ``ops.flash_decode`` (the dense ``flash_chunk`` kernel at
+    one row), whose length mask assumes the decode invariant
+    ``q_position == kv_len - 1`` that the callers keep; a slot with
+    ``kv_len == 0`` comes back as an exact-zero row."""
     b, skv = q.shape[0], k.shape[1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    lens = _per_slot(kv_len, b, q.device)
-    if policy is not None and policy.flash_decode and q.shape[1] == 1:
+    if (policy is not None and policy.flash_decode and q.shape[1] == 1
+            and window == 0 and k_positions is None and kv_len is not None):
         from repro_torch.kernels import ops as _kops
         return _kops.flash_decode(
             q[:, 0].contiguous(), k.contiguous(), v.contiguous(),
-            lens, scale=float(scale))[:, None]
-    k_pos = torch.arange(skv, device=q.device)
-    mask = (k_pos[None, None, :] < lens[:, None, None]) \
-        & (k_pos[None, None, :] <= q_positions.expand(b, -1)[:, :, None])
-    return _masked_softmax_av(q, k, v, mask, scale)
+            _per_slot(kv_len, b, q.device), scale=float(scale))[:, None]
+    k_pos, base = _abs_keys(k_positions, kv_len, b, skv, q.device)
+    q_pos = q_positions.long().reshape(-1, q.shape[1]).expand(b, -1)
+    return _masked_softmax_av(q, k, v,
+                              _key_mask(q_pos, k_pos, base, True, window),
+                              scale)
 
 
 # ---------------------------------------------------------------------------

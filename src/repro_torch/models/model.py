@@ -1,21 +1,31 @@
-"""Decoder for the dense and MoE families (the serving main path).
+"""Decoder for the families the port serves.
 
-One ``ModelConfig`` + this module = a runnable model for the families the
-port serves so far, each with GQA or MLA attention:
-  dense   attention + dense MLP          (smollm-360m, gemma-2b,
+One ``ModelConfig`` + this module = a runnable model for:
+  dense   GQA|MLA attention + dense MLP  (smollm-360m, gemma-2b,
                                           minitron-8b, minicpm3-4b, ...)
   moe     attention + dropless MoE       (phi3.5-moe-42b, deepseek-v2-236b)
+  ssm     RWKV6 time-mix + channel-mix   (rwkv6-1.6b)
+  hybrid  (rec, rec, attn) Griffin pattern: RG-LRU blocks and sliding-
+          window attention over a ring buffer (recurrentgemma-9b)
+The frontend families (audio, vision) are not ported yet (ROADMAP A10b).
 
 The reference stacks each homogeneous layer group on a leading axis and
-scans it; the port keeps one parameter dict per layer and loops.  Two
-caches, as in the reference, each per group with a leading ``count`` axis:
+scans it; the port keeps one parameter dict per layer (per repeat of a
+pattern group: one dict per sub-layer ``l0``, ``l1``, ...) and loops, in
+the reference's order (within a repeat l0, l1, l2).  Two caches, as in the
+reference, each per group with a leading ``count`` axis:
   paged (``init_paged_cache``)  pools ``(count, pool_pages, page, ...)`` —
           K/V ``(..., nkv, hd)`` for GQA, the latent ``c (..., r)`` and
           ``kr (..., rope_head_dim)`` for MLA — plus per-slot ``length``
           and ``block_tables``;
   dense (``init_cache``)        per-slot buffers ``(count, batch, max_len,
           ...)`` and a ``length`` (0-d: one offset for the batch; the
-          serving backend makes it per slot).
+          serving backend makes it per slot); the recurrent kinds hold
+          their carried state instead (RWKV6's f32 wkv memory and token-
+          shift rows, the RG-LRU's f32 state and conv tail) and the local
+          attention a ring of the last ``window`` keys with their absolute
+          positions ``kpos`` (-1 = empty).  The recurrent families run on
+          the dense cache only (the engine's legacy path).
 ``forward`` runs the unified mixed prefill/decode step on either, a
 uniform prefill or decode on the dense cache, or the stateless forward
 (``cache=None``), and updates a cache's buffers and ``length`` IN PLACE.
@@ -44,6 +54,7 @@ from repro_torch.core import collectives as C
 from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as S
 from repro_torch.models.param import P, init_tree, stack
 
 
@@ -53,11 +64,9 @@ from repro_torch.models.param import P, init_tree, stack
 
 @dataclasses.dataclass(frozen=True)
 class Group:
-    kind: str            # dense | moe
-    count: int           # layers in the group
-
-
-_FAMILIES = ("dense", "vlm", "moe")
+    kind: str            # dense | moe | rwkv | rec | attn | pattern
+    count: int           # layers (pattern: repeats) in the group
+    sub: tuple = ()      # pattern: the sub-layer kinds of one repeat
 
 
 def layer_plan(cfg: ModelConfig) -> tuple[Group, ...]:
@@ -67,20 +76,43 @@ def layer_plan(cfg: ModelConfig) -> tuple[Group, ...]:
             g.append(Group("dense", cfg.first_dense_layers))
         g.append(Group("moe", cfg.n_layers - cfg.first_dense_layers))
         return tuple(g)
-    if cfg.family in _FAMILIES:
+    if cfg.family == "ssm":
+        return (Group("rwkv", cfg.n_layers),)
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        reps, rem = divmod(cfg.n_layers, len(pat))
+        g = [Group("pattern", reps, pat)] if reps else []
+        # remainder layers continue the pattern prefix, grouped by equal kind
+        i = 0
+        while i < rem:
+            j = i
+            while j < rem and pat[j] == pat[i]:
+                j += 1
+            g.append(Group(pat[i], j - i))
+            i = j
+        return tuple(g)
+    if cfg.family in ("dense", "vlm"):
         return (Group("dense", cfg.n_layers),)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP A10)")
+        f"family {cfg.family!r} is not ported yet (ROADMAP A10b)")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     layer_plan(cfg)
-    if cfg.attention not in ("gqa", "mla"):
+    if cfg.attention not in ("gqa", "mla", "none", "local"):
         raise NotImplementedError(
-            f"{cfg.attention} attention is not ported yet (ROADMAP A10)")
+            f"{cfg.attention} attention is not ported yet (ROADMAP A10b)")
     if cfg.frontend or cfg.mrope:
         raise NotImplementedError(
-            "frontend / M-RoPE models are not ported yet (ROADMAP A10)")
+            "frontend / M-RoPE models are not ported yet (ROADMAP A10b)")
+
+
+def _sub_groups(g: Group) -> list:
+    """(key, kind) of each sub-layer of one entry of the group: the
+    pattern's ``l0``, ``l1``, ... or the group's own kind (key None)."""
+    if g.kind == "pattern":
+        return [(f"l{i}", k) for i, k in enumerate(g.sub)]
+    return [(None, g.kind)]
 
 
 # ---------------------------------------------------------------------------
@@ -88,12 +120,26 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def sublayer_spec(cfg: ModelConfig, kind: str) -> dict:
-    attn = L.mla_spec(cfg) if cfg.attention == "mla" else L.gqa_spec(cfg)
-    if kind == "dense":
-        return {"attn": attn, "mlp": L.mlp_spec(cfg)}
-    if kind == "moe":
+    if kind in ("dense", "moe"):
+        attn = L.mla_spec(cfg) if cfg.attention == "mla" else L.gqa_spec(cfg)
+        if kind == "dense":
+            return {"attn": attn, "mlp": L.mlp_spec(cfg)}
         return {"attn": attn, "moe": MOE.moe_spec(cfg)}
+    if kind == "rwkv":
+        return {"tm": S.rwkv6_spec(cfg), "cm": S.rwkv6_channel_mix_spec(cfg)}
+    if kind == "rec":
+        return {"rglru": S.rglru_spec(cfg), "mlp": L.mlp_spec(cfg)}
+    if kind == "attn":
+        return {"attn": L.gqa_spec(cfg), "mlp": L.mlp_spec(cfg)}
     raise KeyError(kind)
+
+
+def group_spec(cfg: ModelConfig, g: Group) -> list:
+    """One spec a layer (a pattern: a repeat of ``{"l0": ..., ...}``)."""
+    if g.kind == "pattern":
+        return stack({key: sublayer_spec(cfg, k)
+                      for key, k in _sub_groups(g)}, g.count)
+    return stack(sublayer_spec(cfg, g.kind), g.count)
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -102,8 +148,7 @@ def model_spec(cfg: ModelConfig) -> dict:
     spec: dict[str, Any] = {
         "embed": P((v, h), ("vocab", "embed"), scale=0.02),
         "final_norm": P((h,), ("embed",), init="zeros"),
-        "groups": [stack(sublayer_spec(cfg, g.kind), g.count)
-                   for g in layer_plan(cfg)],
+        "groups": [group_spec(cfg, g) for g in layer_plan(cfg)],
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = P((h, v), ("embed", "vocab"))
@@ -146,6 +191,11 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     this rank's ``nkv / tp`` heads; every rank holds every page and
     tracks every slot."""
     _check_supported(cfg)
+    for g in layer_plan(cfg):
+        if g.kind not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"paged KV cache unsupported for layer kind {g.kind!r} — "
+                "this family serves through the dense legacy path")
     if max_len % page_size:
         raise ValueError(f"page_size {page_size} must divide "
                          f"max_len {max_len}")
@@ -165,27 +215,53 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _cache_for(cfg: ModelConfig, kind: str, count: int, batch: int,
                max_len: int, dtype, device) -> dict:
-    """One layer group's dense per-slot buffers."""
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP A10)")
-    if cfg.attention == "mla":
-        tails = {"c": (cfg.kv_lora_rank,), "kr": (cfg.rope_head_dim,)}
+    """One layer group's dense per-slot buffers (a recurrent kind: its
+    carried state; the local attention: its ring)."""
+    h = cfg.d_model
+    f32 = torch.float32
+    if kind in ("dense", "moe"):
+        if cfg.attention == "mla":
+            tails = {"c": (cfg.kv_lora_rank,), "kr": (cfg.rope_head_dim,)}
+        else:
+            tails = {n: (cfg.n_kv_heads, cfg.head_dim) for n in ("k", "v")}
+        shapes = {n: ((max_len,) + t, dtype) for n, t in tails.items()}
+    elif kind == "rwkv":
+        nh = max(1, h // 64)
+        hd = h // nh
+        shapes = {"state": ((nh, hd, hd), f32), "x_tm": ((1, h), dtype),
+                  "x_cm": ((1, h), dtype)}
+    elif kind == "rec":
+        w, cw = cfg.lru_width, cfg.conv1d_width
+        shapes = {"lru": ((w,), f32), "conv": ((cw - 1, w), dtype)}
+    elif kind == "attn":
+        W = min(cfg.window_size, max_len) if cfg.window_size else max_len
+        kv = (W, cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": (kv, dtype), "v": (kv, dtype),
+                  "kpos": ((W,), torch.int32)}
     else:
-        tails = {n: (cfg.n_kv_heads, cfg.head_dim) for n in ("k", "v")}
-    return {n: torch.zeros((count, batch, max_len) + tail, dtype=dtype,
-                           device=device) for n, tail in tails.items()}
+        raise KeyError(kind)
+    # ring positions start invalid (-1); everything else at zero
+    return {n: torch.full((count, batch) + shape,
+                          -1 if dt == torch.int32 else 0, dtype=dt,
+                          device=device)
+            for n, (shape, dt) in shapes.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    """Dense KV cache: per group ``k``/``v`` ``(count, batch, max_len, nkv,
-    hd)`` for GQA (MLA: ``c`` / ``kr``), and a 0-d int32 ``length`` — one
-    offset for the whole batch (``serving.kv_cache.make_batched_cache``
+    """Dense cache: per group ``k``/``v`` ``(count, batch, max_len, nkv,
+    hd)`` for GQA (MLA: ``c`` / ``kr``; the recurrent kinds their state,
+    the local attention its ring; a pattern group one such dict a
+    sub-layer, under ``l0``, ``l1``, ...), and a 0-d int32 ``length`` —
+    one offset for the whole batch (``serving.kv_cache.make_batched_cache``
     makes it a per-slot vector)."""
     _check_supported(cfg)
-    return {"groups": [_cache_for(cfg, g.kind, g.count, batch, max_len,
-                                  dtype, device) for g in layer_plan(cfg)],
+    groups = []
+    for g in layer_plan(cfg):
+        subs = {key: _cache_for(cfg, k, g.count, batch, max_len, dtype,
+                                device) for key, k in _sub_groups(g)}
+        groups.append(subs if g.kind == "pattern" else subs[None])
+    return {"groups": groups,
             "length": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -193,15 +269,133 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # Sub-layer application
 # ---------------------------------------------------------------------------
 
+def _ring_from_prefill(k, v, W: int, s: int):
+    """A ring-buffer cache holding the last W of the s fresh rows (slot =
+    position % W, chunk-local positions; empty slots -1)."""
+    b = k.shape[0]
+    if s >= W:
+        kc = torch.roll(k[:, s - W:], shifts=s % W, dims=1)
+        vc = torch.roll(v[:, s - W:], shifts=s % W, dims=1)
+        kpos = torch.roll(torch.arange(s - W, s, dtype=torch.int32,
+                                       device=k.device), shifts=s % W)
+    else:
+        pad = W - s
+        kc = torch.cat([k, k.new_zeros(b, pad, *k.shape[2:])], 1)
+        vc = torch.cat([v, v.new_zeros(b, pad, *v.shape[2:])], 1)
+        kpos = torch.cat([torch.arange(s, dtype=torch.int32,
+                                       device=k.device),
+                          torch.full((pad,), -1, dtype=torch.int32,
+                                     device=k.device)])
+    return kc, vc, kpos.expand(b, W)
+
+
+def _local_attn(p, x, cfg: ModelConfig, c, length):
+    """Sliding-window GQA layer (recurrentgemma) over a ring-buffer cache
+    ``c`` (k/v (b, W, nkv, hd), kpos (b, W)), updated in place; None on
+    the stateless path.  A prefill (s > 1, one offset for the batch)
+    attends over [ring ; fresh rows] with explicit positions, then rebuilds
+    the ring from the fresh rows; a decode writes its row at slot
+    ``position % W``."""
+    b, s, h = x.shape
+    W = c["k"].shape[1] if c is not None else cfg.window_size
+    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    q = L._proj_heads(xn, p["wq"])
+    k = L._proj_heads(xn, p["wk"])
+    v = L._proj_heads(xn, p["wv"])
+    idx = 0 if c is None else length
+    positions = L.positions_from(idx, s, x.device)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    if c is None:
+        out = L.chunked_attention(q, k, v, causal=True,
+                                  window=cfg.window_size)
+    elif s > 1:      # (chunked) prefill into the ring: one offset
+        if not (s >= W or cfg.window_size >= W):
+            raise ValueError("chunked prefill requires chunk >= window "
+                             "(ring rebuild)")
+        # chunk i > 0 must see the previous chunk's ring tail: attend over
+        # [ring slots ; fresh chunk] with explicit positions
+        kpos_old = c["kpos"][0] if c["kpos"].dim() == 2 else c["kpos"]
+        pos_cat = torch.cat([kpos_old, torch.arange(
+            s, dtype=torch.int32, device=x.device) + idx])
+        out = L.chunked_attention(
+            q, torch.cat([c["k"], k.to(c["k"].dtype)], 1),
+            torch.cat([c["v"], v.to(c["v"].dtype)], 1), q_offset=idx,
+            causal=True, window=cfg.window_size, k_positions=pos_cat)
+        kc, vc, kpos = _ring_from_prefill(k, v, W, s)
+        # positions are chunk-local in _ring_from_prefill; shift by idx
+        c["k"].copy_(kc)
+        c["v"].copy_(vc)
+        c["kpos"].copy_(torch.where(kpos >= 0, kpos + idx, kpos))
+    else:            # decode against the ring (slot = position % W)
+        idx_vec = L._per_slot(idx, b, x.device)
+        slot = idx % W
+        L.write_cache(c["k"], k, slot)
+        L.write_cache(c["v"], v, slot)
+        L.write_cache(c["kpos"][..., None], idx_vec[:, None, None], slot)
+        out = L.decode_attention(q, c["k"], c["v"],
+                                 q_positions=L.positions_from(idx, s,
+                                                              x.device),
+                                 window=cfg.window_size,
+                                 k_positions=c["kpos"])
+    nq, hd = out.shape[2], out.shape[3]
+    return (out.reshape(b * s, nq * hd) @ p["wo"].reshape(nq * hd, h)) \
+        .reshape(b, s, h)
+
+
+def _apply_recurrent(kind: str, p, x, c, cfg: ModelConfig, length):
+    """One residual layer of the recurrent families (rwkv, rec, attn);
+    its carried state in ``c`` is updated in place."""
+    if kind == "rwkv":
+        t_out, (state, x_tm) = S.rwkv6_time_mix(
+            p["tm"], x, cfg, state=None if c is None else c["state"],
+            x_prev=None if c is None else c["x_tm"])
+        x = x + t_out
+        c_out, x_cm = S.rwkv6_channel_mix(
+            p["cm"], x, cfg, x_prev=None if c is None else c["x_cm"])
+        x = x + c_out
+        new = {"state": state, "x_tm": x_tm, "x_cm": x_cm}
+    elif kind == "rec":
+        r_out, (lru, conv) = S.rglru_block(
+            p["rglru"], x, cfg, state=None if c is None else c["lru"],
+            conv_state=None if c is None else c["conv"])
+        x = x + r_out
+        x = x + L.mlp(p["mlp"], x, cfg)
+        new = {"lru": lru, "conv": conv}
+    elif kind == "attn":
+        x = x + _local_attn(p["attn"], x, cfg, c, length)
+        return x + L.mlp(p["mlp"], x, cfg)
+    else:
+        raise KeyError(kind)
+    if c is not None:
+        for n, t in new.items():
+            c[n].copy_(t)
+    return x
+
+
 def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
                    plan: ShardingPlan, positions, length, q_lens,
                    block_tables, with_stats: bool = False,
                    seq_sharded: bool = False):
     """One residual layer.  ``c`` holds this layer's cache buffers (K/V,
-    or MLA's latent c/kr; pools when ``block_tables`` is given), or None
-    on the stateless path.  Returns (x, aux, counts): ``counts`` is the
-    per-expert routed-slot vector (zeros for dense layers) when
-    ``with_stats``, else None."""
+    or MLA's latent c/kr; pools when ``block_tables`` is given; a
+    recurrent kind's state, the local attention's ring), or None on the
+    stateless path.  Returns (x, aux, counts): ``counts`` is the
+    per-expert routed-slot vector (zeros for non-MoE layers) when
+    ``with_stats``, else None.  The recurrent kinds advance their state by
+    every row, so they cannot mask a ragged tail: the unified step
+    (``q_lens``) refuses them, as in the reference."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    counts = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
+                         device=x.device) if with_stats else None
+    if kind not in ("dense", "moe"):
+        if q_lens is not None:
+            raise NotImplementedError(
+                f"unified mixed step (q_lens) unsupported for layer kind "
+                f"{kind!r} — serve this family through the legacy engine "
+                "path")
+        return _apply_recurrent(kind, p, x, c, cfg, length), aux, counts
     if cfg.attention == "mla":
         a_out, _ = L.mla_attention(
             p["attn"], x, cfg, plan,
@@ -215,9 +409,6 @@ def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
                                    q_lens=q_lens, positions=positions,
                                    seq_sharded=seq_sharded)
     x = x + a_out
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    counts = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
-                         device=x.device) if with_stats else None
     if kind == "moe":
         r = MOE.moe_rank(p["moe"], x, cfg, plan, with_stats=with_stats,
                          seq_sharded=seq_sharded)
@@ -225,10 +416,8 @@ def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
         if with_stats:
             counts = r[2]
         x = x + m_out
-    elif kind == "dense":
-        x = x + L.mlp(p["mlp"], x, cfg, plan, seq_sharded=seq_sharded)
     else:
-        raise KeyError(kind)
+        x = x + L.mlp(p["mlp"], x, cfg, plan, seq_sharded=seq_sharded)
     return x, aux, counts
 
 
@@ -361,15 +550,19 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     for gi, g in enumerate(layer_plan(cfg)):
         bufs = None if cache is None else cache["groups"][gi]
         for li, p_l in enumerate(params["groups"][gi]):
-            c_l = None if bufs is None else {n: t[li]
-                                             for n, t in bufs.items()}
-            x, a, cnt = apply_sublayer(
-                g.kind, p_l, x, c_l, cfg=cfg, plan=plan, positions=positions,
-                length=length, q_lens=q_lens, block_tables=block_tables,
-                with_stats=expert_stats, seq_sharded=seq_sharded)
-            aux_total = aux_total + a
-            if expert_stats:
-                counts_total = counts_total + cnt
+            for key, kind in _sub_groups(g):    # a pattern: l0, l1, ...
+                p_k = p_l if key is None else p_l[key]
+                b_k = bufs if key is None or bufs is None else bufs[key]
+                c_l = None if b_k is None else {n: t[li]
+                                                for n, t in b_k.items()}
+                x, a, cnt = apply_sublayer(
+                    kind, p_k, x, c_l, cfg=cfg, plan=plan,
+                    positions=positions, length=length, q_lens=q_lens,
+                    block_tables=block_tables, with_stats=expert_stats,
+                    seq_sharded=seq_sharded)
+                aux_total = aux_total + a
+                if expert_stats:
+                    counts_total = counts_total + cnt
 
     x = plan.gather_seq(x, seq_sharded)
     if last_only and rows_loc is not None:   # the rows asked for
@@ -387,5 +580,6 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
 
 
 __all__ = ["Group", "layer_plan", "model_spec", "sublayer_spec",
-           "init_params", "count_params", "init_cache", "init_paged_cache",
-           "apply_sublayer", "embed_tokens", "lm_head", "forward", "Output"]
+           "group_spec", "init_params", "count_params", "init_cache",
+           "init_paged_cache", "apply_sublayer", "embed_tokens", "lm_head",
+           "forward", "Output"]

@@ -39,8 +39,18 @@ Speculative decoding (``spec.speculation``, greedy only): a draft source
 prices them as budget rows before prefill, the step verifies them, and the
 rejected tail rolls back (the device length inside the step, the paged
 pages through ``kv.rollback``).  On a mesh only the n-gram draft is served.
-The legacy blocking path for recurrent / hybrid / frontend families
-(ROADMAP A10) is not ported: a config that needs it raises.
+
+Legacy path — the reference's pre-unified two-program engine (bucket-padded
+blocking prefill in ``admit`` + a separate decode step) serves the families
+the unified step cannot (``unified_supported`` False: the recurrent state
+of rwkv6 and the ring buffers of recurrentgemma advance by every row, so a
+ragged tail cannot be masked).  It pins the dense cache, runs on one device
+(a mesh raises, ROADMAP A12) and never speculates.  It keeps the
+reference's semantics, faults included: the prompt is padded to its bucket
+with id 0 and the whole bucket runs through the prefill, so the recurrent
+state and the ring come from the last bucket row, not the last real one
+(only the first token reads the real row); a resumed request re-prefills
+its prompt alone, not the tokens it had generated.
 """
 
 from __future__ import annotations
@@ -56,10 +66,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cost_model import cap_rows_for
-from repro_torch.models.model import forward
+from repro_torch.core.resolve import KVConfig
+from repro_torch.models.layers import single_device
+from repro_torch.models.model import forward, init_cache
 from repro_torch.serving.draft import make_draft
 from repro_torch.serving.faults import FaultInjector, InjectedFault
-from repro_torch.serving.kv_cache import make_kv_cache
+from repro_torch.serving.kv_cache import insert_slot, make_kv_cache
 
 
 class PromptTooLongError(ValueError):
@@ -125,7 +137,16 @@ class Request:
         return (self.t_done - self.t_first_token) / (n - 1)
 
 
-MAX_BUCKET = 4096      # hard prompt cap, as in the reference
+def _bucket(n: int,
+            buckets=(32, 64, 128, 256, 512, 1024, 2048, 4096)) -> int:
+    """The legacy prefill's padded length for an n-token prompt."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+MAX_BUCKET = 4096      # largest legacy prefill bucket — hard prompt cap
 
 
 def unified_supported(cfg: ModelConfig) -> bool:
@@ -155,10 +176,12 @@ class Engine:
         if spec is None:
             raise TypeError("Engine needs a resolved spec: Engine(cfg, "
                             "params, ServeSpec(...).resolve(cfg))")
-        if not unified_supported(cfg):
-            raise NotImplementedError(
-                f"{cfg.name} (family {cfg.family}) needs the legacy blocking "
-                "path, which is not ported yet (ROADMAP A10)")
+        # the blocking-prefill path serves the families the unified step
+        # cannot (recurrent state, ring buffers); it keeps the dense cache,
+        # which a mesh does not serve yet
+        self.legacy = not unified_supported(cfg)
+        if self.legacy:
+            single_device(spec.plan, f"the legacy blocking path ({cfg.name})")
         self.device = resolve_device(device)
         self.spec = spec
         self.cfg, self.params, self.plan = cfg, params, spec.plan
@@ -185,9 +208,11 @@ class Engine:
         self.faults = FaultInjector(getattr(spec, "faults", ()),
                                     seed=spec.seed)
         self.events: Counter = Counter()
-        self.kv = make_kv_cache(cfg, getattr(spec, "kv", None),
-                                self.max_batch, self.max_len, dtype,
-                                self.device, plan=self.plan)
+        kvcfg = getattr(spec, "kv", None)
+        if self.legacy:          # insert_slot fills dense per-slot buffers
+            kvcfg = KVConfig(backend="dense")
+        self.kv = make_kv_cache(cfg, kvcfg, self.max_batch, self.max_len,
+                                dtype, self.device, plan=self.plan)
 
         # speculative decoding (resolved ``spec.speculation`` or None): a
         # speculating slot contributes 1 + k rows to the same unified step,
@@ -197,7 +222,7 @@ class Engine:
         sc = getattr(spec, "speculation", None)
         self.spec_cfg = self.draft = None
         self.spec_k = 0
-        if sc is not None and self.temperature == 0:
+        if sc is not None and not self.legacy and self.temperature == 0:
             k = min(int(sc.k), self.chunk - 1)
             if k >= 1:
                 self.spec_cfg = sc if sc.k == k \
@@ -218,13 +243,17 @@ class Engine:
         self.accept_ema = 1.0
 
         self.slots: list[Optional[Request]] = [None] * self.max_batch
+        # legacy path: each slot's next decode input, kept on the device
+        self.cur_tokens = torch.zeros((self.max_batch, 1), dtype=torch.int32,
+                                      device=self.device)
         self._pending = [None] * self.max_batch   # tokens to prefill
         self._prompt_pos = [0] * self.max_batch   # pending tokens written
         self._last_tok = [0] * self.max_batch     # last sampled token
         self._admit_seq = [0] * self.max_batch    # admission (prefill FIFO)
         self._seq = 0
         self._step_idx = 0                # engine step counter (fault keys)
-        self.n_forward = 0                # unified steps that ran the model
+        self.n_forward = 0                # steps that ran the model
+        self.n_prefill = 0                # legacy blocking prefills
         self.last_step_tokens = 0         # the watchdog's progress signal
         self.last_logits = None                # (B, V) of the last step
         self.step_logits = None                # (B, chunk, V), debug_logits
@@ -239,13 +268,19 @@ class Engine:
     # -- validation ------------------------------------------------------
     def validate(self, req: Request) -> None:
         """Reject a request whose prompt + generation can never fit."""
-        need = len(req.prompt) + max(0, req.max_new_tokens - 1)
+        s = len(req.prompt) + self._front_len()
+        need = s + max(0, req.max_new_tokens - 1)
+        if self.legacy:
+            # the blocking prefill writes a whole bucket-padded buffer into
+            # the cache, so the BUCKET must fit, not just the prompt
+            need = max(need, _bucket(len(req.prompt)) + self._front_len())
         if len(req.prompt) > MAX_BUCKET or need > self.max_len:
             raise PromptTooLongError(
                 f"request {req.rid}: prompt of {len(req.prompt)} tokens "
-                f"(+{req.max_new_tokens} new) needs {need} cache positions "
-                f"but max_len={self.max_len} (prompt cap {MAX_BUCKET}) — "
-                "raise max_len, shorten the prompt, or lower max_new_tokens")
+                f"(+{self._front_len()} frontend, +{req.max_new_tokens} new) "
+                f"needs {need} cache positions but max_len={self.max_len} "
+                f"(prompt cap {MAX_BUCKET}) — raise max_len, shorten the "
+                "prompt, or lower max_new_tokens")
         if self.kv.pool_tokens is not None and need > self.kv.pool_tokens:
             raise PromptTooLongError(
                 f"request {req.rid}: needs {need} cache positions but the "
@@ -279,16 +314,20 @@ class Engine:
             last = out.logits[:, 0]
             step_logits = None
         bad = (q_lens > 0) & ~torch.isfinite(last).all(-1)
+        nxt = self._sample(last)
+        emit = (q_lens > 0).to(torch.int32)
+        return (nxt.to(torch.int32)[:, None], emit, last, step_logits, bad,
+                out.expert_counts)
+
+    def _sample(self, last):
+        """The next token of each row of ``last`` (B, V): argmax, or a draw
+        from the engine's generator at ``temperature > 0``."""
         if self.temperature > 0:
             probs = torch.softmax(last.float() / self.temperature, -1)
             probs = torch.nan_to_num(probs, nan=0.0).clamp_min(0)
             probs[probs.sum(-1) == 0] = 1.0       # quarantined rows
-            nxt = torch.multinomial(probs, 1, generator=self.gen)[:, 0]
-        else:
-            nxt = torch.argmax(last, -1)
-        emit = (q_lens > 0).to(torch.int32)
-        return (nxt.to(torch.int32)[:, None], emit, last, step_logits, bad,
-                out.expert_counts)
+            return torch.multinomial(probs, 1, generator=self.gen)[:, 0]
+        return torch.argmax(last, -1)
 
     def _verify_impl(self, tokens, q_lens, v_lens):
         """The speculative step: one logit row per draft position.  Row j
@@ -332,6 +371,33 @@ class Engine:
         return (greedy, emit, sel[:, 0], step_logits, bad,
                 out.expert_counts)
 
+    def _prefill_impl(self, tokens, real_len: int):
+        """The legacy blocking prefill of one bucket-padded prompt (1,
+        bucket) into a fresh batch-1 dense cache: the logits of the last
+        REAL row and the cache, its length the real length."""
+        cache = init_cache(self.cfg, 1, self.max_len, self.dtype, self.device)
+        out = forward(self.params, self.cfg, self.plan, tokens=tokens,
+                      cache=cache)
+        last = out.logits[:, real_len - 1 + self._front_len()]
+        cache["length"] = torch.full((1,), real_len + self._front_len(),
+                                     dtype=torch.int32, device=self.device)
+        return last, cache
+
+    def _front_len(self) -> int:
+        """Frontend positions a request holds ahead of its prompt: none
+        until the frontend families are ported (ROADMAP A10b)."""
+        return 0
+
+    def _decode_impl(self, tokens, active):
+        """One legacy decode step of every slot: idle slots' states advance
+        too, only the active slots' lengths do."""
+        length = self.cache["length"]
+        before = length.clone()
+        out = forward(self.params, self.cfg, self.plan, tokens=tokens,
+                      cache=self.cache)
+        length.copy_(torch.where(active, length, before))
+        return self._sample(out.logits[:, 0]).to(torch.int32)
+
     # -- slot management -------------------------------------------------
     def free_slots(self) -> list:
         return [i for i, r in enumerate(self.slots) if r is None]
@@ -358,6 +424,8 @@ class Engine:
         if not free:
             return False
         slot = free[0]
+        if self.legacy:
+            return self._admit_legacy(req, slot)
         self.slots[slot] = req
         # resume replays generated-so-far tokens as a prompt suffix
         self._pending[slot] = np.concatenate(
@@ -374,6 +442,25 @@ class Engine:
         if req.t_admitted == 0.0:
             req.t_admitted = time.perf_counter()
         req.state = RequestState.RUNNING
+        return True
+
+    def _admit_legacy(self, req: Request, slot: int) -> bool:
+        """The blocking prefill: the prompt (not a resumed request's
+        generated tokens) padded with id 0 to its bucket, its first token
+        the argmax of the last real row, its cache inserted into ``slot``."""
+        s = len(req.prompt)
+        toks = np.zeros((1, _bucket(s)), np.int32)
+        toks[0, :s] = req.prompt
+        last_logits, cache1 = self._prefill_impl(
+            torch.from_numpy(toks).to(self.device), s)
+        self.n_prefill += 1
+        first = int(torch.argmax(last_logits[0]))
+        insert_slot(self.cache, cache1, slot)
+        self.cur_tokens[slot, 0] = first
+        req.out_tokens.append(first)
+        req.t_admitted = req.t_first_token = time.perf_counter()
+        req.state = RequestState.RUNNING
+        self.slots[slot] = req
         return True
 
     def release(self, slot: int, state: str, error: str = "",
@@ -520,7 +607,10 @@ class Engine:
     # -- stepping --------------------------------------------------------
     def step(self, token_budget: Optional[int] = None) -> list:
         """One engine iteration.  Returns retired requests (state DONE, or
-        FAILED for NaN-quarantined slots, or PREEMPTED)."""
+        FAILED for NaN-quarantined slots, or PREEMPTED).  Legacy: one
+        decode step of every active (prefilled) slot."""
+        if self.legacy:
+            return self._step_legacy()
         q = self.plan_q_lens(token_budget)
         preempted = []
         # paged-pool deadlock breaker: live slots exist but the pool could
@@ -727,6 +817,40 @@ class Engine:
                 "ep_rank_mean_tokens": float(per_rank.mean()),
                 "a2a_bytes_moved": int(self.a2a_bytes_moved),
                 "a2a_bytes_worst": int(self.a2a_bytes_worst)}
+
+    def _step_legacy(self) -> list:
+        step_idx = self._step_idx
+        self._step_idx += 1
+        if self.faults:
+            spike = self.faults.step_latency_s(step_idx)
+            if spike > 0:
+                time.sleep(spike)            # injected straggler
+        # reap requests already complete or externally released: the
+        # blocking prefill emits the first token inside admit, so a
+        # max_new_tokens == 1 request is done before its first decode step
+        finished = self._reap()
+        occupied = [r is not None for r in self.slots]
+        self.last_step_tokens = sum(occupied)
+        if not any(occupied):
+            return finished
+        self.n_forward += 1
+        nxt = self._decode_impl(self.cur_tokens, torch.tensor(
+            occupied, device=self.device))
+        # the next step's inputs stay on the device; the host reads the
+        # tokens once, for request bookkeeping
+        self.cur_tokens = nxt[:, None]
+        now = time.perf_counter()
+        nxt_host = nxt.cpu().numpy()
+        for i, r in enumerate(self.slots):
+            if r is None:
+                continue
+            r.out_tokens.append(int(nxt_host[i]))
+            r.t_done = now
+            if r.done:
+                r.state = RequestState.DONE
+                finished.append(r)
+                self.slots[i] = None
+        return finished
 
     @property
     def n_active(self) -> int:

@@ -31,7 +31,10 @@ is updated in place: ``begin``/``free`` write the slot's ``length`` entry,
 the paged ``flush`` copies the host block tables to the device only when
 they changed.  A mesh serves the paged backend only: ``kv="dense"`` raises
 there (ROADMAP A12).  ``rollback`` drops a slot's rejected speculative
-tail.  The legacy path's ``insert_slot`` (ROADMAP A10) is not ported.
+tail.  The dense backend also holds the recurrent families' state (RWKV6's
+and the RG-LRU's in f32 whatever the serving dtype, the local attention's
+ring); the legacy blocking path fills one slot of it from a batch-1
+prefill cache with ``insert_slot``.
 """
 
 from __future__ import annotations
@@ -107,9 +110,17 @@ class KVCache:
         raise NotImplementedError
 
     def kv_bytes(self) -> int:
-        """Concrete device bytes of the KV buffers."""
+        """Concrete device bytes of the KV buffers (and recurrent state)."""
         return int(sum(t.numel() * t.element_size()
-                       for g in self.cache["groups"] for t in g.values()))
+                       for t in _leaves(self.cache["groups"])))
+
+
+def _leaves(tree) -> list:
+    """The tensors of a cache's nested dicts and lists, in order."""
+    if torch.is_tensor(tree):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for sub in items for t in _leaves(sub)]
 
 
 class DenseKVCache(KVCache):
@@ -366,6 +377,17 @@ def make_kv_cache(cfg: ModelConfig, kv: Optional[KVConfig], batch: int,
                         dtype=dtype, device=device, plan=plan)
 
 
+def insert_slot(big, small, slot: int):
+    """Copy a batch-1 cache ``small`` into batch slot ``slot`` of ``big``
+    IN PLACE (cast to ``big``'s dtypes); returns ``big``.  Every buffer is
+    (layers, batch, ...), the ring positions ``kpos`` (layers, batch, W)
+    included, so the slot is axis 1; ``length`` is (batch,)."""
+    big["length"][slot] = small["length"].reshape(-1)[0]
+    for b, s in zip(_leaves(big["groups"]), _leaves(small["groups"])):
+        b[:, slot:slot + 1].copy_(s)
+    return big
+
+
 def batched_lengths(cache) -> torch.Tensor:
     return cache["length"]
 
@@ -384,5 +406,5 @@ def make_batched_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 __all__ = ["KVCache", "KVStats", "DenseKVCache", "PagedKVCache",
-           "make_kv_cache", "init_cache", "init_paged_cache",
+           "make_kv_cache", "init_cache", "init_paged_cache", "insert_slot",
            "batched_lengths", "with_lengths", "make_batched_cache"]

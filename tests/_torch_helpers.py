@@ -6,6 +6,8 @@ every other input is drawn with numpy from a fixed seed.  The port runs on
 the CPU (``device="cpu"``), JAX on the CPU too.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ import torch
 import repro.configs as RC
 import repro_torch.configs as TC
 from repro.models.model import init_params as ref_init_params
+from _recurrent_leaves import draw_recurrent_leaves
 from repro_torch.bridge import from_reference
 
 # The shapes here are tiny; one intra-op thread per test process keeps the
@@ -38,6 +41,18 @@ def both_params(arch: str, seed: int = 0):
     rp = ref_init_params(jax.random.PRNGKey(seed), rcfg, jnp.float32)
     tp = from_reference(jax.tree.map(np.asarray, rp), tcfg)
     return rcfg, rp, tcfg, tp
+
+
+def recurrent_params(arch: str, seed: int = 0, **cfg_kw):
+    """(ref cfg, ref params, port cfg, port params) for a reduced recurrent
+    arch with ``cfg_kw`` replaced, the zero-initialised recurrent leaves
+    drawn from ``seed`` (``draw_recurrent_leaves``)."""
+    rcfg = dataclasses.replace(RC.get_reduced(arch), **cfg_kw)
+    tcfg = dataclasses.replace(TC.get_reduced(arch), **cfg_kw)
+    rp = draw_recurrent_leaves(
+        ref_init_params(jax.random.PRNGKey(seed), rcfg, jnp.float32), seed)
+    return rcfg, rp, tcfg, from_reference(jax.tree.map(np.asarray, rp),
+                                          tcfg)
 
 
 def paged_tables(b: int, nb: int, used_blocks, seed: int = 0):

@@ -815,3 +815,106 @@ def test_gather_entry_refuses_a_grid_short_of_the_plan(dev, short):
         *grid, ops._stream())
     torch.cuda.synchronize()
     assert rc == 9 and (out == 0).all()
+
+
+def _recurrent_calls(arch, cfg, params):
+    """(params, [call(p, x, (s0, s1)) -> (out, (s0, s1))]) of the reduced
+    model's first recurrent layer."""
+    from repro_torch.models import ssm
+    if arch == "rwkv6-1.6b":
+        def time_mix(p, x, st):
+            return ssm.rwkv6_time_mix(p["tm"], x, cfg, state=st[0],
+                                      x_prev=st[1])
+
+        def channel_mix(p, x, st):
+            out, last = ssm.rwkv6_channel_mix(p["cm"], x, cfg, x_prev=st[1])
+            return out, (None, last)
+        return params["groups"][0][0], [time_mix, channel_mix]
+    p = params["groups"][0][0]["l0"]["rglru"]
+
+    def block(p, x, st):
+        return ssm.rglru_block(p, x, cfg, state=st[0], conv_state=st[1])
+    return p, [block]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_recurrent_layers_on_card_match_the_cpu(dev, arch):
+    """The reduced model's recurrent layers (rwkv6 time- and channel-mix;
+    the RG-LRU block), their zero-initialised leaves drawn, on the card
+    against the same call on the CPU, f32, from zero state and then from
+    the state the first call carried; within rtol 1e-4 plus 1e-5 of the
+    tensor's largest |value|, at most 5e-4 (the wkv state sums outer
+    products of ~8-wide rows, so a small entry carries the rounding of the
+    large ones: 1.75e-4 on an entry of 0.53 on an H100)."""
+    import repro_torch.configs as C
+    from _recurrent_leaves import draw_recurrent_leaves
+    from repro_torch.models import model as M
+    cfg = C.get_reduced(arch)
+    params = draw_recurrent_leaves(M.init_params(
+        torch.Generator().manual_seed(0), cfg, torch.float32, "cpu"))
+    g = torch.Generator().manual_seed(1)
+    p, calls = _recurrent_calls(arch, cfg, params)
+    x = torch.randn(2, 9, cfg.d_model, generator=g)
+    p_dev = _to(p, dev)
+    for call in calls:
+        st_cpu = st_dev = (None, None)
+        for _ in range(2):                       # zero, then carried
+            out_c, st_cpu = call(p, x, st_cpu)
+            out_d, st_dev = call(p_dev, x.to(dev), st_dev)
+            for got, want in ((out_d, out_c),) + tuple(zip(st_dev, st_cpu)):
+                if want is not None:
+                    torch.testing.assert_close(
+                        got.cpu(), want, rtol=1e-4,
+                        atol=min(5e-4, 1e-5 * max(1.0, float(
+                            want.abs().max()))))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_legacy_serve_on_card(dev, arch):
+    """A reduced legacy serve on the card, f32, window 8 (the ring wraps),
+    the zero-initialised recurrent leaves drawn: kernels on launch none and
+    give the kernels-off streams; the cached greedy loop's logits match the
+    stateless forward's."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch.configs as C
+    from _recurrent_leaves import draw_recurrent_leaves
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import LLM, ServeSpec
+    cfg = dataclasses.replace(C.get_reduced(arch), window_size=8)
+    params = draw_recurrent_leaves(M.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, torch.float32, dev))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (20, 32, 70)]
+    streams = {}
+    for kern in ("on", "off"):
+        llm = LLM.from_spec(ServeSpec(arch=arch, kernels=kern, max_batch=2,
+                                      max_len=256), cfg=cfg, params=params,
+                            device=dev)
+        assert llm.engine.legacy
+        ops.reset_counters()
+        streams[kern] = llm.generate(prompts, 8)
+        assert not ops.counters
+    assert streams["on"] == streams["off"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 30))).to(dev)
+    full = M.forward(params, cfg, tokens=toks).logits
+    cache = M.init_cache(cfg, 2, 64, torch.float32, dev)
+    rows = [M.forward(params, cfg, tokens=toks[:, :6],
+                      cache=cache).logits]
+    for i in range(6, 30):
+        rows.append(M.forward(params, cfg, tokens=toks[:, i:i + 1],
+                              cache=cache).logits)
+    got = torch.cat(rows, 1)
+    torch.testing.assert_close(got, full, rtol=1e-4,
+                               atol=1e-4 * float(full.abs().max()))

@@ -61,10 +61,10 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 def test_unported_options_raise():
     """Each option the port does not serve yet raises, naming its ROADMAP
-    item: the dense KV backend, the stateless forward and a model draft
-    for speculative decoding on a mesh (A12; on one device all three run,
-    and the n-gram draft runs on a mesh too), the legacy families
-    (A10)."""
+    item: the dense KV backend, the stateless forward, a model draft for
+    speculative decoding and the legacy blocking path on a mesh (A12; on
+    one device all four run, and the n-gram draft runs on a mesh too), the
+    frontend families (A10b)."""
     import repro_torch.configs as TC
     from repro_torch.core.partitioner import make_plan
     from repro_torch.core.resolve import KVConfig
@@ -94,9 +94,18 @@ def test_unported_options_raise():
                        plan=plan, dtype=torch.float32, device="cpu")
     assert make_draft(SpeculationConfig(k=2, draft="ngram"), cfg, params,
                       plan=plan).name == "ngram"
-    with pytest.raises(NotImplementedError, match="A10"):
-        LLM.from_spec(ServeSpec(arch="rwkv6-1.6b", max_batch=1, max_len=64,
-                                chunk=8, kv="auto"), device="cpu")
+    with pytest.raises(NotImplementedError, match="A10b"):
+        LLM.from_spec(ServeSpec(arch="whisper-tiny", max_batch=1,
+                                max_len=64, chunk=8, kv="auto"), device="cpu")
+    from repro_torch.serving.engine import Engine
+    rcfg = TC.get_reduced("rwkv6-1.6b")
+    spec = ServeSpec(arch="rwkv6-1.6b", max_batch=4, max_len=64, chunk=8,
+                     strategy="mixserve").resolve(
+        mesh=Mesh(("data", "model"), (2, 2), 0), device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        Engine(rcfg, MOD.init_params(torch.Generator().manual_seed(0), rcfg,
+                                     torch.float32, "cpu"), spec,
+               device="cpu")
     assert KernelPolicy.auto("cpu") == KernelPolicy()
     assert KernelPolicy.auto("cuda") == KernelPolicy.parse("on")
 
