@@ -90,6 +90,32 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                  plus 1e-4 of the largest |logit| (recurrentgemma in f32:
                  1e-3) (the ring wraps); the recurrent leaves that
                  init_params zeroes are drawn
+  4d frontend   the frontend families on the legacy path, whose blocking
+             prefill runs flash_chunk (batch 1, q_offset 0) and whose
+             decode runs flash_decode, a layer each:
+             (a) bf16, full width and depth, a seeded stub through
+                 embeds_fn: qwen2-vl-7b (28 layers, M-RoPE, 256 patch
+                 embeddings of the embedding table's scale ahead of each
+                 prompt), max_batch 4, max_len 2048, 8 prompts of 64-1024
+                 tokens, 32 new; whisper-tiny (4 + 4 layers, 1500 random
+                 frames into the encoder), max_len 512, 8 prompts of
+                 16-256 tokens, 64 new: launches exact per decode step
+                 and per prefill, every attention geometry recorded and
+                 held to the ones phase 2 checked, ms per decode step,
+                 the prefills' share of wall time, TTFT, ITL, tok/s,
+                 peak memory, a profiler window;
+             (b) f32, full width, qwen2-vl 3 layers and whisper whole,
+                 the zero-initialised norms drawn: the engine with
+                 kernels on against off (streams equal, first-token
+                 logits within the bound), and the cached loop through
+                 the kernels and through the plain bodies against the
+                 stateless forward within the same bound: rtol 1e-4 plus
+                 the larger of 1e-4 of the largest |logit| and how far
+                 the logits move when the first layer's norm weight is
+                 scaled by 1 + 2^-23 (at full width the random init
+                 makes them chaotic in f32)
+             (phase 2 checks flash_chunk at each prefill geometry of
+             these serves and flash_decode at their decode step)
   4b spec    speculative decoding (ServeSpec(speculation=...), k 4):
              (a) f32, 2 layers, full width: phi3.5 paged and dense,
                  deepseek-v2 paged, gemma-2b dense; the self draft with
@@ -1556,14 +1582,17 @@ def phase_host(torch, phi, dsh):
                lambda: torch.index_select(xsz, 0, sidx))
 
 
-def phase_kernels(torch, phi, ds, ds1, dsh, dense=None, spec=None):
+def phase_kernels(torch, phi, ds, ds1, dsh, dense=None, spec=None,
+                  front=None):
     """phi / ds / ds1: the resolved shapes of the phi3.5 serve, the
     deepseek serve and the deepseek chunk=1 serve, each with the capacity
     ``C`` its capacity-dispatch serve gives; dsh: the distributed serve's
     per-rank shapes; ``dense``: those of the gemma-2b, minitron-8b and
     gemma chunk=1 serves (``resolve_dense_shapes``), or None to skip
     their attention records; ``spec``: the phi3.5 speculated serve's
-    (``spec_shapes``), or None to skip the speculative geometries."""
+    (``spec_shapes``), or None to skip the speculative geometries;
+    ``front``: the frontend serves' envelopes and attention geometries
+    (``resolve_front_shapes``), or None to skip them."""
     import numpy as np
     from repro_torch.configs.paper_models import PAPER_MODELS
     from repro_torch.core.resolve import AUTO_BATCH_CAP
@@ -1581,6 +1610,8 @@ def phase_kernels(torch, phi, ds, ds1, dsh, dense=None, spec=None):
         check_flash_dense_models(torch, rng, res, *dense, dev)
     if spec is not None:
         check_flash_spec(torch, rng, res, spec, dev)
+    if front is not None:
+        check_flash_frontend(torch, rng, res, front, dev)
     t_phi = phi["max_batch"] * phi["chunk"]
     t_ds = ds["max_batch"] * ds["chunk"]
     check_launch_floor(torch, res)
@@ -1863,12 +1894,15 @@ def phase_parity_dense(torch, gen):
     return out
 
 
-def expected_launches(per_step, steps, per_draft=None, d_fwd=0):
-    """Launches of ``steps`` unified steps at ``per_step`` each plus
-    ``d_fwd`` draft forwards at ``per_draft`` each (zero counts left
-    out, as the counters leave them)."""
+def expected_launches(per_step, steps, per_draft=None, d_fwd=0,
+                       per_prefill=None, prefills=0):
+    """Launches of ``steps`` steps at ``per_step`` each plus ``d_fwd``
+    draft forwards at ``per_draft`` each and ``prefills`` blocking
+    prefills at ``per_prefill`` each (zero counts left out, as the
+    counters leave them)."""
     want: dict = {}
-    for per, n in ((per_step, steps), (per_draft or {}, d_fwd)):
+    for per, n in ((per_step, steps), (per_draft or {}, d_fwd),
+                   (per_prefill or {}, prefills)):
         for k, v in per.items():
             if v * n:
                 want[k] = want.get(k, 0) + v * n
@@ -1876,18 +1910,19 @@ def expected_launches(per_step, steps, per_draft=None, d_fwd=0):
 
 
 def _serve(torch, llm, prompts, new, per_step, card_line, label,
-           per_draft=None):
+           per_draft=None, per_prefill=None):
     """Submit every prompt, stream to the end, check the tokens and the
-    exact launch counts: ``per_step`` a unified step, plus ``per_draft``
-    a forward of the engine's draft model when speculating; print TTFT /
-    ITL / tok/s / memory."""
+    exact launch counts: ``per_step`` a step (unified, or a legacy decode
+    step), plus ``per_draft`` a forward of the engine's draft model when
+    speculating and ``per_prefill`` a legacy blocking prefill; print TTFT
+    / ITL / tok/s / memory."""
     import numpy as np
     from repro_torch.kernels import ops
     eng = llm.engine
     draft = eng.draft
     d0 = getattr(draft, "n_forward", 0)
     ops.reset_counters()
-    n0 = eng.n_forward
+    n0, p0 = eng.n_forward, eng.n_prefill
     t0 = time.perf_counter()
     t_sub = {llm.submit(p, new): time.perf_counter() for p in prompts}
     t_tok: dict = {}
@@ -1899,6 +1934,7 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label,
     wall = time.perf_counter() - t0
     launches = dict(ops.counters)
     steps = eng.n_forward - n0
+    prefills = eng.n_prefill - p0
     d_fwd = getattr(draft, "n_forward", 0) - d0
     n_tok = sum(len(v) for v in outs.values())
     ttft = [t_tok[r][0] - t_sub[r] for r in t_sub]
@@ -1914,10 +1950,13 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label,
           f"{max(ttft) * 1e3:.0f} ms, ITL mean {np.mean(itl) * 1e3:.1f} ms, "
           f"prefix hits {hits}, max_memory_allocated {mem:.1f} GiB "
           f"[{card_line}]")
-    want = expected_launches(per_step, steps, per_draft, d_fwd)
+    want = expected_launches(per_step, steps, per_draft, d_fwd,
+                             per_prefill, prefills)
     print(f"[serve] {label}: kernel launches {launches} (expect per step "
           f"{per_step}" + (f", per draft forward {per_draft} x {d_fwd}"
-                           if per_draft else "") + ")")
+                           if per_draft else "")
+          + (f", per blocking prefill {per_prefill} x {prefills}"
+             if per_prefill else "") + ")")
     check(all(len(outs.get(r, [])) == new for r in t_sub),
           f"serve {label}: a request did not finish with {new} tokens")
     check(all(0 <= t < llm.cfg.vocab_size for v in outs.values() for t in v),
@@ -1926,6 +1965,7 @@ def _serve(torch, llm, prompts, new, per_step, card_line, label,
           f"serve {label}: launch counters {launches} != {want}")
     return {"launches": launches, "steps": steps, "wall_s": wall,
             "tok_s": n_tok / wall, "draft_forwards": d_fwd,
+            "prefills": prefills,
             "streams": [outs[r] for r in t_sub],
             "ttft_ms": float(np.mean(ttft) * 1e3),
             "itl_ms": float(np.mean(itl) * 1e3), "prefix_hits": hits,
@@ -1980,11 +2020,12 @@ def _serve_capacity(torch, llm, prompts, new, per_step, card_line, label):
     return out
 
 
-def _load(torch, spec, cfg, card_line):
+def _load(torch, spec, cfg, card_line, **kw):
     from repro_torch.serving.api import LLM
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    llm = LLM.from_spec(spec, cfg=cfg, device="cuda", dtype=torch.bfloat16)
+    llm = LLM.from_spec(spec, cfg=cfg, device="cuda", dtype=torch.bfloat16,
+                        **kw)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name} bf16 weights ready in "
           f"{time.perf_counter() - t0:.1f}s, max_memory_allocated while "
@@ -2347,10 +2388,13 @@ def rec_parity(torch, gen, arch, layers, over):
     return out
 
 
-def _serve_legacy(torch, llm, prompts, card_line, label):
-    """``_serve`` on a legacy-path engine (no kernel may launch), with the
-    blocking prefills' share of the wall time: admission runs the prefill
-    and reads its first token back, so its host time is device-complete."""
+def _serve_legacy(torch, llm, prompts, card_line, label, new=REC_NEW,
+                  per_step=None, per_prefill=None):
+    """``_serve`` on a legacy-path engine (exact launches: ``per_step`` a
+    decode step and ``per_prefill`` a blocking prefill; none by default),
+    with the blocking prefills' share of the wall time: admission runs
+    the prefill and reads its first token back, so its host time is
+    device-complete."""
     eng = llm.engine
     admit = eng._admit_legacy
     spent = [0.0, 0]
@@ -2364,13 +2408,15 @@ def _serve_legacy(torch, llm, prompts, card_line, label):
             spent[1] += 1
     eng._admit_legacy = timed
     try:
-        out = _serve(torch, llm, prompts, REC_NEW, {}, card_line, label)
+        out = _serve(torch, llm, prompts, new, per_step or {}, card_line,
+                     label, per_prefill=per_prefill)
     finally:
         del eng._admit_legacy
     share = spent[0] / out["wall_s"]
     from repro_torch.serving.engine import _bucket
+    rows = sum(_bucket(len(p)) + eng._front_len() for p in prompts)
     print(f"[serve] {label}: {spent[1]} blocking prefills "
-          f"({sum(_bucket(len(p)) for p in prompts)} bucket rows) "
+          f"({rows} bucket rows, the frontend's included) "
           f"{spent[0]:.2f}s = {share:.3f} of the wall time; "
           f"{out['steps']} decode steps, "
           f"{(out['wall_s'] - spent[0]) / out['steps'] * 1e3:.1f} ms a "
@@ -2410,6 +2456,430 @@ def phase_serve_recurrent(torch, card_line):
     gen = torch.Generator(device="cuda")
     for arch, layers, over in REC_PARITY:
         out[f"{arch} parity"] = rec_parity(torch, gen, arch, layers, over)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the frontend families on the legacy blocking path
+# ---------------------------------------------------------------------------
+
+# the bf16 serves: 8 prompts a model (qwen2-vl: 64-1024 tokens, two a
+# bucket long; whisper: 16-256, three a bucket long), max_batch 4; the
+# profiler window's prompt length is one of the served buckets, so its
+# kernel geometries are the serve's
+FRONT_SERVES = {
+    "qwen2-vl-7b": dict(lens=(64, 1024, 300, 512, 130, 700, 250, 900),
+                        new=32, max_len=2048, profile_len=64, seed=8),
+    "whisper-tiny": dict(lens=(16, 256, 100, 32, 200, 64, 150, 240),
+                         new=64, max_len=512, profile_len=32, seed=9),
+}
+# the f32 checks at full width: qwen2-vl at 3 layers, whisper whole
+FRONT_PARITY = (("qwen2-vl-7b", 3), ("whisper-tiny", None))
+FRONT_PARITY_LENS = (40, 100, 200)
+FRONT_PARITY_NEW = 8
+# The f32 checks' bound: rtol 1e-4 plus the larger of 1e-4 of the largest
+# |logit| (the CPU tests' bound) and ``ulp_gap``, how far the stateless
+# logits move when the first layer's norm weight is scaled by 1 + 2^-23.
+# At full width the random init (wq / wk drawn with the head count as
+# fan-in: peaked attention; whisper's cross-attention over 1500 iid
+# frames) makes the logits chaotic in f32: on an H100 that one-ulp change
+# moves them by 1.377e-02 (qwen2-vl, 3 layers) and 1.456e-01 (whisper),
+# the plain bodies' own cached loop differs from the stateless forward by
+# 4.217e-03 / 3.843e-02, and kernels on against off by 1.202e-03 /
+# 3.360e-03, while 1e-4 of the largest |logit| is ~5.4e-04 (each f32
+# kernel alone matches its plain version to 7.2e-07 at these geometries).
+# So the kernels' f32 order may move the logits no more than one ulp at
+# the input does; the reduced CPU and card tests hold 1e-4.
+# the norm weights init_params sets to zero (as the reference does): at
+# zero a swapped or skipped norm would not show, so the f32 checks draw
+# them, as the CPU tests do
+FRONT_NORMS = ("norm", "mlp_norm", "final_norm")
+
+
+def front_spec(arch, **kw):
+    """A frontend serve: kv="auto" (the legacy path's dense cache)."""
+    sv = FRONT_SERVES[arch]
+    return _spec("auto", **{"prompt_len": max(sv["lens"]),
+                            "max_new_tokens": sv["new"],
+                            "max_len": sv["max_len"], **kw})
+
+
+def front_stub(torch, cfg, seed):
+    """(forward keyword, tensor) of one seeded stub input, f32 on the
+    card: qwen2-vl's (1, 256, 3584) patch embeddings at the embedding
+    table's scale (0.02), whisper's (1, 1500, 384) frames from N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.frontend == "vision_stub":
+        return "embeds", 0.02 * torch.randn(
+            (1, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+            device="cuda")
+    e = cfg.encoder
+    return "frames", torch.randn((1, e.n_frames, e.d_model), generator=gen,
+                                 device="cuda")
+
+
+def stub_fn(name, stub):
+    """An ``embeds_fn``: the same stub for every admission (the
+    reference's interface takes only a batch size)."""
+    return lambda b: {name: stub.expand(b, *stub.shape[1:])}
+
+
+def _geometry(kernel, b, sq, q, k):
+    """One attention launch's geometry: (kernel, B, sq, nq, nkv, hd, S,
+    dtype)."""
+    return (kernel, b, sq, q.shape[-2], k.shape[2], q.shape[-1],
+            k.shape[1], dname(q.dtype))
+
+
+class record_geometries:
+    """Within the block, add the geometry of every ``ops.flash_chunk`` /
+    ``ops.flash_decode`` call to ``sink`` (the wrappers count and launch
+    as before)."""
+
+    def __init__(self, sink):
+        self.sink = sink
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.saved = ops, (ops.flash_chunk, ops.flash_decode)
+        chunk, decode = self.saved
+        sink = self.sink
+
+        def rec_chunk(q, k, v, *a, **kw):
+            sink.add(_geometry("flash_chunk", q.shape[0], q.shape[1], q, k))
+            return chunk(q, k, v, *a, **kw)
+
+        def rec_decode(q, k, v, *a, **kw):
+            sink.add(_geometry("flash_decode", q.shape[0], 1, q, k))
+            return decode(q, k, v, *a, **kw)
+        ops.flash_chunk, ops.flash_decode = rec_chunk, rec_decode
+        return sink
+
+    def __exit__(self, *exc):
+        self.ops.flash_chunk, self.ops.flash_decode = self.saved
+
+
+def resolve_front_shapes():
+    """Each frontend serve's envelope and the attention geometries its
+    bf16 serve and profiler window launch: the blocking prefill of each
+    bucket, (1, front + bucket) rows on a (1, max_len) cache, and the
+    decode of every slot on the (max_batch, max_len) cache."""
+    import repro_torch.configs as C
+    from repro_torch.serving.engine import _bucket
+    out = {}
+    for arch, sv in FRONT_SERVES.items():
+        cfg = C.get(arch)
+        res = front_spec(arch).resolve(cfg, device="cuda")
+        B, S = res.max_batch, res.max_len
+        front = cfg.n_frontend_tokens if cfg.frontend == "vision_stub" \
+            else 0
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        sqs = sorted({front + _bucket(n)
+                      for n in sv["lens"] + (sv["profile_len"],)})
+        geo = {("flash_chunk", 1, sq) + heads + (S, "bfloat16")
+               for sq in sqs}
+        geo.add(("flash_decode", B, 1) + heads + (S, "bfloat16"))
+        out[arch] = {"max_batch": B, "max_len": S, "front": front,
+                     "heads": heads, "prefill_sq": sqs, "geometries": geo}
+    print(f"[shapes] frontend serves " + json.dumps(
+        {a: {k: v for k, v in d.items() if k != "geometries"}
+         for a, d in out.items()}))
+    return out
+
+
+def check_flash_frontend(torch, rng, res, front, dev):
+    """flash_chunk at every blocking prefill of the frontend serves (batch
+    1, q_offset 0, kv_len = front + bucket on the (1, max_len) cache) and
+    flash_decode at their decode step ((max_batch, max_len), lengths
+    [S, 1, S/2 + 5, 0]): bf16 against the plain version (FLASH_TOL) and
+    against the f32 plain version, the largest prefill and the decode
+    also in f32; the largest and smallest prefill and the decode timed
+    beside SDPA with the boolean mask and their bound."""
+    ops, ref = _ops()
+    for arch, sh in front.items():
+        nq, nkv, hd = sh["heads"]
+        B, S, sqs = sh["max_batch"], sh["max_len"], sh["prefill_sq"]
+        for sq in sqs:
+            for dtype in (torch.bfloat16, torch.float32):
+                if dtype == torch.float32 and sq != sqs[-1]:
+                    continue
+                d = dname(dtype)
+                args = _dense_case(torch, rng, b=1, sq=sq, nq=nq, nkv=nkv,
+                                   hd=hd, hdv=hd, skv=S, q_off=[0],
+                                   q_len=[sq], kv_len=[sq], dtype=dtype,
+                                   dev=dev)
+                got, want = ops.flash_chunk(*args), ref.flash_chunk_ref(*args)
+                torch.cuda.synchronize()
+                rec = {"label": f"{arch} legacy prefill, {sh['front']} "
+                                f"front + {sq - sh['front']} bucket rows {d}",
+                       "max_err": max_err(torch, got, want),
+                       "tol": list(FLASH_TOL[d]),
+                       "ok": within(torch, got, want, *FLASH_TOL[d]),
+                       "shape": f"q {tuple(args[0].shape)} k "
+                                f"{tuple(args[1].shape)} q_len [{sq}] "
+                                f"kv_len [{sq}]"}
+                if dtype == torch.bfloat16:
+                    want32 = ref.flash_chunk_ref(*_upcast(args))
+                    rec.update(max_err_vs_f32=max_err(torch, got, want32),
+                               tol_vs_f32=list(FLASH_TOL_VS_F32))
+                    rec["ok"] &= within(torch, got, want32,
+                                        *FLASH_TOL_VS_F32)
+                if dtype == torch.bfloat16 and sq in (sqs[0], sqs[-1]):
+                    time_rec(torch, rec, lambda a=args: ops.flash_chunk(*a),
+                             20, lambda a=args: ref.flash_chunk_ref(*a), 5,
+                             _sdpa_call(torch, *args, hd ** -0.5, want))
+                    bts, flops = _attn_work([0], [sq], [sq], nq, nkv, hd,
+                                            hd, 2)
+                    rec.update(bytes=bts + got.numel() * 2, flops=flops,
+                               peak="bf16", primary=False)
+                res.add("flash_chunk", rec, "disagrees with its plain "
+                                            "version at a legacy prefill")
+                del args, got, want
+        lens = [S, 1, S // 2 + 5, 0][:B] + [1] * max(0, B - 4)
+        for dtype in (torch.bfloat16, torch.float32):
+            d = dname(dtype)
+            q, k, v, *_ = _dense_case(torch, rng, b=B, sq=1, nq=nq, nkv=nkv,
+                                      hd=hd, hdv=hd, skv=S, q_off=lens,
+                                      q_len=lens, kv_len=lens, dtype=dtype,
+                                      dev=dev)
+            q = q[:, 0].contiguous()
+            ln = _i32(torch, lens, dev)
+            got, want = ops.flash_decode(q, k, v, ln), \
+                ref.flash_decode_ref(q, k, v, ln)
+            torch.cuda.synchronize()
+            ok = within(torch, got, want, *FLASH_TOL[d]) and all(
+                bool((got[i] == 0).all()) for i in range(B) if lens[i] == 0)
+            rec = {"label": f"flash_decode {arch} legacy decode S={S} {d}",
+                   "max_err": max_err(torch, got, want),
+                   "tol": list(FLASH_TOL[d]), "ok": ok,
+                   "shape": f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                            f"lengths {lens}"}
+            if dtype == torch.bfloat16:
+                want32 = ref.flash_decode_ref(q.float(), k.float(),
+                                              v.float(), ln)
+                rec.update(max_err_vs_f32=max_err(torch, got, want32),
+                           tol_vs_f32=list(FLASH_TOL_VS_F32))
+                rec["ok"] = ok and within(torch, got, want32,
+                                          *FLASH_TOL_VS_F32)
+                q_off = [max(n - 1, 0) for n in lens]
+                q_len = [min(n, 1) for n in lens]
+                lib = _sdpa_call(torch, q[:, None], k, v, *(
+                    _i32(torch, a, dev) for a in (q_off, q_len, lens)),
+                    hd ** -0.5, want[:, None])
+                time_rec(torch, rec, lambda: ops.flash_decode(q, k, v, ln),
+                         50, lambda: ref.flash_decode_ref(q, k, v, ln), 10,
+                         lib)
+                bts, flops = _attn_work(q_off, q_len, lens, nq, nkv, hd, hd,
+                                        2)
+                rec.update(bytes=bts + got.numel() * 2, flops=flops,
+                           peak="bf16")
+            res.add("flash_chunk", rec, "flash_decode disagrees with its "
+                                        "plain version at a legacy decode")
+            del q, k, v, got, want
+        free_memory(torch)
+
+
+def draw_norms(torch, tree, gen):
+    """``tree`` (the port's params) with every FRONT_NORMS leaf drawn from
+    N(0, 0.25) by ``gen``."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (0.5 * torch.randn(v.shape, generator=gen,
+                                          device=v.device)).to(v.dtype)
+                    if k in FRONT_NORMS and torch.is_tensor(v) else walk(v)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+    return walk(tree)
+
+
+def _within_bound(torch, got, want, share):
+    """(max err, bound, ok): |got - want| <= 1e-4 |want| + ``share`` of
+    the largest |want|."""
+    bound = share * float(want.abs().max())
+    return (max_err(torch, got, want), bound,
+            bool(((got - want).abs() <= 1e-4 * want.abs() + bound).all()))
+
+
+def _cached_rows(torch, params, cfg, plan, prompt, stub_kw, new, feed=None):
+    """A greedy loop through forward(cache=) from a prefill of the stub and
+    ``prompt``: (logits (new, vocab_size), tokens); with ``feed`` it
+    feeds those tokens instead of its own argmax."""
+    from repro_torch.models.model import forward, init_cache
+    cache = init_cache(cfg, 1, 512, torch.float32, "cuda")
+    v = cfg.vocab_size
+    out = forward(params, cfg, plan, tokens=torch.as_tensor(
+        prompt, device="cuda").long()[None], cache=cache, **stub_kw)
+    rows = [out.logits[0, -1, :v]]
+    toks = [int(rows[-1].argmax())]
+    while len(rows) < new:
+        nxt = toks[-1] if feed is None else feed[len(rows) - 1]
+        out = forward(params, cfg, plan, tokens=torch.tensor(
+            [[nxt]], device="cuda"), cache=cache)
+        rows.append(out.logits[0, 0, :v])
+        toks.append(int(rows[-1].argmax()))
+    return torch.stack(rows), toks
+
+
+def front_parity(torch, gen, arch, layers):
+    """Full width, f32, at ``layers`` layers (None: whole), the norms
+    drawn; logits compared on the real vocabulary columns:
+    (a) the legacy engine with kernels "on" against "off" on the same
+        weights and stub: 3 prompts (FRONT_PARITY_LENS) on 4 slots, 8 new
+        tokens; streams equal, each blocking prefill's first-token logits
+        within the bound, flash_chunk and flash_decode launched on "on"
+        only;
+    (b) the cached loop (prefill with the stub, then one-token decode
+        steps) against the stateless forward over the same rows, through
+        the kernels and through the plain bodies (the kernels' tokens
+        fed), each within the bound.
+    The bound: rtol 1e-4 plus the larger of 1e-4 of the largest |logit|
+    and ``ulp_gap``, how far the stateless logits move when the first
+    layer's norm weight is scaled by 1 + 2^-23 (the comment above
+    FRONT_NORMS says why)."""
+    import dataclasses as dc
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.serving.api import LLM
+    cfg = C.get(arch) if layers is None else _cut(arch, layers)
+    params = draw_norms(torch, init_params(gen.manual_seed(1), cfg,
+                                           torch.float32, "cuda"), gen)
+    name, stub = front_stub(torch, cfg, 3)
+    prompts = [np.random.default_rng(2).integers(
+        0, cfg.vocab_size, n).astype(np.int32) for n in FRONT_PARITY_LENS]
+    new, v = FRONT_PARITY_NEW, cfg.vocab_size
+    runs = {}
+    for kern in ("on", "off"):
+        llm = LLM.from_spec(
+            front_spec(arch, kernels=kern, max_len=512,
+                       prompt_len=max(FRONT_PARITY_LENS),
+                       max_new_tokens=new),
+            cfg=cfg, params=params, embeds_fn=stub_fn(name, stub),
+            device="cuda", dtype=torch.float32)
+        eng = llm.engine
+        check(eng.legacy and eng.kv.backend == "dense",
+              f"{arch}: not on the legacy path's dense cache")
+        firsts, prefill = [], eng._prefill_impl
+
+        def kept(tokens, real_len, prefill=prefill, firsts=firsts):
+            last, cache = prefill(tokens, real_len)
+            firsts.append(last[0, :v].clone())
+            return last, cache
+        eng._prefill_impl = kept
+        ops.reset_counters()
+        streams = llm.generate(prompts, new)
+        torch.cuda.synchronize()
+        runs[kern] = (streams, torch.stack(firsts), dict(ops.counters),
+                      eng.plan)
+        del llm, eng
+        free_memory(torch)
+    on, off = runs["on"], runs["off"]
+
+    # (b) the cached loop, through the kernels and through the plain
+    # bodies, against the stateless forward
+    kw = {name: stub}
+    ops.reset_counters()
+    got, toks = _cached_rows(torch, params, cfg, on[3], prompts[0], kw, new)
+    launches = dict(ops.counters)
+    plain_plan = dc.replace(on[3], kernels=off[3].kernels)
+    got_off, _ = _cached_rows(torch, params, cfg, plain_plan, prompts[0], kw,
+                              new, feed=toks[:-1])
+    front = cfg.n_frontend_tokens if cfg.frontend == "vision_stub" else 0
+    seq = torch.as_tensor(np.concatenate([prompts[0], toks[:-1]]),
+                          device="cuda").long()[None]
+    row0 = front + len(prompts[0]) - 1
+    want = forward(params, cfg, tokens=seq, **kw).logits[0, row0:, :v]
+    norm0 = params["groups"][0][0]["attn"]["norm"]
+    saved = norm0.clone()
+    norm0.add_((1 + norm0) * 2 ** -23)
+    moved = forward(params, cfg, tokens=seq, **kw).logits[0, row0:, :v]
+    norm0.copy_(saved)
+    torch.cuda.synchronize()
+    ulp = max_err(torch, moved, want)
+    big = float(want.abs().max())
+    share = max(1e-4, ulp / big)
+    err_a, bound_a, ok_a = _within_bound(torch, on[1], off[1], share)
+    err_b, bound_b, ok_b = _within_bound(torch, got, want, share)
+    err_p, bound_p, ok_p = _within_bound(torch, got_off, want, share)
+    print(f"[frontend] {cfg.name} f32 full width, {cfg.n_layers} layers, "
+          f"{name} stub, largest |logit| {big:.3f}, ulp_gap (layer 0's norm "
+          f"x (1 + 2^-23)) {ulp:.3e} (1e-4 of the largest: "
+          f"{1e-4 * big:.3e}), bound rtol 1e-4 + {share:.3g} of the "
+          f"largest: (a) kernels on vs off: streams equal "
+          f"{on[0] == off[0]}; first-token logits of the {len(prompts)} "
+          f"prefills max err {err_a:.3e} (bound {bound_a:.3e}): {ok_a}; "
+          f"launches on {on[2]}, off {off[2]}; (b) cached loop vs the "
+          f"stateless forward, {len(toks)} rows: through the kernels "
+          f"({launches}) max err {err_b:.3e} (bound {bound_b:.3e}): {ok_b};"
+          f" through the plain bodies {err_p:.3e}: {ok_p}")
+    check(on[0] == off[0], f"{arch}: kernels on/off streams differ\n "
+                           f"on={on[0]}\n off={off[0]}")
+    check(ok_a, f"{arch}: kernels on/off first-token logits differ by "
+                f"{err_a}")
+    check(on[2].get("flash_chunk", 0) > 0 and on[2].get("flash_decode", 0)
+          > 0 and not off[2], f"{arch}: launches on {on[2]}, off {off[2]}")
+    check(ok_b and ok_p, f"{arch}: cached logits differ from the stateless "
+                         f"forward by {err_b} (kernels) / {err_p} (plain)")
+    check(launches.get("flash_chunk", 0) > 0
+          and launches.get("flash_decode", 0) > 0,
+          f"{arch}: the cached loop launched {launches}")
+    del params
+    free_memory(torch)
+    return {"on_off_streams_equal": on[0] == off[0],
+            "on_off_logits_max_err": err_a, "on_off_bound": bound_a,
+            "cached_vs_stateless_max_err": err_b, "bound": bound_b,
+            "plain_cached_vs_stateless_max_err": err_p,
+            "plain_bound": bound_p, "ulp_gap": ulp, "largest_logit": big}
+
+
+def phase_serve_frontend(torch, card_line, front):
+    """qwen2-vl-7b (28 layers) and whisper-tiny (4 + 4 layers) whole, bf16,
+    on the legacy blocking path with a seeded stub (FRONT_SERVES): exact
+    launches (a decode step: flash_decode and its flash_chunk launch a
+    layer; a blocking prefill: flash_chunk a layer), every attention
+    geometry recorded (``front``: the ones phase 2 checked), a profiler
+    window on each; then the f32 checks (``front_parity``)."""
+    import numpy as np
+    import repro_torch.configs as C
+    out = {}
+    for arch, sv in FRONT_SERVES.items():
+        cfg = C.get(arch)
+        rng = np.random.default_rng(sv["seed"])
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in sv["lens"]]
+        name, stub = front_stub(torch, cfg, sv["seed"])
+        llm = _load(torch, front_spec(arch), cfg, card_line,
+                    embeds_fn=stub_fn(name, stub))
+        eng = llm.engine
+        check(eng.legacy and eng.kv.backend == "dense" and eng.draft is None
+              and (eng.max_batch, eng.max_len)
+              == (front[arch]["max_batch"], front[arch]["max_len"]),
+              f"{arch}: not on the legacy path's dense cache at the "
+              f"envelope phase 2 checked")
+        n = cfg.n_layers
+        label = f"{arch} ({n} layers, legacy path, seeded {name})"
+        torch.cuda.reset_peak_memory_stats()
+        geo: set = set()
+        with record_geometries(geo):
+            res = _serve_legacy(torch, llm, prompts, card_line, label,
+                                new=sv["new"],
+                                per_step={"flash_decode": n,
+                                          "flash_chunk": n},
+                                per_prefill={"flash_chunk": n})
+            res["profile"] = phase_profile(torch, llm, rng, label,
+                                           prompt_len=sv["profile_len"])
+        res["geometries"] = geo
+        print(f"[serve] {label}: attention geometries (kernel, B, sq, nq, "
+              f"nkv, hd, S, dtype) {sorted(geo)}")
+        out[arch] = res
+        del llm, eng
+        free_memory(torch)
+    gen = torch.Generator(device="cuda")
+    for arch, layers in FRONT_PARITY:
+        out[f"{arch} parity"] = front_parity(torch, gen, arch, layers)
     return out
 
 
@@ -3357,8 +3827,9 @@ def main() -> int:
     phi, ds, ds1, dsh = resolve_shapes()
     gm, mn, gm1 = resolve_dense_shapes()
     sp = resolve_spec_shapes()
+    fr = resolve_front_shapes()
     kres = timed("kernels", phase_kernels, torch, phi, ds, ds1, dsh,
-                 dense=(gm, mn, gm1), spec=sp[0])
+                 dense=(gm, mn, gm1), spec=sp[0], front=fr)
     timed("host", phase_host, torch, phi, dsh)
     timed("capacity_module", phase_capacity_module, torch, phi, ds)
     timed("parity", phase_parity, torch)
@@ -3384,6 +3855,17 @@ def main() -> int:
               for a in ("rwkv6-1.6b", "recurrentgemma-9b")),
           "a recurrent serve launched a kernel")
     free_memory(torch)
+    # the frontend families: a legacy serve has no pool and no chunk, so
+    # each is held to the attention geometries it launched
+    frontend = timed("serve_frontend", phase_serve_frontend, torch,
+                     card_line, fr)
+    for arch in FRONT_SERVES:
+        ran = frontend[arch]["geometries"]
+        check(ran and ran <= fr[arch]["geometries"],
+              f"{arch}: the serve ran attention geometries "
+              f"{sorted(ran - fr[arch]['geometries'])} that phase 2 did "
+              f"not check")
+    free_memory(torch)
     spec = timed("spec", phase_spec, torch, card_line)
     for run, shapes in zip(spec_runs(), sp):
         checked += [shapes] * (1 + len(run[-1]))
@@ -3399,7 +3881,7 @@ def main() -> int:
     free_memory(torch)
     dist = timed("dist", phase_dist, torch, card_line, dsh)
     launches: dict = {}
-    for s in serves + [dist]:
+    for s in serves + [dist] + [frontend[a] for a in FRONT_SERVES]:
         for k, v in s["launches"].items():
             launches[k] = launches.get(k, 0) + v
     rec = kernels_record(kres, launches)

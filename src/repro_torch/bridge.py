@@ -4,7 +4,8 @@
 (``jax.tree.map(np.asarray, params)`` on the reference side) and returns the
 port's tree: the same names and layouts (``wq (h, nq, hd)``,
 ``wo (nq, hd, h)``, ``w_in (E, h, de)``, ``lm_head (h, padded_vocab)``), with
-each layer group's leading ``count`` axis unstacked into one dict per layer.
+each layer group's leading ``count`` axis (and whisper's encoder layers')
+unstacked into one dict per layer.
 Nothing here imports JAX.
 """
 
@@ -57,9 +58,18 @@ def from_reference(params_np: dict, cfg: ModelConfig, device="cpu",
                      for sub, sub_tree in tree.items()}
                     for i in range(g.count)])
             out["groups"] = groups
+        elif name == "enc":       # whisper: its stacked layers unstacked
+            sp = spec["enc"]
+            out["enc"] = {k: [_unstack(v, sp[k][i], i, keep,
+                                       ("enc", k, i), device, dtype)
+                              for i in range(cfg.encoder.n_layers)]
+                          if k == "layers" else
+                          _tensor(_cut(np.asarray(v), keep, ("enc", k),
+                                       sp[k]), device, dtype)
+                          for k, v in leaf.items()}
         elif isinstance(leaf, dict):
             raise NotImplementedError(
-                f"reference subtree {name!r} has no port counterpart yet")
+                f"reference subtree {name!r} has no port counterpart")
         else:
             out[name] = _tensor(_cut(np.asarray(leaf), keep, (name,),
                                      spec[name]), device, dtype)

@@ -103,6 +103,35 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def mrope_pairs(sections, n_pairs: int) -> list:
+    """The position stream (0 = t, 1 = h, 2 = w) driving each of the
+    ``n_pairs`` frequency pairs: stream i repeated ``sections[i]`` times,
+    cut or padded with the last stream to ``n_pairs``, as the reference's
+    ``jnp.repeat(..., total_repeat_length=)``."""
+    ids = [i for i, n in enumerate(sections) for _ in range(n)]
+    return (ids + ids[-1:] * n_pairs)[:n_pairs]
+
+
+def apply_mrope(x, positions3, sections, theta: float = 10000.0):
+    """Qwen2-VL multimodal RoPE: three position streams (t, h, w) drive
+    disjoint frequency sections.  x (b, s, n, hd); positions3 (b, 3, s);
+    ``sections``: the frequency pairs of each stream (summing to hd/2).
+    The reference's f32 steps: positions as f32, one position a pair,
+    angles by ``einsum("bfs,f->bsf")``, then cos and sin."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    pairs = mrope_pairs(sections, hd // 2)
+    p3 = positions3.float().expand(x.shape[0], -1, -1)
+    # each pair's stream, as runs of one stream: no index tensor to copy
+    pos = torch.cat([p3[:, i:i + 1].expand(-1, pairs.count(i), -1)
+                     for i in sorted(set(pairs))], dim=1)  # (b, hd/2, s)
+    ang = torch.einsum("bfs,f->bsf", pos, inv)            # (b, s, hd/2)
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def positions_from(idx, s: int, device=None):
     """(b, s) absolute positions from a (b,) offset tensor, or (1, s) from
     a scalar offset (an int or a 0-d tensor: the uniform batch)."""
@@ -384,11 +413,29 @@ class KVView:
     block_table: Optional[torch.Tensor] = None
 
 
+def _promoted(x, w):
+    """x and w in their common dtype, as ``jnp`` promotes a product (bf16
+    rows on f32 weights: both f32); no copy when they already agree."""
+    if x.dtype == w.dtype:
+        return x, w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
 def _proj_heads(xn, w):
-    """(b, s, h) @ (h, n, d) -> (b, s, n, d)."""
+    """(b, s, h) @ (h, n, d) -> (b, s, n, d), in the promoted dtype."""
     b, s, h = xn.shape
+    xn, w = _promoted(xn, w)
     return (xn.reshape(b * s, h) @ w.reshape(h, -1)).reshape(
         b, s, *w.shape[1:])
+
+
+def _heads_out(out, w):
+    """(b, s, n, d) @ (n, d, h) -> (b, s, h), in the promoted dtype."""
+    b, s, n, d = out.shape
+    out, w = _promoted(out, w)
+    return (out.reshape(b * s, n * d) @ w.reshape(n * d, -1)).reshape(
+        b, s, -1)
 
 
 def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
@@ -426,8 +473,14 @@ def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
         idx = 0 if cache is None else cache.length
     if positions is None:
         positions = positions_from(idx, s, x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:         # (b, 3, s) streams; plain positions drive all three
+        if positions.dim() == 2:
+            positions = positions[:, None].expand(b, 3, s)
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     pol = plan.kernels
     if cache is None:
@@ -464,10 +517,8 @@ def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
             out = chunked_attention(q, kc, vc, q_offset=idx, kv_len=kv_len,
                                     causal=True, policy=pol)
         new_kv = (kc, vc)
-    nq, hd = out.shape[2], out.shape[3]
-    out = (out.reshape(b * s, nq * hd) @ p["wo"].reshape(nq * hd, h)) \
-        .reshape(b, s, h)
-    return _attn_out(plan, cfg, out, seq_sharded), new_kv
+    return _attn_out(plan, cfg, _heads_out(out, p["wo"]), seq_sharded), \
+        new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -595,9 +646,8 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                                       kv_len=kv_len, causal=True,
                                       scale=scale, policy=pol)
         out = torch.einsum("bsnr,rnd->bsnd", o_lat, p["w_uv"])
-    nv = out.shape[2] * out.shape[3]
-    out = (out.reshape(b * s, nv) @ p["wo"].reshape(nv, h)).reshape(b, s, h)
-    return _attn_out(plan, cfg, out, seq_sharded), new_cache
+    return _attn_out(plan, cfg, _heads_out(out, p["wo"]), seq_sharded), \
+        new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -629,7 +679,8 @@ def mlp(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
 
 
 __all__ = [
-    "rms_norm", "activate", "rope_freqs", "apply_rope", "positions_from",
+    "rms_norm", "activate", "rope_freqs", "apply_rope", "mrope_pairs",
+    "apply_mrope", "positions_from",
     "chunked_attention", "decode_attention", "write_cache",
     "write_cache_paged", "single_device",
     "gather_pages", "KVView", "gqa_spec", "gqa_attention", "mla_spec",

@@ -7,7 +7,12 @@ One ``ModelConfig`` + this module = a runnable model for:
   ssm     RWKV6 time-mix + channel-mix   (rwkv6-1.6b)
   hybrid  (rec, rec, attn) Griffin pattern: RG-LRU blocks and sliding-
           window attention over a ring buffer (recurrentgemma-9b)
-The frontend families (audio, vision) are not ported yet (ROADMAP A10b).
+  vlm     GQA + dense MLP with M-RoPE (three position streams t/h/w on
+          disjoint frequency sections) and a patch-embedding stub: the
+          ``embeds`` prepended to the token rows (qwen2-vl-7b)
+  audio   whisper enc-dec: a bidirectional encoder over a frame-embedding
+          stub (``frames``), decoder layers with cross-attention over its
+          output (whisper-tiny)
 
 The reference stacks each homogeneous layer group on a leading axis and
 scans it; the port keeps one parameter dict per layer (per repeat of a
@@ -48,6 +53,7 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
@@ -64,7 +70,7 @@ from repro_torch.models.param import P, init_tree, stack
 
 @dataclasses.dataclass(frozen=True)
 class Group:
-    kind: str            # dense | moe | rwkv | rec | attn | pattern
+    kind: str            # dense | moe | rwkv | rec | attn | xdec | pattern
     count: int           # layers (pattern: repeats) in the group
     sub: tuple = ()      # pattern: the sub-layer kinds of one repeat
 
@@ -91,20 +97,9 @@ def layer_plan(cfg: ModelConfig) -> tuple[Group, ...]:
             g.append(Group(pat[i], j - i))
             i = j
         return tuple(g)
-    if cfg.family in ("dense", "vlm"):
-        return (Group("dense", cfg.n_layers),)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP A10b)")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    layer_plan(cfg)
-    if cfg.attention not in ("gqa", "mla", "none", "local"):
-        raise NotImplementedError(
-            f"{cfg.attention} attention is not ported yet (ROADMAP A10b)")
-    if cfg.frontend or cfg.mrope:
-        raise NotImplementedError(
-            "frontend / M-RoPE models are not ported yet (ROADMAP A10b)")
+    if cfg.family == "audio":
+        return (Group("xdec", cfg.n_layers),)
+    return (Group("dense", cfg.n_layers),)   # dense / vlm
 
 
 def _sub_groups(g: Group) -> list:
@@ -119,6 +114,18 @@ def _sub_groups(g: Group) -> list:
 # Parameter specs
 # ---------------------------------------------------------------------------
 
+def xattn_spec(cfg: ModelConfig) -> dict:
+    """Cross-attention (whisper decoder -> encoder output)."""
+    h, nq, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {
+        "wq": P((h, nq, hd), ("embed", "heads", "head_dim")),
+        "wk": P((h, nq, hd), ("embed", "heads", "head_dim")),
+        "wv": P((h, nq, hd), ("embed", "heads", "head_dim")),
+        "wo": P((nq, hd, h), ("heads", "head_dim", "embed")),
+        "norm": P((h,), ("embed",), init="zeros"),
+    }
+
+
 def sublayer_spec(cfg: ModelConfig, kind: str) -> dict:
     if kind in ("dense", "moe"):
         attn = L.mla_spec(cfg) if cfg.attention == "mla" else L.gqa_spec(cfg)
@@ -131,6 +138,9 @@ def sublayer_spec(cfg: ModelConfig, kind: str) -> dict:
         return {"rglru": S.rglru_spec(cfg), "mlp": L.mlp_spec(cfg)}
     if kind == "attn":
         return {"attn": L.gqa_spec(cfg), "mlp": L.mlp_spec(cfg)}
+    if kind == "xdec":
+        return {"attn": L.gqa_spec(cfg), "xattn": xattn_spec(cfg),
+                "mlp": L.mlp_spec(cfg)}
     raise KeyError(kind)
 
 
@@ -142,8 +152,27 @@ def group_spec(cfg: ModelConfig, g: Group) -> list:
     return stack(sublayer_spec(cfg, g.kind), g.count)
 
 
+def enc_layer_spec(cfg: ModelConfig) -> dict:
+    """One layer of the whisper encoder."""
+    e = cfg.encoder
+    d, nh, f = e.d_model, e.n_heads, e.d_ff
+    hd = d // nh
+    return {
+        "wq": P((d, nh, hd), ("embed", "heads", "head_dim")),
+        "wk": P((d, nh, hd), ("embed", "heads", "head_dim")),
+        "wv": P((d, nh, hd), ("embed", "heads", "head_dim")),
+        "wo": P((nh, hd, d), ("heads", "head_dim", "embed")),
+        "norm": P((d,), ("embed",), init="zeros"),
+        "mlp_in": P((d, f), ("embed", "ffn")),
+        "mlp_out": P((f, d), ("ffn", "embed")),
+        "mlp_norm": P((d,), ("embed",), init="zeros"),
+    }
+
+
 def model_spec(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
+    """The parameter tree; whisper adds ``enc``: the frames' positional
+    table ``pos`` (n_frames, d_enc), one dict a layer under ``layers``
+    and its ``final_norm``."""
     h, v = cfg.d_model, cfg.padded_vocab
     spec: dict[str, Any] = {
         "embed": P((v, h), ("vocab", "embed"), scale=0.02),
@@ -152,6 +181,13 @@ def model_spec(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = P((h, v), ("embed", "vocab"))
+    if cfg.family == "audio":
+        e = cfg.encoder
+        spec["enc"] = {
+            "pos": P((e.n_frames, e.d_model), (None, "embed"), scale=0.02),
+            "layers": stack(enc_layer_spec(cfg), e.n_layers),
+            "final_norm": P((e.d_model,), ("embed",), init="zeros"),
+        }
     return spec
 
 
@@ -190,7 +226,6 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     TP axes shard the heads (``plan.heads_sharded``) the GQA pools hold
     this rank's ``nkv / tp`` heads; every rank holds every page and
     tracks every slot."""
-    _check_supported(cfg)
     for g in layer_plan(cfg):
         if g.kind not in ("dense", "moe"):
             raise NotImplementedError(
@@ -216,15 +251,19 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def _cache_for(cfg: ModelConfig, kind: str, count: int, batch: int,
                max_len: int, dtype, device) -> dict:
     """One layer group's dense per-slot buffers (a recurrent kind: its
-    carried state; the local attention: its ring)."""
+    carried state; the local attention: its ring; whisper's decoder also
+    the cross-attention's K/V ``xk``/``xv`` over the encoder's frames)."""
     h = cfg.d_model
     f32 = torch.float32
-    if kind in ("dense", "moe"):
+    if kind in ("dense", "moe", "xdec"):
         if cfg.attention == "mla":
             tails = {"c": (cfg.kv_lora_rank,), "kr": (cfg.rope_head_dim,)}
         else:
             tails = {n: (cfg.n_kv_heads, cfg.head_dim) for n in ("k", "v")}
         shapes = {n: ((max_len,) + t, dtype) for n, t in tails.items()}
+        if kind == "xdec":
+            x = (cfg.encoder.n_frames, cfg.n_heads, cfg.head_dim)
+            shapes.update(xk=(x, dtype), xv=(x, dtype))
     elif kind == "rwkv":
         nh = max(1, h // 64)
         hd = h // nh
@@ -250,12 +289,12 @@ def _cache_for(cfg: ModelConfig, kind: str, count: int, batch: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
     """Dense cache: per group ``k``/``v`` ``(count, batch, max_len, nkv,
-    hd)`` for GQA (MLA: ``c`` / ``kr``; the recurrent kinds their state,
-    the local attention its ring; a pattern group one such dict a
+    hd)`` for GQA (MLA: ``c`` / ``kr``; whisper's decoder also ``xk`` /
+    ``xv`` ``(count, batch, n_frames, nq, hd)``; the recurrent kinds their
+    state, the local attention its ring; a pattern group one such dict a
     sub-layer, under ``l0``, ``l1``, ...), and a 0-d int32 ``length`` —
     one offset for the whole batch (``serving.kv_cache.make_batched_cache``
     makes it a per-slot vector)."""
-    _check_supported(cfg)
     groups = []
     for g in layer_plan(cfg):
         subs = {key: _cache_for(cfg, k, g.count, batch, max_len, dtype,
@@ -339,9 +378,7 @@ def _local_attn(p, x, cfg: ModelConfig, c, length):
                                                               x.device),
                                  window=cfg.window_size,
                                  k_positions=c["kpos"])
-    nq, hd = out.shape[2], out.shape[3]
-    return (out.reshape(b * s, nq * hd) @ p["wo"].reshape(nq * hd, h)) \
-        .reshape(b, s, h)
+    return L._heads_out(out, p["wo"])
 
 
 def _apply_recurrent(kind: str, p, x, c, cfg: ModelConfig, length):
@@ -374,27 +411,58 @@ def _apply_recurrent(kind: str, p, x, c, cfg: ModelConfig, length):
     return x
 
 
+def _cross_attn(p, x, cfg: ModelConfig, xk, xv):
+    """Whisper decoder cross-attention over the encoder's K/V ``xk`` /
+    ``xv`` (b, n_frames, nq, hd): bidirectional, the plain body (the
+    reference routes it to no kernel)."""
+    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    out = L.chunked_attention(L._proj_heads(xn, p["wq"]), xk, xv,
+                              causal=False)
+    return L._heads_out(out, p["wo"])
+
+
+def _apply_xattn(p, x, c, cfg: ModelConfig, enc_out):
+    """The cross-attention residual of an ``xdec`` layer.  With a cache and
+    no ``enc_out`` (a decode) it reads the cached ``xk`` / ``xv``;
+    otherwise it projects ``enc_out`` and, with a cache (a prefill),
+    copies the fresh K/V into the cache's buffers (the reference returns
+    them as the new cache)."""
+    if c is not None and enc_out is None:
+        xk, xv = c["xk"], c["xv"]
+    else:
+        if enc_out is None:
+            raise ValueError("whisper's stateless forward needs frames "
+                             "(forward(frames=...))")
+        xk = L._proj_heads(enc_out, p["wk"])
+        xv = L._proj_heads(enc_out, p["wv"])
+        if c is not None:
+            c["xk"].copy_(xk)
+            c["xv"].copy_(xv)
+    return x + _cross_attn(p, x, cfg, xk, xv)
+
+
 def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
                    plan: ShardingPlan, positions, length, q_lens,
                    block_tables, with_stats: bool = False,
-                   seq_sharded: bool = False):
+                   seq_sharded: bool = False, enc_out=None):
     """One residual layer.  ``c`` holds this layer's cache buffers (K/V,
     or MLA's latent c/kr; pools when ``block_tables`` is given; a
-    recurrent kind's state, the local attention's ring), or None on the
-    stateless path.  Returns (x, aux, counts): ``counts`` is the
-    per-expert routed-slot vector (zeros for non-MoE layers) when
+    recurrent kind's state, the local attention's ring; whisper's
+    cross-attention K/V), or None on the stateless path.  ``enc_out``
+    (b, n_frames, d) is the encoder's output for an ``xdec`` layer (None:
+    read the cached cross K/V).  Returns (x, aux, counts): ``counts`` is
+    the per-expert routed-slot vector (zeros for non-MoE layers) when
     ``with_stats``, else None.  The recurrent kinds advance their state by
     every row, so they cannot mask a ragged tail: the unified step
     (``q_lens``) refuses them, as in the reference."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     counts = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
                          device=x.device) if with_stats else None
-    if kind not in ("dense", "moe"):
-        if q_lens is not None:
-            raise NotImplementedError(
-                f"unified mixed step (q_lens) unsupported for layer kind "
-                f"{kind!r} — serve this family through the legacy engine "
-                "path")
+    if q_lens is not None and kind not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"unified mixed step (q_lens) unsupported for layer kind "
+            f"{kind!r} — serve this family through the legacy engine path")
+    if kind not in ("dense", "moe", "xdec"):
         return _apply_recurrent(kind, p, x, c, cfg, length), aux, counts
     if cfg.attention == "mla":
         a_out, _ = L.mla_attention(
@@ -409,6 +477,8 @@ def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
                                    q_lens=q_lens, positions=positions,
                                    seq_sharded=seq_sharded)
     x = x + a_out
+    if kind == "xdec":
+        x = _apply_xattn(p["xattn"], x, c, cfg, enc_out)
     if kind == "moe":
         r = MOE.moe_rank(p["moe"], x, cfg, plan, with_stats=with_stats,
                          seq_sharded=seq_sharded)
@@ -470,6 +540,48 @@ def lm_head(x, head, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN):
 
 
 # ---------------------------------------------------------------------------
+# Encoder (whisper)
+# ---------------------------------------------------------------------------
+
+def encode_audio(params, frames, cfg: ModelConfig):
+    """frames (b, n_frames, d_enc): the precomputed conv/mel stub
+    embeddings.  ``frames + pos``, then per layer: RMS norm,
+    bidirectional MHA (the plain body, no kernel, as in the reference),
+    the ``wo`` residual, RMS norm, the tanh-GELU MLP residual; then the
+    final norm.  The reference's promotion holds: f32 frames on bf16
+    weights run the whole encoder in f32 (each weight cast at its use)."""
+    p_enc = params["enc"]
+    x = frames + p_enc["pos"][None]
+    for p in p_enc["layers"]:
+        xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
+        a = L.chunked_attention(L._proj_heads(xn, p["wq"]),
+                                L._proj_heads(xn, p["wk"]),
+                                L._proj_heads(xn, p["wv"]), causal=False)
+        x = x + L._heads_out(a, p["wo"])
+        xn = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        up = F.gelu(torch.matmul(*L._promoted(xn, p["mlp_in"])),
+                    approximate="tanh")
+        x = x + torch.matmul(*L._promoted(up, p["mlp_out"]))
+    return L.rms_norm(x, p_enc["final_norm"], cfg.norm_eps)
+
+
+def _embed_input(params, cfg: ModelConfig, plan: ShardingPlan, tokens,
+                 embeds):
+    """The input rows: ``embeds`` (the vlm patch stub) rounded to bf16 when
+    the config's dtype is bf16, as the reference rounds them, in the
+    weights' dtype, then the token embeddings after them."""
+    parts = []
+    if embeds is not None:
+        e = embeds.to(torch.bfloat16) if cfg.dtype == "bfloat16" else embeds
+        parts.append(e.to(params["embed"].dtype))
+    if tokens is not None:
+        parts.append(embed_tokens(params["embed"], tokens, cfg, plan))
+    if not parts:
+        raise ValueError("forward needs tokens or embeds")
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+# ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
@@ -484,11 +596,21 @@ class Output:
 
 
 def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
-            tokens, cache=None, q_lens=None, last_only: bool = False,
+            tokens=None, embeds=None, frames=None, positions=None,
+            cache=None, q_lens=None, last_only: bool = False,
             logit_rows=None, expert_stats: bool = False) -> Output:
     """The forward pass, in the reference's modes.
 
-    tokens  (b, s) int
+    tokens  (b, s_text) int  — None for a pure-embedding input
+    embeds  (b, s_front, h)  — the vlm patch-embedding stub, prepended to
+                            the token rows (rounded to bf16 when
+                            ``cfg.dtype`` is bf16, as the reference does)
+    frames  (b, n_frames, d) — the audio frame-embedding stub: whisper runs
+                            its encoder on them (a decode without them
+                            reads the cached cross-attention K/V)
+    positions (b, s) or (b, 3, s) — the rows' positions (default: the
+                            cache offset onward; M-RoPE broadcasts them
+                            to its three streams)
     cache                 — None: the stateless forward (every row sees the
                             rows before it; returns no cache);
                             ``init_paged_cache``: the unified step (q_lens
@@ -533,16 +655,24 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
         L.single_device(plan, "the forward on a dense cache or none")
         len_loc, q_loc, rows_loc = length, q_lens, logit_rows
     else:
+        if plan.enabled and (embeds is not None or frames is not None
+                             or positions is not None or cfg.mrope):
+            L.single_device(plan, "the frontend families' forward")
         tokens, len_loc, q_loc = (plan.shard(t, ("batch",))
                                   for t in (tokens, length, q_lens))
         rows_loc = None if logit_rows is None \
             else plan.shard(logit_rows, ("batch",))
-    b, s = tokens.shape
+    x = _embed_input(params, cfg, plan, tokens, embeds)
+    b, s = x.shape[:2]
     seq_sharded = plan.seq_sharded(s)
-    x = plan.cut_seq(embed_tokens(params["embed"], tokens, cfg, plan),
-                     seq_sharded)
-    positions = L.positions_from(0 if cache is None else len_loc, s,
-                                 x.device)
+    x = plan.cut_seq(x, seq_sharded)
+    if positions is None:
+        positions = L.positions_from(0 if cache is None else len_loc, s,
+                                     x.device)
+        if cfg.mrope:
+            positions = positions[:, None].expand(b, 3, s)
+    enc_out = encode_audio(params, frames, cfg) \
+        if cfg.family == "audio" and frames is not None else None
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     counts_total = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
@@ -559,7 +689,7 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                     kind, p_k, x, c_l, cfg=cfg, plan=plan,
                     positions=positions, length=length, q_lens=q_lens,
                     block_tables=block_tables, with_stats=expert_stats,
-                    seq_sharded=seq_sharded)
+                    seq_sharded=seq_sharded, enc_out=enc_out)
                 aux_total = aux_total + a
                 if expert_stats:
                     counts_total = counts_total + cnt
@@ -580,6 +710,7 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
 
 
 __all__ = ["Group", "layer_plan", "model_spec", "sublayer_spec",
-           "group_spec", "init_params", "count_params", "init_cache",
+           "group_spec", "xattn_spec", "enc_layer_spec", "encode_audio",
+           "init_params", "count_params", "init_cache",
            "init_paged_cache", "apply_sublayer", "embed_tokens", "lm_head",
            "forward", "Output"]

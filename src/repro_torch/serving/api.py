@@ -449,19 +449,27 @@ class LLM:
     """
 
     def __init__(self, cfg: ModelConfig, params, spec: ResolvedServeSpec, *,
-                 dtype=None, device=None):
+                 embeds_fn=None, dtype=None, device=None):
         import torch
         dtype = torch.float32 if dtype is None else dtype
+        dev = resolve_device(device)
+        if embeds_fn is None and cfg.frontend == "audio_stub":
+            e = cfg.encoder
+
+            def embeds_fn(b):
+                return {"frames": torch.full((b, e.n_frames, e.d_model),
+                                             0.01, dtype=torch.float32,
+                                             device=dev)}
         self.cfg, self.params, self.spec = cfg, params, spec
-        self.engine = Engine(cfg, params, spec=spec, dtype=dtype,
-                             device=device)
+        self.engine = Engine(cfg, params, spec=spec, embeds_fn=embeds_fn,
+                             dtype=dtype, device=dev)
         self._queue: deque[Request] = deque()
         self._next_rid = 0
 
     @classmethod
     def from_spec(cls, spec: Union[ServeSpec, ResolvedServeSpec], *,
                   cfg: Optional[ModelConfig] = None, params=None,
-                  cluster=None, mesh=None, dtype=None,
+                  cluster=None, mesh=None, embeds_fn=None, dtype=None,
                   device=None) -> "LLM":
         """Resolve (if needed), load/init weights, build Engine+Scheduler.
 
@@ -472,6 +480,14 @@ class LLM:
         card is present; pass ``device="cpu"`` for the plain CPU path.
         Random weights are drawn from a generator on ``device`` seeded
         with ``spec.seed``.
+
+        ``embeds_fn(batch)`` gives the stub frontend's inputs for one
+        blocking prefill, as ``forward`` keyword arguments: qwen2-vl's
+        ``{"embeds": (batch, n_frontend_tokens, d_model)}``, whisper's
+        ``{"frames": (batch, n_frames, d_enc)}``.  Whisper defaults to
+        frames of 0.01 in f32, as the reference does; qwen2-vl has no
+        default (it then serves with its patch positions unwritten, as
+        the reference does).
 
         ``mesh``: serve SPMD on a ``launch.mesh.Mesh`` — every rank calls
         this and then ``generate`` with the same arguments.  Each rank
@@ -501,7 +517,8 @@ class LLM:
             gen = torch.Generator(device=dev)
             gen.manual_seed(resolved.seed)
             params = init_params(gen, cfg, dtype, dev, plan=resolved.plan)
-        return cls(cfg, params, resolved, dtype=dtype, device=dev)
+        return cls(cfg, params, resolved, embeds_fn=embeds_fn, dtype=dtype,
+                   device=dev)
 
     # -- streaming -------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None, *,

@@ -44,13 +44,20 @@ Legacy path — the reference's pre-unified two-program engine (bucket-padded
 blocking prefill in ``admit`` + a separate decode step) serves the families
 the unified step cannot (``unified_supported`` False: the recurrent state
 of rwkv6 and the ring buffers of recurrentgemma advance by every row, so a
-ragged tail cannot be masked).  It pins the dense cache, runs on one device
-(a mesh raises, ROADMAP A12) and never speculates.  It keeps the
-reference's semantics, faults included: the prompt is padded to its bucket
-with id 0 and the whole bucket runs through the prefill, so the recurrent
-state and the ring come from the last bucket row, not the last real one
-(only the first token reads the real row); a resumed request re-prefills
-its prompt alone, not the tokens it had generated.
+ragged tail cannot be masked; the frontend families take their stub
+inputs at prefill).  It pins the dense cache, runs on one device (a mesh
+raises, ROADMAP A12) and never speculates.  It keeps the reference's
+semantics, faults included: the prompt is padded to its bucket with id 0
+and the whole bucket runs through the prefill, so the recurrent state and
+the ring come from the last bucket row, not the last real one (only the
+first token reads the real row); a resumed request re-prefills its prompt
+alone, not the tokens it had generated.  The prefill passes
+``embeds_fn(1)`` to the forward (one result an admission: whisper's
+``frames``, qwen2-vl's patch ``embeds``); a vision stub holds
+``n_frontend_tokens`` positions ahead of the prompt whether or not an
+``embeds_fn`` gives them, so without one the first token's row is read
+past the prompt (clamped to the last row, as JAX clamps) and the decode
+attends over the rows never written.
 """
 
 from __future__ import annotations
@@ -169,7 +176,7 @@ def resolve_device(device=None) -> torch.device:
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params, spec=None, *,
-                 dtype=torch.float32, device=None):
+                 embeds_fn=None, dtype=torch.float32, device=None):
         # ``spec`` (a serving.api.ResolvedServeSpec) is THE configuration
         # surface: plan, kernels, dispatch, chunk, token budget, the slot
         # envelope, overload policy and fault plan all ride on it.
@@ -184,6 +191,8 @@ class Engine:
             single_device(spec.plan, f"the legacy blocking path ({cfg.name})")
         self.device = resolve_device(device)
         self.spec = spec
+        # the vlm / audio stub frontend: embeds_fn(batch) -> forward kwargs
+        self.embeds_fn = embeds_fn
         self.cfg, self.params, self.plan = cfg, params, spec.plan
         self.max_batch, self.max_len = spec.max_batch, spec.max_len
         if self.max_batch % self.plan.dp:
@@ -376,16 +385,24 @@ class Engine:
         bucket) into a fresh batch-1 dense cache: the logits of the last
         REAL row and the cache, its length the real length."""
         cache = init_cache(self.cfg, 1, self.max_len, self.dtype, self.device)
+        kw = self.embeds_fn(1) if self.embeds_fn is not None else {}
         out = forward(self.params, self.cfg, self.plan, tokens=tokens,
-                      cache=cache)
-        last = out.logits[:, real_len - 1 + self._front_len()]
+                      cache=cache, **kw)
+        # the last real row, clamped to the last row as JAX clamps a traced
+        # index (a vision stub served without its embeds reads past the
+        # prompt)
+        row = min(real_len - 1 + self._front_len(), out.logits.shape[1] - 1)
+        last = out.logits[:, row]
         cache["length"] = torch.full((1,), real_len + self._front_len(),
                                      dtype=torch.int32, device=self.device)
         return last, cache
 
     def _front_len(self) -> int:
-        """Frontend positions a request holds ahead of its prompt: none
-        until the frontend families are ported (ROADMAP A10b)."""
+        """Frontend positions a request holds ahead of its prompt: the
+        vision stub's patch embeddings (whisper's frames feed its encoder
+        and take no decoder position)."""
+        if self.cfg.frontend == "vision_stub":
+            return self.cfg.n_frontend_tokens
         return 0
 
     def _decode_impl(self, tokens, active):

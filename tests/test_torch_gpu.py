@@ -918,3 +918,121 @@ def test_legacy_serve_on_card(dev, arch):
     got = torch.cat(rows, 1)
     torch.testing.assert_close(got, full, rtol=1e-4,
                                atol=1e-4 * float(full.abs().max()))
+
+
+# the frontend serves' attention: (name, nq, nkv, hd, front + bucket, S)
+FRONT_ATTN = [("qwen2_vl_7b", 28, 4, 128, 256 + 1024, 2048),
+              ("whisper_tiny", 6, 6, 64, 256, 512)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FRONT_ATTN, ids=[c[0] for c in FRONT_ATTN])
+def test_attention_at_the_frontend_geometries(dev, dtype, case):
+    """The legacy path's attention at the frontend serves' geometries: the
+    blocking prefill (batch 1, q_offset 0, kv_len the rows: qwen2-vl's 256
+    patch rows and a 1024-token bucket at a group of 7, whisper's
+    256-token bucket at MHA) on the (1, max_len) cache through
+    flash_chunk, and the decode of 4 slots on the (4, max_len) cache
+    through flash_decode (lengths S / 1 / S/2 + 5 / 0): against the plain
+    version, a length-0 slot an exact-zero row."""
+    _, nq, nkv, hd, sq, skv = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    q = torch.randn(1, sq, nq, hd, generator=g).to(dev, dt)
+    k = torch.randn(1, skv, nkv, hd, generator=g).to(dev, dt)
+    v = torch.randn(1, skv, nkv, hd, generator=g).to(dev, dt)
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (q, k, v, torch.tensor([0], **i32), torch.tensor([sq], **i32),
+            torch.tensor([sq], **i32))
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(ops.flash_chunk(*args).float(),
+                               ref.flash_chunk_ref(*args).float(),
+                               atol=atol, rtol=rtol)
+    q = torch.randn(4, nq, hd, generator=g).to(dev, dt)
+    k = torch.randn(4, skv, nkv, hd, generator=g).to(dev, dt)
+    v = torch.randn(4, skv, nkv, hd, generator=g).to(dev, dt)
+    lens = torch.tensor([skv, 1, skv // 2 + 5, 0], **i32)
+    got = ops.flash_decode(q, k, v, lens)
+    torch.testing.assert_close(got.float(),
+                               ref.flash_decode_ref(q, k, v, lens).float(),
+                               atol=atol, rtol=rtol)
+    assert (got[3] == 0).all()
+
+
+def _drawn_norms(tree, seed):
+    """The port's params with every zero-initialised norm weight drawn
+    from N(0, 0.25), so a swapped norm would show."""
+    g = torch.Generator().manual_seed(seed)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (0.5 * torch.randn(v.shape, generator=g)).to(
+                v.device, v.dtype)
+                if k in ("norm", "mlp_norm", "final_norm")
+                and torch.is_tensor(v) else walk(v)
+                for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+    return walk(tree)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-tiny"])
+def test_frontend_serve_on_card(dev, arch):
+    """A reduced frontend serve on the legacy path, f32, with a seeded stub
+    (qwen2-vl's patch embeddings, whisper's frames) and the norms drawn:
+    kernels on (flash_chunk in the blocking prefill, flash_decode in the
+    decode) give the kernels-off streams; the cached loop through the
+    kernels matches the stateless forward within rtol 1e-4 plus 1e-4 of
+    the largest |logit|."""
+    import numpy as np
+
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import LLM, ServeSpec
+    cfg = C.get_reduced(arch)
+    params = _drawn_norms(M.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, torch.float32, dev),
+        1)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    if cfg.frontend == "vision_stub":
+        name = "embeds"
+        stub = 0.02 * torch.randn(1, cfg.n_frontend_tokens, cfg.d_model,
+                                  generator=g)
+    else:
+        name = "frames"
+        stub = torch.randn(1, cfg.encoder.n_frames, cfg.encoder.d_model,
+                           generator=g)
+    stub = stub.to(dev)
+
+    def embeds_fn(b):
+        return {name: stub.expand(b, *stub.shape[1:])}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (20, 32, 70)]
+    streams, launches, plan = {}, {}, None
+    for kern in ("on", "off"):
+        llm = LLM.from_spec(ServeSpec(arch=arch, kernels=kern, max_batch=2,
+                                      max_len=256), cfg=cfg, params=params,
+                            embeds_fn=embeds_fn, device=dev)
+        assert llm.engine.legacy
+        ops.reset_counters()
+        streams[kern] = llm.generate(prompts, 8)
+        launches[kern] = dict(ops.counters)
+        plan = llm.engine.plan if kern == "on" else plan
+    assert streams["on"] == streams["off"]
+    assert set(launches["on"]) == {"flash_chunk", "flash_decode"}
+    assert not launches["off"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 24))).to(dev)
+    full = M.forward(params, cfg, tokens=toks, **{name: stub}).logits
+    front = full.shape[1] - toks.shape[1]
+    cache = M.init_cache(cfg, 1, 128, torch.float32, dev)
+    rows = [M.forward(params, cfg, plan, tokens=toks[:, :6], cache=cache,
+                      **{name: stub}).logits[:, front:]]
+    for i in range(6, 24):
+        rows.append(M.forward(params, cfg, plan, tokens=toks[:, i:i + 1],
+                              cache=cache).logits)
+    got = torch.cat(rows, 1)
+    want = full[:, front:]
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))

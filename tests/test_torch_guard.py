@@ -64,7 +64,8 @@ def test_unported_options_raise():
     item: the dense KV backend, the stateless forward, a model draft for
     speculative decoding and the legacy blocking path on a mesh (A12; on
     one device all four run, and the n-gram draft runs on a mesh too), the
-    frontend families (A10b)."""
+    frontend families (whisper, qwen2-vl) on a mesh, which the legacy path
+    serves (A12)."""
     import repro_torch.configs as TC
     from repro_torch.core.partitioner import make_plan
     from repro_torch.core.resolve import KVConfig
@@ -94,9 +95,12 @@ def test_unported_options_raise():
                        plan=plan, dtype=torch.float32, device="cpu")
     assert make_draft(SpeculationConfig(k=2, draft="ngram"), cfg, params,
                       plan=plan).name == "ngram"
-    with pytest.raises(NotImplementedError, match="A10b"):
-        LLM.from_spec(ServeSpec(arch="whisper-tiny", max_batch=1,
-                                max_len=64, chunk=8, kv="auto"), device="cpu")
+    for arch in ("whisper-tiny", "qwen2-vl-7b"):
+        with pytest.raises(NotImplementedError, match="A12"):
+            LLM.from_spec(ServeSpec(arch=arch, max_batch=4, max_len=64,
+                                    chunk=8, kv="auto", strategy="mixserve"),
+                          mesh=Mesh(("data", "model"), (2, 2), 0),
+                          device="cpu")
     from repro_torch.serving.engine import Engine
     rcfg = TC.get_reduced("rwkv6-1.6b")
     spec = ServeSpec(arch="rwkv6-1.6b", max_batch=4, max_len=64, chunk=8,
