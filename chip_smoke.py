@@ -64,8 +64,8 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                then 2 prompts of 16-24 tokens at chunk=1, 4 new tokens
                (absorbed MLA, flash_decode); then the first serve's prompts
                with dispatch="capacity";
-               gemma-2b (18 layers, MQA 8/1 heads at hd 256) and
-               minitron-8b (32 layers), whole: phi3.5's traffic, paged
+               gemma-2b (9 of 18 layers, MQA 8/1 heads at hd 256) and
+               minitron-8b (16 of 32 layers): phi3.5's traffic, paged
                (flash_chunk_paged), then kv="dense" on the same weights
                (flash_chunk); gemma also 2 prompts of 16-24 tokens at
                chunk=1 on the dense backend (flash_decode);
@@ -73,8 +73,9 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              device-time breakdown (phi3.5 dropless and capacity, deepseek
              dropless, gemma and minitron paged)
   4c recurrent  the legacy blocking path (no kernel lies on it):
-             (a) bf16, full width and depth: rwkv6-1.6b (24 layers) and
-                 recurrentgemma-9b (38 layers, window 2048), max_batch 4,
+             (a) bf16, full width, half depth: rwkv6-1.6b (12 of 24
+                 layers) and recurrentgemma-9b (19 of 38 layers, window
+                 2048), max_batch 4,
                  max_len 2048, 8 prompts of 64-1024 tokens (two exactly a
                  bucket long) padded to their buckets, 32 new tokens each:
                  ms per decode step, TTFT, ITL, tok/s, peak memory, the
@@ -125,7 +126,8 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                  each, the plain serve and then each draft on the same
                  weights: phi3.5 8 layers paged (self, ngram, a reduced
                  smollm-360m with random weights), deepseek-v2 4 layers
-                 paged (self), gemma-2b whole on kv="dense" (self, ngram);
+                 paged (self), gemma-2b 9 layers on kv="dense" (self,
+                 ngram);
                  steps, ms/step, tok/s, TTFT, ITL, acceptance, tokens a
                  verify step, draft forwards and the share of wall time
                  spent drafting; launches exact per verify step and per
@@ -161,7 +163,35 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                  chunk, the collectives per step by kind and axes,
                  ep_load_stats and the A2A byte ledger, weights, KV pool
                  and peak memory per rank; times labelled as ranks sharing
-                 one card
+                 one card;
+             (c) f32, full width, cut in depth, every serve option the
+                 mesh once refused, each against the unsharded run on the
+                 same weights: phi3.5 and deepseek-v2 2 layers on
+                 kv="dense" (the 32-row mixed step, then a 1-row step,
+                 deepseek expanded then absorbed; the stateless forward;
+                 logits to rtol 1e-4 plus 1e-3 of the largest logit,
+                 LLM.generate streams equal); phi3.5 speculation, k 4 at
+                 chunk 16, the self draft on both backends and a reduced
+                 smollm-360m draft (streams equal the plain mesh serve's
+                 and the unsharded serve's, acceptance counters the
+                 unsharded run's); the legacy path: rwkv6-1.6b 2 layers,
+                 recurrentgemma-9b 3 layers, whisper-tiny whole (default
+                 and seeded frames), qwen2-vl-7b 2 layers (a seeded patch
+                 stub and none), the zero-initialised recurrent leaves and
+                 norms drawn: streams equal, each prefill's first-token
+                 logits within rtol 1e-4 plus the larger of 1e-4 of the
+                 largest logit and the one-ulp move of layer 0's norm;
+             (d) bf16: phi3.5 8 layers on kv="dense" with (b)'s traffic
+                 (launches exact, flash_chunk where (b) runs
+                 flash_chunk_paged; the collectives a step against (b)'s:
+                 the batch all_gather of the new KV rows, one a layer,
+                 gone); rwkv6-1.6b whole (24 layers) on the mesh, 4 prompts
+                 of 64-256 tokens, 8 new: streams equal on every rank, ms a
+                 decode step, the prefills' share of wall time, the
+                 collectives a decode step by kind, weights per rank;
+             every attention geometry (c) and (d) launched is then held to
+             the plain version on the card, and the dense-cache rank step
+             and the legacy rank decode timed beside SDPA and their bound
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2122,6 +2152,10 @@ def phase_serve_deepseek(torch, card_line):
 
 # the indices of dense_prompts' prompts that share the 512-token prefix
 DENSE_SHARED = (0, 4, 5, 6)
+# the dense models' serves run half their depth (the per-layer costs are
+# what they measure), as do the recurrent families' (REC_LAYERS): it
+# keeps the whole script well inside its time limit on a slow host
+DENSE_LAYERS = {"gemma-2b": 9, "minitron-8b": 16}
 
 
 def dense_prompts(cfg, seed):
@@ -2139,8 +2173,8 @@ def dense_prompts(cfg, seed):
 
 
 def phase_serve_dense(torch, card_line):
-    """gemma-2b (18 layers) and minitron-8b (32 layers) at full width and
-    depth, bf16: the paged serve (one flash_chunk_paged a layer a step,
+    """gemma-2b and minitron-8b at full width and DENSE_LAYERS depth,
+    bf16: the paged serve (one flash_chunk_paged a layer a step,
     with a profiler window), then kv="dense" on the same weights (one
     flash_chunk a layer a step; the dense backend has no prefix index, so
     the shared-prefix prompts are prefilled whole and the two runs' steps
@@ -2148,10 +2182,9 @@ def phase_serve_dense(torch, card_line):
     chunk=1 on the dense backend (flash_decode, which launches
     flash_chunk, a layer a step)."""
     from repro_torch.serving.api import LLM
-    import repro_torch.configs as C
     out = {}
     for arch, seed in (("gemma-2b", 4), ("minitron-8b", 5)):
-        cfg = C.get(arch)
+        cfg = _cut(arch, DENSE_LAYERS[arch])
         n = cfg.n_layers
         rng, prompts, tail = dense_prompts(cfg, seed)
         llm = _load(torch, dense_spec(), cfg, card_line)
@@ -2245,6 +2278,7 @@ def phase_profile(torch, llm, rng, label, prompt_len=256):
 
 # 8 prompts of 64-1024 tokens, two exactly a bucket long (64 and 512)
 REC_LENS = (64, 1000, 300, 512, 130, 700, 250, 900)
+REC_LAYERS = {"rwkv6-1.6b": 12, "recurrentgemma-9b": 19}
 REC_NEW = 32
 REC_PARITY = (("rwkv6-1.6b", 2, {}),
               ("recurrentgemma-9b", 3, {"window_size": 64}))
@@ -2426,16 +2460,16 @@ def _serve_legacy(torch, llm, prompts, card_line, label, new=REC_NEW,
 
 
 def phase_serve_recurrent(torch, card_line):
-    """rwkv6-1.6b (24 layers) and recurrentgemma-9b (38 layers) whole, bf16,
-    on the legacy blocking path: 8 prompts (REC_LENS) padded to their
+    """rwkv6-1.6b (12 of 24 layers) and recurrentgemma-9b (19 of 38: six
+    (rec, rec, attn) patterns and a rec), bf16, on the legacy blocking
+    path: 8 prompts (REC_LENS) padded to their
     buckets, 32 new tokens each, max_batch 4, max_len 2048; no kernel
     counter may move; a profiler window on each; then the f32 checks at
     reduced depth (``rec_parity``)."""
     import numpy as np
-    import repro_torch.configs as C
     out = {}
     for arch, seed in (("rwkv6-1.6b", 6), ("recurrentgemma-9b", 7)):
-        cfg = C.get(arch)
+        cfg = _cut(arch, REC_LAYERS[arch])
         rng = np.random.default_rng(seed)
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                    for n in REC_LENS]
@@ -2546,17 +2580,22 @@ class record_geometries:
         sink = self.sink
 
         def rec_chunk(q, k, v, *a, **kw):
-            sink.add(_geometry("flash_chunk", q.shape[0], q.shape[1], q, k))
+            sink.add(self.geo("flash_chunk", q, k, v))
             return chunk(q, k, v, *a, **kw)
 
         def rec_decode(q, k, v, *a, **kw):
-            sink.add(_geometry("flash_decode", q.shape[0], 1, q, k))
+            sink.add(self.geo("flash_decode", q, k, v))
             return decode(q, k, v, *a, **kw)
         ops.flash_chunk, ops.flash_decode = rec_chunk, rec_decode
         return sink
 
     def __exit__(self, *exc):
         self.ops.flash_chunk, self.ops.flash_decode = self.saved
+
+    @staticmethod
+    def geo(kernel, q, k, v):
+        sq = 1 if kernel == "flash_decode" else q.shape[1]
+        return _geometry(kernel, q.shape[0], sq, q, k)
 
 
 def resolve_front_shapes():
@@ -2900,7 +2939,8 @@ SPEC_SERVES = (("phi3.5-moe-42b", 8, 6,
                 (("paged", None, ("self", "ngram", "smollm-360m")),
                  ("dense", 16, ("self",)))),
                ("deepseek-v2-236b", 4, 7, (("paged", None, ("self",)),)),
-               ("gemma-2b", None, 8, (("dense", None, ("self", "ngram")),)))
+               ("gemma-2b", DENSE_LAYERS["gemma-2b"], 8,
+                (("dense", None, ("self", "ngram")),)))
 
 
 def spec_runs():
@@ -3258,18 +3298,26 @@ def _dist_inputs(torch, cfg, dev):
                for n in DIST_LENS]
 
 
-def _dist_forward(torch, cfg, params, plan, dev):
-    """DIST_FWD on a fresh paged cache through ``forward`` under ``plan``
-    (sharded on a mesh, else on one device): each step's logits of every
-    row, on the host."""
+def _dist_forward(torch, cfg, params, plan, dev, kv="paged"):
+    """DIST_FWD on a fresh cache of 4 slots through ``forward`` under
+    ``plan`` (sharded on a mesh, else on one device): each step's logits
+    of every row, on the host.  ``kv="dense"``: on ``make_batched_cache``
+    (on a mesh the rank's rows and heads), then the stateless forward over
+    OPT_STATELESS tokens, its logits last."""
     import numpy as np
     from repro_torch.models import model as MOD
-    nb = DIST_FWD_LEN // DIST_FWD_PAGE
-    cache = MOD.init_paged_cache(cfg, 4, DIST_FWD_LEN,
-                                 page_size=DIST_FWD_PAGE, pool_pages=4 * nb,
-                                 dtype=torch.float32, device=dev, plan=plan)
-    cache["block_tables"].copy_(torch.arange(
-        4 * nb, dtype=torch.int32, device=dev).reshape(4, nb))
+    from repro_torch.serving.kv_cache import make_batched_cache
+    if kv == "dense":
+        cache = make_batched_cache(cfg, 4, DIST_FWD_LEN, torch.float32,
+                                   dev, plan)
+    else:
+        nb = DIST_FWD_LEN // DIST_FWD_PAGE
+        cache = MOD.init_paged_cache(cfg, 4, DIST_FWD_LEN,
+                                     page_size=DIST_FWD_PAGE,
+                                     pool_pages=4 * nb, dtype=torch.float32,
+                                     device=dev, plan=plan)
+        cache["block_tables"].copy_(torch.arange(
+            4 * nb, dtype=torch.int32, device=dev).reshape(4, nb))
     rng = np.random.default_rng(3)
     out = []
     for q_lens, w in DIST_FWD:
@@ -3279,20 +3327,29 @@ def _dist_forward(torch, cfg, params, plan, dev):
                         q_lens=torch.tensor(q_lens, dtype=torch.int32,
                                             device=dev))
         out.append(o.logits.cpu())
+    if kv == "dense":
+        toks = rng.integers(0, cfg.vocab_size, OPT_STATELESS).astype(
+            np.int32)
+        o = MOD.forward(params, cfg, plan,
+                        tokens=torch.from_numpy(toks).to(dev))
+        check(o.cache is None, "the stateless forward returned a cache")
+        out.append(o.logits.cpu())
     return out
 
 
 def _forward_err(torch, got, want):
-    """(max abs error over the valid rows of every step, within the
-    bound, the largest logit) of the sharded forward's logits against the
-    unsharded ones."""
+    """(max abs error over the valid rows of every step (and every row of
+    a stateless forward after them), within the bound, the largest logit)
+    of the sharded forward's logits against the unsharded ones."""
     err, ok = 0.0, True
-    for (q_lens, _), g, w in zip(DIST_FWD, got, want):
-        for i, n in enumerate(q_lens):
-            a, b = g[i, :n], w[i, :n]
+    rows = [q for q, _ in DIST_FWD] + [None] * (len(want) - len(DIST_FWD))
+    for q_lens, g, w in zip(rows, got, want):
+        pairs = [(g, w)] if q_lens is None else \
+            [(g[i, :n], w[i, :n]) for i, n in enumerate(q_lens) if n]
+        for a, b in pairs:
             err = max(err, max_err(torch, a, b))
             ok &= within(torch, a, b, FWD_ATOL_REL * float(b.abs().max()),
-                         FWD_RTOL) if n else True
+                         FWD_RTOL)
     return err, ok, max(float(w.abs().max()) for w in want)
 
 
@@ -3331,7 +3388,9 @@ def _dist_reference(torch, path):
         del llm
     ref["forward"] = _dist_forward(torch, cfg, params, make_plan(
         "mixserve", kernels=KernelPolicy.all_on()), "cuda")
-    del params, x
+    del x
+    _dist_options_reference(torch, ref, params, cfg)
+    del params
     free_memory(torch)
     cfg = _cut("deepseek-v2-236b", 2)
     params = init_params(gen.manual_seed(1), cfg, torch.float32, "cuda")
@@ -3437,9 +3496,10 @@ def _dist_deepseek_rank(torch, mesh, ref):
     return out
 
 
-def _dist_serve_rank(torch, mesh):
+def _dist_serve_rank(torch, mesh, kv="paged"):
     """(b) on one rank: the bf16 8-layer phi3.5 serve, counters read from
-    this run only."""
+    this run only; with ``kv="dense"`` (d)'s serve on the dense backend,
+    its attention geometries recorded."""
     import numpy as np
     from repro_torch.core import collectives
     from repro_torch.kernels import ops
@@ -3447,7 +3507,7 @@ def _dist_serve_rank(torch, mesh):
     from repro_torch.serving.api import LLM
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = _cut("phi3.5-moe-42b", 8)
-    res = dist_spec().resolve(cfg, mesh=mesh, device=dev)
+    res = dist_spec(kv=kv).resolve(cfg, mesh=mesh, device=dev)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     llm = LLM.from_spec(res, cfg=cfg, device=dev, dtype=torch.bfloat16)
@@ -3482,10 +3542,12 @@ def _dist_serve_rank(torch, mesh):
     collectives._issue = timed(issue)
     collectives.Pending.wait = timed(wait)
     n0 = eng.n_forward
+    geos: set = set()
     t0 = time.perf_counter()
     try:
-        streams = llm.generate(prompts, 16)
-        torch.cuda.synchronize()
+        with record_dist_geometries(geos):
+            streams = llm.generate(prompts, 16)
+            torch.cuda.synchronize()
     finally:
         collectives._issue, collectives.Pending.wait = issue, wait
     wall = time.perf_counter() - t0
@@ -3500,6 +3562,7 @@ def _dist_serve_rank(torch, mesh):
             "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "ep_load": eng.ep_load_stats(), "prefix_hits":
             eng.kv.stats.n_prefix_hits, "spec": res.describe(),
+            "backend": eng.kv.backend, "geometries": sorted(geos),
             "vocab": cfg.vocab_size,
             "plan": f"{res.strategy} {res.plan.comm_algo}, tp {res.plan.tp} "
                     f"{res.plan.tp_axes}, ep {res.plan.ep} "
@@ -3507,6 +3570,446 @@ def _dist_serve_rank(torch, mesh):
                     f"{res.plan.dp_axes}, ep_overlap "
                     f"{ovl.describe() if ovl else 'off'}"}
 
+
+# ---------------------------------------------------------------------------
+# phase 5 (c) and (d): every serve option on the mesh
+# ---------------------------------------------------------------------------
+
+# (c) f32, full width, cut in depth.  The dense backend: DIST_FWD on a
+# dense cache of 4 slots (the 32-row mixed step, then a 1-row step:
+# deepseek's MLA expanded, then absorbed), then the stateless forward
+# over OPT_STATELESS tokens, and LLM.generate with kv="dense"
+OPT_STATELESS = (4, 32)
+# speculation on phi3.5 2 layers, k SPEC_K at chunk 16: (kv, draft), each
+# against the plain serve on the mesh and the same serve unsharded
+OPT_SPEC = (("paged", "self"), ("dense", "self"), ("paged", "smollm-360m"))
+OPT_SPEC_LENS, OPT_SPEC_NEW = (40, 33, 57, 48), 12
+# the legacy families: (arch, layers or None for the whole model, stub:
+# None, whisper's "default" frames or a "seeded" one, dtype).  f64 runs
+# the plain bodies (no kernel takes f64).  whisper runs in f64 only: at
+# full width its random-init f32 logits are chaotic under any change of
+# summation order, the encoder's attention over near-alike frames near
+# one-hot (on the CPU, the whole model's f32 first-token logits move by
+# 0.70 of a largest 4.23 between the sharded and the unsharded forward,
+# and by 6.7e-04 merely between a batch of 4 and one row at a time; in
+# f64 the two agree to 0.0), so equal f32 streams would test the
+# rounding, not the layout.  qwen2-vl runs in f32 through the kernels
+# and again in f64, which shows what of its f32 gap is rounding
+OPT_LEGACY = (("rwkv6-1.6b", 2, None, "float32"),
+              ("recurrentgemma-9b", 3, None, "float32"),
+              ("whisper-tiny", None, "default", "float64"),
+              ("whisper-tiny", None, "seeded", "float64"),
+              ("qwen2-vl-7b", 2, "seeded", "float32"),
+              ("qwen2-vl-7b", 2, None, "float32"),
+              ("qwen2-vl-7b", 2, "seeded", "float64"))
+# the first-token logits' bound, sharded against unsharded: rtol 1e-4
+# plus the larger of a share of the largest |logit| and the one-ulp move
+# of layer 0's norm (the frontend checks' rule, above FRONT_NORMS).  The
+# share is 1e-4 in f64 and, in f32, phase 5 (a)'s FWD_ATOL_REL: the TP
+# partial sums reorder every layer's f32 sums, which moves full-width
+# logits more than one ulp at one norm does (qwen2-vl 2 layers: 1.245e-03
+# against a largest 5.757 and a one-ulp move of 2.967e-04, on an H100)
+LEGACY_SHARE = {"float32": FWD_ATOL_REL, "float64": 1e-4}
+OPT_LEGACY_LENS, OPT_LEGACY_NEW = (40, 100, 200), 8
+# (d) rwkv6-1.6b whole on the mesh, bf16: 4 prompts of 64-256 tokens
+RWKV_DIST_LENS, RWKV_DIST_NEW = (64, 256, 100, 180), 8
+
+
+class record_dist_geometries(record_geometries):
+    """``record_geometries`` with the value width: MLA's expanded and
+    absorbed attention have hdv != hd.  A geometry is (kernel, B, sq, nq,
+    nkv, hd, hdv, S, dtype)."""
+
+    @staticmethod
+    def geo(kernel, q, k, v):
+        sq = 1 if kernel == "flash_decode" else q.shape[1]
+        return (kernel, q.shape[0], sq, q.shape[-2], k.shape[2],
+                q.shape[-1], v.shape[-1], k.shape[1], dname(q.dtype))
+
+
+def _rank_tree(tree, cfg, plan):
+    """This rank's block of a whole params tree (``plan.keep_hook``), each
+    cut leaf copied so that the whole tree can be freed."""
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.param import P
+    keep = plan.keep_hook(cfg)
+
+    def walk(t, s, path):
+        if isinstance(s, P):
+            sl = keep(path, s) if keep is not None else None
+            return t if sl is None else t[sl].contiguous()
+        if isinstance(s, dict):
+            return {k: walk(t[k], s[k], path + (k,)) for k in s}
+        return [walk(t[i], s[i], path + (i,)) for i in range(len(s))]
+    return walk(tree, model_spec(cfg), ())
+
+
+def _legacy_params(torch, cfg, dtype, dev, plan=None):
+    """The weights of a legacy case, seed 1, the zero-initialised
+    recurrent leaves and norms drawn on the whole tree (so every rank's
+    block is the whole tree's), then cut to ``plan``'s block."""
+    from repro_torch.models.model import init_params
+    gen = torch.Generator(device=dev)
+    whole = init_params(gen.manual_seed(1), cfg, dtype, dev)
+    whole = draw_norms(torch, draw_recurrent_leaves(torch, whole, gen), gen)
+    return whole if plan is None else _rank_tree(whole, cfg, plan)
+
+
+def _legacy_cfg(arch, layers):
+    import repro_torch.configs as C
+    return C.get(arch) if layers is None else _cut(arch, layers)
+
+
+def _legacy_stub(torch, cfg, stub):
+    """An embeds_fn of the case's stub (None: the LLM's default)."""
+    return stub_fn(*front_stub(torch, cfg, 3)) if stub == "seeded" else None
+
+
+def _legacy_spec(dtype):
+    """A legacy case's envelope: kernels "auto" in f32, off in f64."""
+    kw = {} if dtype == "float32" else {"kernels": "off"}
+    return _spec("auto", strategy="mixserve", max_len=512,
+                 prompt_len=max(OPT_LEGACY_LENS),
+                 max_new_tokens=OPT_LEGACY_NEW, **kw)
+
+
+def _legacy_serve(torch, cfg, params, stub, dtype, dev, mesh=None):
+    """The legacy engine's greedy streams of OPT_LEGACY_LENS and each
+    blocking prefill's first-token logits (on the real vocabulary)."""
+    import numpy as np
+    from repro_torch.serving.api import LLM
+    llm = LLM.from_spec(_legacy_spec(dtype), cfg=cfg, params=params,
+                        mesh=mesh,
+                        embeds_fn=_legacy_stub(torch, cfg, stub),
+                        device=dev, dtype=getattr(torch, dtype))
+    eng = llm.engine
+    check(eng.legacy and eng.kv.backend == "dense",
+          f"{cfg.name}: not on the legacy path's dense cache")
+    firsts, prefill = [], eng._prefill_impl
+
+    def kept(tokens, real_len):
+        last, cache = prefill(tokens, real_len)
+        firsts.append(last[0, :cfg.vocab_size].cpu())
+        return last, cache
+    eng._prefill_impl = kept
+    prompts = [np.random.default_rng(2).integers(
+        0, cfg.vocab_size, n).astype(np.int32) for n in OPT_LEGACY_LENS]
+    streams = llm.generate(prompts, OPT_LEGACY_NEW)
+    torch.cuda.synchronize()
+    return streams, torch.stack(firsts), eng.plan
+
+
+def _norm0(params):
+    """Layer 0's first norm weight."""
+    layer = params["groups"][0][0]
+    if "tm" in layer:
+        return layer["tm"]["norm"]
+    if "l0" in layer:
+        return layer["l0"]["rglru"]["norm"]
+    return layer["attn"]["norm"]
+
+
+def _legacy_ulp_gap(torch, cfg, params, stub, dev):
+    """How far the first prefill's first-token logits move when layer 0's
+    norm weight is scaled by 1 + 2^-23 (the frontend checks' one-ulp
+    move), and the largest |logit| there."""
+    import numpy as np
+    from repro_torch.models.model import forward
+    prompt = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, OPT_LEGACY_LENS[0]).astype(np.int32)
+    fn = _legacy_stub(torch, cfg, stub)
+    kw = fn(1) if fn is not None else {}
+    if cfg.family == "audio" and not kw:      # whisper's default frames
+        e = cfg.encoder
+        kw = {"frames": torch.full((1, e.n_frames, e.d_model), 0.01,
+                                   device=dev)}
+    toks = torch.as_tensor(prompt, device=dev).long()[None]
+    front = cfg.n_frontend_tokens if "embeds" in kw else 0
+    row = front + len(prompt) - 1
+    v = cfg.vocab_size
+    base = forward(params, cfg, tokens=toks, **kw).logits[0, row, :v]
+    norm0 = _norm0(params)
+    saved = norm0.clone()
+    norm0.add_((1 + norm0) * 2 ** -23)
+    moved = forward(params, cfg, tokens=toks, **kw).logits[0, row, :v]
+    norm0.copy_(saved)
+    return max_err(torch, moved, base), float(base.abs().max())
+
+
+def _opt_spec_runs(torch, cfg, params, dev, mesh=None):
+    """phi3.5 on OPT_SPEC_LENS at chunk 16: the plain paged serve, then
+    each OPT_SPEC run: (streams, spec_stats) by run."""
+    import numpy as np
+    from repro_torch.serving.api import LLM
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in OPT_SPEC_LENS]
+    out = {}
+    for kv, draft in (("paged", "off"),) + OPT_SPEC:
+        spec = spec_spec(draft, kv, 16, max_len=128,
+                         max_new_tokens=OPT_SPEC_NEW,
+                         strategy=_dist_strategy("mixserve", "fused"))
+        llm = LLM.from_spec(spec, cfg=cfg, params=params, mesh=mesh,
+                            device=dev, dtype=torch.float32)
+        streams = llm.generate(prompts, OPT_SPEC_NEW)
+        torch.cuda.synchronize()
+        out[(kv, draft)] = (streams, llm.engine.spec_stats())
+        del llm
+        free_memory(torch)
+    return out
+
+
+def _dist_options_reference(torch, ref, params, cfg):
+    """The unsharded f32 runs of (c), on one device: phi3.5's dense
+    forward, dense streams and speculated serves on ``params`` (phase 5
+    (a)'s weights), deepseek-v2's dense forward and streams, and each
+    legacy case's streams, first-token logits and one-ulp move."""
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.api import LLM
+    plan = make_plan("mixserve", kernels=KernelPolicy.all_on())
+    x, prompts = _dist_inputs(torch, cfg, "cuda")
+    ref["dense_forward"] = _dist_forward(torch, cfg, params, plan, "cuda",
+                                         "dense")
+    llm = LLM.from_spec(_spec(kv="dense", **DIST_PARITY), cfg=cfg,
+                        params=params, device="cuda", dtype=torch.float32)
+    ref["dense_streams"] = llm.generate(prompts, 8)
+    del llm, x
+    ref["spec"] = _opt_spec_runs(torch, cfg, params, "cuda")
+    free_memory(torch)
+    ds = _cut("deepseek-v2-236b", 2)
+    gen = torch.Generator(device="cuda")
+    dp = init_params(gen.manual_seed(1), ds, torch.float32, "cuda")
+    ref["ds_dense_forward"] = _dist_forward(torch, ds, dp, plan, "cuda",
+                                            "dense")
+    llm = LLM.from_spec(_spec(kv="dense", **DS_DIST), cfg=ds, params=dp,
+                        device="cuda", dtype=torch.float32)
+    ref["ds_dense_streams"] = llm.generate(_ds_prompts(ds), 4)
+    del llm, dp
+    free_memory(torch)
+    ref["legacy"] = {}
+    for arch, layers, stub, dtype in OPT_LEGACY:
+        lc = _legacy_cfg(arch, layers)
+        lp = _legacy_params(torch, lc, getattr(torch, dtype), "cuda")
+        streams, firsts, _ = _legacy_serve(torch, lc, lp, stub, dtype,
+                                           "cuda")
+        ulp, big = _legacy_ulp_gap(torch, lc, lp, stub, "cuda")
+        ref["legacy"][(arch, stub, dtype)] = {
+            "streams": streams, "firsts": firsts, "ulp": ulp, "big": big}
+        del lp
+        free_memory(torch)
+
+
+def _dist_options_rank(torch, mesh, ref):
+    """(c) on one rank: the dense backend's forward (steps and stateless)
+    and streams for phi3.5 and deepseek-v2, the speculated serves, and
+    the legacy families' serves, each against the unsharded run; every
+    attention geometry recorded."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.api import LLM
+    dev = torch.device("cuda", torch.cuda.current_device())
+    geos: set = set()
+    out = {}
+    gen = torch.Generator(device=dev)
+    with record_dist_geometries(geos):
+        for arch, knobs, n_new, key in (
+                ("phi3.5-moe-42b", DIST_PARITY, 8, ""),
+                ("deepseek-v2-236b", DS_DIST, 4, "ds_")):
+            cfg = _no_drop(_cut(arch, 2)) if not key else _cut(arch, 2)
+            res = _spec(kv="dense", strategy=_dist_strategy(
+                "mixserve", "fused"), **knobs).resolve(cfg, mesh=mesh,
+                                                       device=dev)
+            params = init_params(gen.manual_seed(1), cfg, torch.float32,
+                                 dev, plan=res.plan)
+            t0 = time.perf_counter()
+            err, ok, big = _forward_err(torch, _dist_forward(
+                torch, cfg, params, res.plan, dev, "dense"),
+                ref[f"{key}dense_forward"])
+            llm = LLM.from_spec(res, cfg=cfg, params=params, device=dev,
+                                dtype=torch.float32)
+            prompts = _ds_prompts(cfg) if key else _dist_inputs(
+                torch, cfg, dev)[1]
+            streams = llm.generate(prompts, n_new)
+            torch.cuda.synchronize()
+            rows = next(iter(llm.engine.cache["groups"][0].values()))
+            out[arch] = {"fwd_max_err": err, "fwd_ok": ok,
+                         "fwd_max_logit": big, "streams": streams,
+                         "streams_equal": streams == ref[
+                             f"{key}dense_streams"],
+                         "cache_rows": int(rows.shape[1]),
+                         "seconds": time.perf_counter() - t0}
+            del llm
+            if not key:
+                t0 = time.perf_counter()
+                spec = _opt_spec_runs(torch, cfg, params, dev, mesh)
+                # (streams, counters, each equal to the unsharded run's)
+                out["spec"] = {"runs": {
+                    k: (v[0], v[1], v[0] == ref["spec"][k][0],
+                        v[1] == ref["spec"][k][1])
+                    for k, v in spec.items()},
+                    "seconds": time.perf_counter() - t0}
+            del params
+            free_memory(torch)
+        out["legacy"] = {}
+        for arch, layers, stub, dtype in OPT_LEGACY:
+            t0 = time.perf_counter()
+            cfg = _legacy_cfg(arch, layers)
+            res_plan = _legacy_spec(dtype).resolve(cfg, mesh=mesh,
+                                                   device=dev).plan
+            params = _legacy_params(torch, cfg, getattr(torch, dtype), dev,
+                                    res_plan)
+            free_memory(torch)
+            streams, firsts, plan = _legacy_serve(torch, cfg, params, stub,
+                                                  dtype, dev, mesh)
+            want = ref["legacy"][(arch, stub, dtype)]
+            share = max(LEGACY_SHARE[dtype], want["ulp"] / want["big"])
+            err, bound, ok = _within_bound(torch, firsts, want["firsts"],
+                                           share)
+            out["legacy"][(arch, stub, dtype)] = {
+                "streams": streams, "streams_equal":
+                streams == want["streams"], "first_max_err": err,
+                "bound": bound, "first_ok": ok, "ulp": want["ulp"],
+                "big": want["big"], "heads_sharded": plan.heads_sharded(cfg),
+                "seconds": time.perf_counter() - t0}
+            del params
+            free_memory(torch)
+    out["geometries"] = sorted(geos)
+    return out
+
+
+def _dist_rwkv_rank(torch, mesh):
+    """(d) rwkv6-1.6b whole, bf16, on the mesh: RWKV_DIST_LENS, the
+    blocking prefills timed apart (admission reads the first token back,
+    so its host time is device-complete) and the collectives of the
+    decode steps counted apart."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.core import collectives
+    from repro_torch.serving.api import LLM
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = C.get("rwkv6-1.6b")
+    res = rec_spec(strategy="mixserve", max_len=512,
+                   prompt_len=max(RWKV_DIST_LENS),
+                   max_new_tokens=RWKV_DIST_NEW).resolve(cfg, mesh=mesh,
+                                                         device=dev)
+    llm = LLM.from_spec(res, cfg=cfg, device=dev, dtype=torch.bfloat16)
+    eng = llm.engine
+    weights = sum(t.numel() * t.element_size() for t in _leaves(llm.params))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in RWKV_DIST_LENS]
+    spent = {"prefill_s": 0.0, "prefills": 0, "decode_s": 0.0, "steps": 0}
+    decode_coll: dict = {}
+    admit, decode = eng._admit_legacy, eng._decode_impl
+
+    def timed_admit(req, slot):
+        t0 = time.perf_counter()
+        try:
+            return admit(req, slot)
+        finally:
+            spent["prefill_s"] += time.perf_counter() - t0
+            spent["prefills"] += 1
+
+    def counted_decode(tokens, active):
+        before = dict(collectives.counters)
+        t0 = time.perf_counter()
+        nxt = decode(tokens, active)
+        torch.cuda.synchronize()
+        spent["decode_s"] += time.perf_counter() - t0
+        spent["steps"] += 1
+        for k, n in collectives.counters.items():
+            d = n - before.get(k, 0)
+            if d:
+                key = f"{k[0]} {'+'.join(k[1])}"
+                decode_coll[key] = decode_coll.get(key, 0) + d
+        return nxt
+    eng._admit_legacy, eng._decode_impl = timed_admit, counted_decode
+    collectives.reset_counters()
+    t0 = time.perf_counter()
+    streams = llm.generate(prompts, RWKV_DIST_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state = eng.cache["groups"][0]["state"]
+    return {"streams": streams, "wall_s": wall, "weights_gb": weights / 1e9,
+            "state_shape": tuple(state.shape),
+            "decode_collectives": decode_coll, **spent}
+
+
+
+
+def check_dist_geometries(torch, res, geos, dev):
+    """flash_chunk / flash_decode at every geometry phase 5's ranks
+    launched on a dense cache (the (c) f32 cases and the (d) bf16 serve):
+    the kernel against its plain version on random inputs at those
+    shapes, lengths [S, 1, S/2 + 5, 0] cut to the batch (a prefill:
+    its rows from offset 0; a batch of 1: the whole step); the two
+    geometries of this slice's PERF rows timed beside SDPA and their
+    bound, in bf16 (the dense-cache rank step of (d), and the legacy rank
+    decode of qwen2-vl-7b, which (c) runs in f32, also as a bf16 serve
+    would run it)."""
+    import numpy as np
+    ops, ref = _ops()
+    rng = np.random.default_rng(5)
+    timed = {g for g in geos if g[0] == "flash_chunk"
+             and g[-1] == "bfloat16"}
+    legacy = {g for g in geos if g[0] == "flash_decode" and g[4] == 2
+              and g[3] == 14 and g[5] == 128}          # qwen2-vl 14/2 heads
+    timed |= legacy | {g[:-1] + ("bfloat16",) for g in legacy}
+    todo = sorted(set(geos) | timed)
+    for g in todo:
+        kernel, b, sq, nq, nkv, hd, hdv, S, dn = g
+        dtype = getattr(torch, dn)
+        if kernel == "flash_decode" or b == 1:
+            lens = [S, 1, S // 2 + 5, 0][:b] + [1] * max(0, b - 4)
+            if b == 1:
+                lens = [min(S, sq)]
+        else:
+            lens = [S, sq, S // 2 + 5, 0][:b] + [sq] * max(0, b - 4)
+        q_len = [min(n, sq) for n in lens]
+        q_off = [n - m for n, m in zip(lens, q_len)]
+        args = _dense_case(torch, rng, b=b, sq=sq, nq=nq, nkv=nkv, hd=hd,
+                           hdv=hdv, skv=S, q_off=q_off, q_len=q_len,
+                           kv_len=lens, dtype=dtype, dev=dev)
+        scale = hd ** -0.5
+        if kernel == "flash_decode":
+            q = args[0][:, 0].contiguous()
+            ln = args[5]
+            call = lambda q=q, a=args, ln=ln: ops.flash_decode(
+                q, a[1], a[2], ln, scale=scale)
+            plain = lambda q=q, a=args, ln=ln: ref.flash_decode_ref(
+                q, a[1], a[2], ln, scale=scale)
+            got, want = call(), plain()
+            sd_args = (q[:, None], args[1], args[2], *(
+                _i32(torch, a, dev) for a in (q_off, q_len, lens)))
+            sd_want = want[:, None]
+        else:
+            call = lambda a=args: ops.flash_chunk(*a, scale=scale)
+            plain = lambda a=args: ref.flash_chunk_ref(*a, scale=scale)
+            got, want = call(), plain()
+            sd_args, sd_want = args, want
+        torch.cuda.synchronize()
+        rec = {"label": f"{kernel} phase 5 rank geometry B={b} sq={sq} "
+                        f"heads {nq}/{nkv} hd {hd}/{hdv} S={S} {dn}",
+               "max_err": max_err(torch, got, want),
+               "tol": list(FLASH_TOL[dn]),
+               "ok": within(torch, got, want, *FLASH_TOL[dn]),
+               "shape": f"q {tuple(args[0].shape)} k {tuple(args[1].shape)}"
+                        f" v {tuple(args[2].shape)} q_off {q_off} q_len "
+                        f"{q_len} kv_len {lens}"}
+        if g in timed:
+            time_rec(torch, rec, call, 20, plain, 5,
+                     _sdpa_call(torch, *sd_args, scale, sd_want))
+            item = 2 if dn == "bfloat16" else 4
+            bts, flops = _attn_work(q_off, q_len, lens, nq, nkv, hd, hdv,
+                                    item)
+            rec.update(bytes=bts + got.numel() * item, flops=flops,
+                       peak="bf16" if item == 2 else "f32", primary=False,
+                       ran=g in geos)
+        res.add("flash_chunk", rec, "disagrees with its plain version at a "
+                                    "phase 5 rank geometry")
+        del args, got, want
+    free_memory(torch)
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -3528,10 +4031,21 @@ def dist_rank(rank, world, workdir):
     free_memory(torch)
     deepseek = _dist_deepseek_rank(torch, mesh, ref)
     free_memory(torch)
+    t0 = time.perf_counter()
+    options = _dist_options_rank(torch, mesh, ref)
+    options["seconds"] = time.perf_counter() - t0
+    free_memory(torch)
     serve = _dist_serve_rank(torch, mesh)
+    free_memory(torch)
+    t0 = time.perf_counter()
+    dense = _dist_serve_rank(torch, mesh, kv="dense")
+    free_memory(torch)
+    rwkv = _dist_rwkv_rank(torch, mesh)
+    rwkv["seconds"] = time.perf_counter() - t0
     return {"rank": rank, "backend": mesh.backend, "mesh": repr(mesh),
             "device": torch.cuda.get_device_name(), "parity": parity,
-            "deepseek": deepseek, "serve": serve}
+            "deepseek": deepseek, "options": options, "serve": serve,
+            "dense": dense, "rwkv": rwkv}
 
 
 def dist_serve_rank(rank, world, workdir):
@@ -3658,13 +4172,158 @@ def phase_dist(torch, card_line, dsh):
     check(all(len(v) == 16 and all(0 <= t < s0["vocab"] for t in v)
               for v in s0["streams"]),
           f"distributed serve: streams {s0['streams']}")
+    _report_options(ranks, card_line)
+    dense = _report_dense_serve(ranks, s0, n_moe, dsh, card_line, label)
+    _report_rwkv(ranks, card_line, label)
     (work / "ref.pt").unlink()
     launches: dict = {}
-    for s in sv:
+    for s in sv + [r["dense"] for r in ranks]:
         for k, v in s["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    return {"launches": launches, "wall_s": wall,
-            "serve": {k: v for k, v in s0.items() if k != "streams"}}
+    geos = {tuple(g) for r in ranks for part in (r["options"], r["dense"])
+            for g in part["geometries"]}
+    secs = {"options": max(r["options"]["seconds"] for r in ranks),
+            "dense_and_rwkv": max(r["rwkv"]["seconds"] for r in ranks)}
+    print(f"[dist] (c) and (d) seconds on the slowest rank "
+          f"{json.dumps({k: round(v, 1) for k, v in secs.items()})}; phase "
+          f"5 ranks {wall:.1f}s in all")
+    return {"launches": launches, "wall_s": wall, "geometries": geos,
+            "serve": {k: v for k, v in s0.items() if k != "streams"},
+            "dense": {k: v for k, v in dense.items() if k != "streams"}}
+
+
+def _report_options(ranks, card_line):
+    """(c): print and check every rank's f32 option cases."""
+    per = [r["options"] for r in ranks]
+    for arch in ("phi3.5-moe-42b", "deepseek-v2-236b"):
+        cs = [o[arch] for o in per]
+        err = max(c["fwd_max_err"] for c in cs)
+        print(f"[dist] (c) {arch} 2 layers f32 kv=dense: {cs[0]['cache_rows']}"
+              f" of 4 slots a rank; dense-cache steps (32-row mixed, 1-row)"
+              f" and the stateless forward, logits vs unsharded max err "
+              f"{err:.3e} (tol rtol {FWD_RTOL} + {FWD_ATOL_REL} x max "
+              f"|logit| {cs[0]['fwd_max_logit']:.3f}); LLM.generate streams "
+              f"equal unsharded on every rank: "
+              f"{all(c['streams_equal'] for c in cs)} "
+              f"({max(c['seconds'] for c in cs):.1f}s) [{card_line}]")
+        check(all(c["fwd_ok"] for c in cs),
+              f"(c) {arch} dense: forward logits differ by {err}")
+        check(all(c["streams_equal"] for c in cs),
+              f"(c) {arch} dense: streams differ from unsharded: "
+              f"{[c['streams'] for c in cs]}")
+        check(all(c["cache_rows"] == 2 for c in cs),
+              f"(c) {arch}: dense cache rows {[c['cache_rows'] for c in cs]}")
+    runs = [o["spec"]["runs"] for o in per]
+    plain = runs[0][("paged", "off")][0]
+    check(all(r[("paged", "off")][2] for r in runs),
+          "(c) spec: the plain mesh serve's streams differ from unsharded")
+    for run in OPT_SPEC:
+        got = [r[run] for r in runs]
+        st = got[0][1]
+        print(f"[dist] (c) phi3.5 2 layers f32 speculation k {SPEC_K} at "
+              f"chunk 16, kv {run[0]}, draft {run[1]}: streams equal the "
+              f"plain mesh serve's on every rank "
+              f"{all(g[0] == plain for g in got)}, the unsharded run's "
+              f"{all(g[2] for g in got)}; counters equal the unsharded "
+              f"run's {all(g[3] for g in got)}: {json.dumps(st)}")
+        check(all(g[0] == plain for g in got),
+              f"(c) spec {run}: streams differ from the plain serve's")
+        check(all(g[2] and g[3] for g in got),
+              f"(c) spec {run}: streams or counters differ from unsharded")
+        check(st["n_spec_drafted"] > 0, f"(c) spec {run}: nothing drafted")
+    for arch, layers, stub, dtype in OPT_LEGACY:
+        cs = [o["legacy"][(arch, stub, dtype)] for o in per]
+        err = max(c["first_max_err"] for c in cs)
+        c0 = cs[0]
+        print(f"[dist] (c) {arch} "
+              f"{'whole' if layers is None else f'{layers} layers'} {dtype} "
+              f"legacy path, stub {stub}, heads split "
+              f"{c0['heads_sharded']}: streams equal unsharded on every "
+              f"rank {all(c['streams_equal'] for c in cs)}; first-token "
+              f"logits max err {err:.3e} (bound rtol 1e-4 + "
+              f"{c0['bound']:.3e}: max({LEGACY_SHARE[dtype]:g} of the "
+              f"largest |logit| {c0['big']:.3f}, the move under layer 0's "
+              f"norm x (1 + 2^-23) {c0['ulp']:.3e}); {err / c0['big']:.2e}"
+              f" of the largest) "
+              f"({max(c['seconds'] for c in cs):.1f}s)")
+        check(all(c["streams_equal"] for c in cs),
+              f"(c) {arch} {stub} {dtype}: streams differ from unsharded: "
+              f"{[c['streams'] for c in cs]}")
+        check(all(c["first_ok"] for c in cs),
+              f"(c) {arch} {stub} {dtype}: first-token logits differ by "
+              f"{err}")
+
+
+def _report_dense_serve(ranks, paged, n_moe, dsh, card_line, label):
+    """(d): phi3.5 8 layers bf16 on kv="dense": launches exact, streams
+    equal across ranks, the collectives a step against (b)'s."""
+    sv = [r["dense"] for r in ranks]
+    s0 = sv[0]
+    runs = s0["exchange"].get("chunks", 0) + s0["exchange"].get("overflow",
+                                                               0)
+    want = {"flash_chunk": 8 * s0["steps"], "topk_gate": n_moe * s0["steps"]}
+    want.update({k: v * runs for k, v in DIST_PER_CHUNK.items()})
+    n_tok = sum(len(v) for v in s0["streams"])
+    gather = "all_gather data"
+    for r, s in enumerate(sv):
+        per_step = {k: round(n / s["steps"], 3)
+                    for k, n in s["collectives"].items()}
+        paged_step = {k: round(n / paged["steps"], 3)
+                      for k, n in paged["collectives"].items()}
+        total = sum(s["collectives"].values()) / s["steps"]
+        total_p = sum(paged["collectives"].values()) / paged["steps"]
+        print(f"[dist] (d) rank {r}: phi3.5 8 layers bf16 kv=dense, "
+              f"{n_tok} new tokens in {s['steps']} steps, {s['wall_s']:.2f}s"
+              f" ({s['wall_s'] / s['steps'] * 1e3:.1f} ms/step, {label}); "
+              f"weights {s['weights_gb']:.2f} GB, KV (dense, the rank's "
+              f"rows and heads) {s['kv_gb']:.2f} GB, max_memory_allocated "
+              f"{s['max_mem_gib']:.2f} GiB [{card_line}]")
+        print(f"[dist] (d) rank {r}: kernel launches {s['launches']} "
+              f"(expect {want}); collectives a step {total:.3f} against "
+              f"(b)'s {total_p:.3f} on the paged cache: {per_step} vs "
+              f"{paged_step}")
+        check(s["backend"] == "dense", f"(d) rank {r}: {s['backend']}")
+        check(s["launches"] == want,
+              f"(d) dense serve rank {r}: launches {s['launches']} != "
+              f"{want}")
+        check(s["exchange"].get("chunks") == s["steps"] * n_moe
+              * dsh["chunks"], f"(d) dense serve rank {r}: "
+              f"{s['exchange']} exchange chunks in {s['steps']} steps")
+        check(s["streams"] == s0["streams"],
+              f"(d) dense serve: rank {r}'s streams differ from rank 0's")
+        # the dense cache drops the paged KV rows' gather: one a layer
+        check(s["collectives"].get(gather, 0) == s["steps"]
+              and paged["collectives"].get(gather, 0)
+              == (8 + 1) * paged["steps"],
+              f"(d) rank {r}: batch gathers {s['collectives'].get(gather)} "
+              f"in {s['steps']} dense steps, "
+              f"{paged['collectives'].get(gather)} in {paged['steps']} "
+              f"paged steps")
+    check(all(len(v) == 16 and all(0 <= t < s0["vocab"] for t in v)
+              for v in s0["streams"]),
+          f"(d) dense serve: streams {s0['streams']}")
+    return s0
+
+
+def _report_rwkv(ranks, card_line, label):
+    """(d): rwkv6-1.6b whole, bf16, on the mesh."""
+    rs = [r["rwkv"] for r in ranks]
+    for r, s in enumerate(rs):
+        steps = max(s["steps"], 1)
+        coll = {k: round(n / steps, 3)
+                for k, n in s["decode_collectives"].items()}
+        print(f"[dist] (d) rank {r}: rwkv6-1.6b 24 layers bf16 legacy path "
+              f"on the mesh: {s['prefills']} blocking prefills "
+              f"{s['prefill_s']:.2f}s = {s['prefill_s'] / s['wall_s']:.3f} "
+              f"of the wall time {s['wall_s']:.2f}s; {s['steps']} decode "
+              f"steps, {s['decode_s'] / steps * 1e3:.1f} ms a decode step "
+              f"({label}); collectives a decode step {coll}; weights "
+              f"{s['weights_gb']:.2f} GB, wkv state {s['state_shape']} "
+              f"[{card_line}]")
+        check(s["streams"] == rs[0]["streams"],
+              f"(d) rwkv6: rank {r}'s streams differ from rank 0's")
+    check(all(len(v) == RWKV_DIST_NEW for v in rs[0]["streams"]),
+          f"(d) rwkv6 streams {rs[0]['streams']}")
 
 
 def kernels_record(kres, launches):
@@ -3772,8 +4431,8 @@ def resolve_shapes():
 def resolve_dense_shapes():
     """The gemma-2b / minitron-8b serves' shapes (both backends resolve
     one envelope) and gemma's chunk=1 serve's: (gm, mn, gm1)."""
-    import repro_torch.configs as C
-    gcfg, mcfg = C.get("gemma-2b"), C.get("minitron-8b")
+    gcfg, mcfg = (_cut(a, DENSE_LAYERS[a]) for a in ("gemma-2b",
+                                                     "minitron-8b"))
     gm, mn = _shapes(dense_spec(), gcfg), _shapes(dense_spec(), mcfg)
     gm1 = _shapes(dense1_spec(), gcfg)
     for sh, cfg in ((gm, gcfg), (mn, mcfg)):
@@ -3880,6 +4539,12 @@ def main() -> int:
               f"serve ran {got}, kernels were checked at {want}")
     free_memory(torch)
     dist = timed("dist", phase_dist, torch, card_line, dsh)
+    # the attention geometries phase 5's ranks launched on a dense cache,
+    # each held to its plain version here (after the counted runs)
+    geo_res = Results()
+    geo_res.recs = kres
+    timed("dist_geometries", check_dist_geometries, torch, geo_res,
+          dist["geometries"], torch.device("cuda"))
     launches: dict = {}
     for s in serves + [dist] + [frontend[a] for a in FRONT_SERVES]:
         for k, v in s["launches"].items():

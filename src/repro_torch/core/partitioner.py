@@ -25,9 +25,14 @@ layout with explicit collectives, through the few helpers the layers call:
                      ``ffn``, ``expert``, ``expert_ffn``; every other axis
                      (``qk``, ``head_dim``, ``embed``, ...) stays whole
   heads_sharded(cfg) the TP size divides the query heads and (GQA) the kv
-                     heads; otherwise that model's attention runs
+                     heads (whisper: its encoder's too; RWKV6: its wkv
+                     heads); otherwise that model's attention runs
                      replicated, which gives the same numbers (the
                      reference would split ``head_dim`` instead)
+  for_batch(b) / rows(b)
+                     a step's batch over the batch axes when they divide
+                     it, else replicated (a legacy batch-1 prefill), and
+                     this rank's block of the rows
   seq_sharded(s)     the residual stream of an s-row step is cut along seq
                      over the TP axes (``sp`` on and the TP size divides s)
   gather_seq / reduce_out / cut_seq
@@ -188,14 +193,45 @@ class ShardingPlan:
     # the attention half of the layout (what the layers call)
     # ------------------------------------------------------------------
     def heads_sharded(self, cfg) -> bool:
-        """Whether ``cfg``'s attention runs on 1/tp of its heads: the TP
-        size divides ``n_heads`` and, for GQA, ``n_kv_heads`` (GQA groups
-        stay whole).  Otherwise it runs replicated on every TP rank."""
+        """Whether ``cfg``'s heads run 1/tp a rank: the TP size divides
+        ``n_heads`` and, for GQA, ``n_kv_heads`` (GQA groups stay whole),
+        and whisper's encoder heads too; RWKV6 (``n_heads`` 0) counts its
+        wkv heads, ``d_model / 64``.  Otherwise they run replicated on
+        every TP rank (the reference's ``spec_for_shape`` leaves an axis
+        that does not divide its dim unsharded)."""
         tp = self.tp
         if tp <= 1:
             return False
+        if cfg.family == "ssm":
+            return rwkv_heads(cfg) % tp == 0
+        enc = cfg.encoder
         return cfg.n_heads % tp == 0 and (cfg.attention == "mla"
-                                          or cfg.n_kv_heads % tp == 0)
+                                          or cfg.n_kv_heads % tp == 0) \
+            and (enc is None or enc.n_heads % tp == 0)
+
+    def batch_sharded(self, b: int) -> bool:
+        """Whether a step of ``b`` rows splits over the batch axes: they
+        divide it (a legacy batch-1 prefill does not, and then runs whole
+        on every batch rank, as ``spec_for_shape`` replicates it)."""
+        return self.dp > 1 and b % self.dp == 0
+
+    def for_batch(self, b: int) -> "ShardingPlan":
+        """The plan of a step of ``b`` rows: this one, or, when the batch
+        axes do not divide ``b``, one whose batch is replicated (no batch
+        rule, no batch axes: rows and logits stay whole)."""
+        if self.dp <= 1 or self.batch_sharded(b):
+            return self
+        return dataclasses.replace(self, dp_axes=(),
+                                   rules=dict(self.rules, batch=None))
+
+    def rows(self, b: int) -> slice:
+        """This rank's block of ``b`` batch rows (all of them when the
+        batch does not split)."""
+        if not self.batch_sharded(b):
+            return slice(0, b)
+        n = b // self.dp
+        j = self.mesh.axis_index(self.dp_axes)
+        return slice(j * n, (j + 1) * n)
 
     def seq_sharded(self, s: int) -> bool:
         """Whether a step of ``s`` rows carries its residual stream cut
@@ -254,6 +290,11 @@ class ShardingPlan:
 NULL_PLAN = ShardingPlan()
 
 
+def rwkv_heads(cfg) -> int:
+    """RWKV6's wkv heads: head size 64."""
+    return max(1, cfg.d_model // 64)
+
+
 def make_plan(strategy: str | Strategy, mesh=None, comm_algo: str = "fused",
               *, kernels: Optional[KernelPolicy] = None,
               sp: bool = True, dispatch: str = "auto",
@@ -295,4 +336,4 @@ def make_plan(strategy: str | Strategy, mesh=None, comm_algo: str = "fused",
                         dispatch_mode=dispatch, ep_overlap=ep_overlap)
 
 
-__all__ = ["ShardingPlan", "NULL_PLAN", "make_plan"]
+__all__ = ["ShardingPlan", "NULL_PLAN", "make_plan", "rwkv_heads"]

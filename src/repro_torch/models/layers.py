@@ -40,11 +40,13 @@ the MLP on its 1/tp of ``d_ff``.  ``seq_sharded`` says that ``x`` holds
 this rank's seq block of the residual stream: the normed rows are
 all-gathered along seq on entry, and a row-parallel output leaves through
 ``plan.reduce_out`` (psum_scatter along seq, else psum).  The cache's
-``length`` / block tables / ``q_lens`` cover every slot; every rank holds
-every page (the reference's replicated pools), so the new cache rows of
-all batch ranks are gathered before the write.  A mesh serves the paged
-cache only: the dense cache and the stateless path raise there
-(``single_device``, ROADMAP A12).
+``length`` / block tables / ``q_lens`` cover every slot and each rank
+takes its rows of them (``_local_rows``).  Every rank holds every page
+(the reference's replicated pools), so the new cache rows of all batch
+ranks are gathered before a paged write; a dense buffer holds only this
+rank's rows (``(b / dp, max_len, nkv / tp, hd)``: the reference cuts
+``kv_seq`` over TP instead), so its write needs no collective.  The
+stateless path runs on the rank's rows and heads.
 """
 
 from __future__ import annotations
@@ -308,14 +310,6 @@ def write_cache(buf, new, idx, valid_len=None):
     return buf
 
 
-def single_device(plan: ShardingPlan, what: str) -> None:
-    """Raise on a mesh for a path that runs on one device only."""
-    if plan.enabled:
-        raise NotImplementedError(
-            f"{what} on a mesh is not ported yet (ROADMAP A12); a mesh "
-            "serves the paged KV cache")
-
-
 # ---------------------------------------------------------------------------
 # Paged cache
 # ---------------------------------------------------------------------------
@@ -354,8 +348,10 @@ def gather_pages(pool, block_table):
 
 
 def _local_rows(plan: ShardingPlan, *ts):
-    """This rank's batch rows of per-slot tensors (views)."""
-    return tuple(plan.shard(t, ("batch",)) for t in ts)
+    """This rank's batch rows of per-slot tensors (views); None and a 0-d
+    offset (one for every slot) pass through."""
+    return tuple(t if t is None or t.dim() == 0
+                 else plan.shard(t, ("batch",)) for t in ts)
 
 
 def _write_pools(plan: ShardingPlan, pools, news, idx, block_table,
@@ -452,15 +448,14 @@ def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
       dense cache, s > 1        uniform prefill into the buffers
       dense cache, s == 1       decode, one token a slot
 
-    A cache is updated in place and returned.  On a mesh (paged only) x is
-    this rank's rows (seq block when ``seq_sharded``) and so is the output;
-    ``positions`` (b, s) are this rank's rows too."""
+    A cache is updated in place and returned.  On a mesh x is this rank's
+    rows (seq block when ``seq_sharded``) and so is the output;
+    ``positions`` (b, s) are this rank's rows too, and so are a dense
+    cache's buffers (``cache.length`` and ``q_lens`` cover every slot)."""
     paged = cache is not None and cache.block_table is not None
     if paged and q_lens is None:
         raise NotImplementedError(
             "paged KV cache requires the unified mixed step (q_lens)")
-    if not paged:
-        single_device(plan, "GQA attention on a dense cache or none")
     xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
     b, s, h = xn.shape
     q = _proj_heads(xn, p["wq"])
@@ -469,8 +464,10 @@ def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     if paged:
         idx, bt, ql = _local_rows(plan, cache.length, cache.block_table,
                                   q_lens)
+    elif cache is not None:
+        idx, ql = _local_rows(plan, cache.length, q_lens)
     else:
-        idx = 0 if cache is None else cache.length
+        idx = 0
     if positions is None:
         positions = positions_from(idx, s, x.device)
     if cfg.mrope:         # (b, 3, s) streams; plain positions drive all three
@@ -504,10 +501,10 @@ def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                 out = chunked_attention(q, kd, vd, q_offset=idx,
                                         kv_len=kv_len, causal=True)
         new_kv = (kc, vc)
-    else:
-        kc = write_cache(cache.k, k, idx, valid_len=q_lens)
-        vc = write_cache(cache.v, v, idx, valid_len=q_lens)
-        kv_len = idx + (s if q_lens is None else q_lens)
+    else:                 # dense: this rank's rows, no collective
+        kc = write_cache(cache.k, k, idx, valid_len=ql)
+        vc = write_cache(cache.v, v, idx, valid_len=ql)
+        kv_len = idx + (s if ql is None else ql)
         if s == 1:            # decode-shaped: flash_decode eligible
             out = decode_attention(q, kc, vc, kv_len=kv_len,
                                    q_positions=positions_from(idx, s,
@@ -581,15 +578,14 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
               head.
     Both regimes use scale ``(hd + rd) ** -0.5``.
 
-    On a mesh (paged only) the down-projections and their norms run whole
-    on every rank and the up-projections on its heads; the latent pools
-    have no head axis and stay whole."""
+    On a mesh the down-projections and their norms run whole on every
+    rank and the up-projections on its heads; the latent pools and dense
+    buffers have no head axis and stay whole (a dense buffer: this rank's
+    rows)."""
     paged = cache is not None and block_table is not None
     if paged and q_lens is None:
         raise NotImplementedError(
             "paged KV cache requires the unified mixed step (q_lens)")
-    if not paged:
-        single_device(plan, "MLA attention on a dense cache or none")
     xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
     b, s, h = xn.shape
     nh, hd, rd = p["w_uk"].shape[1], cfg.head_dim, cfg.rope_head_dim
@@ -598,8 +594,10 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     if paged:
         c_pool, kr_pool, length = cache
         idx, bt, ql = _local_rows(plan, length, block_table, q_lens)
+    elif cache is not None:
+        idx, ql = _local_rows(plan, cache[2], q_lens)
     else:
-        idx = 0 if cache is None else cache[2]
+        idx = 0
     if positions is None:
         positions = positions_from(idx, s, x.device)
     q_nope, q_rope, c, k_rope = _mla_qkr(p, xn, cfg, positions)
@@ -613,11 +611,11 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
         src_kr = gather_pages(krc, bt)             # (b, skv, rd)
         kv_len = idx + ql
         new_cache = (cc, krc)
-    else:
-        cc = write_cache(cache[0], c, idx, valid_len=q_lens)
-        krc = write_cache(cache[1], k_rope, idx, valid_len=q_lens)
+    else:                 # dense: this rank's rows, no collective
+        cc = write_cache(cache[0], c, idx, valid_len=ql)
+        krc = write_cache(cache[1], k_rope, idx, valid_len=ql)
         src_c, src_kr = cc, krc
-        kv_len = idx + (s if q_lens is None else q_lens)
+        kv_len = idx + (s if ql is None else ql)
         new_cache = (cc, krc)
     skv = src_c.shape[1]
     scale = (hd + rd) ** -0.5
@@ -682,7 +680,7 @@ __all__ = [
     "rms_norm", "activate", "rope_freqs", "apply_rope", "mrope_pairs",
     "apply_mrope", "positions_from",
     "chunked_attention", "decode_attention", "write_cache",
-    "write_cache_paged", "single_device",
+    "write_cache_paged",
     "gather_pages", "KVView", "gqa_spec", "gqa_attention", "mla_spec",
     "mla_attention", "mlp_spec", "mlp", "NEG_INF",
 ]

@@ -36,14 +36,16 @@ uniform prefill or decode on the dense cache, or the stateless forward
 (``cache=None``), and updates a cache's buffers and ``length`` IN PLACE.
 
 On a mesh (``plan.enabled``, one process per rank) ``forward`` realises
-the reference's GSPMD layout with explicit collectives on the paged cache:
-each rank takes its batch rows (the plan's batch axes), looks up its vocab
-block of the embedding (summed over the TP axes), runs every layer on its
-rows, its heads and its ``d_ff`` / expert slices, carries the residual
-stream cut along seq when ``plan.seq_sharded``, and gathers the logits of
-its vocab block and batch rows back, so every rank returns the whole
-logits.  The dense cache and the stateless forward raise there (ROADMAP
-A12).
+the reference's GSPMD layout with explicit collectives, on either cache
+and with none: each rank takes its batch rows (the plan's batch axes; a
+batch they do not divide, such as the legacy batch-1 prefill, runs whole
+on every batch rank, as the reference's ``spec_for_shape`` replicates
+it), looks up its vocab block of the embedding (summed over the TP axes),
+runs every layer on its rows, its heads and its ``d_ff`` / expert /
+recurrent-channel slices, carries the residual stream cut along seq when
+``plan.seq_sharded``, and gathers the logits of its vocab block and batch
+rows back, so every rank returns the whole logits.  A dense cache
+(``init_cache(plan=)``) holds this rank's rows and heads.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
-from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan
+from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan, rwkv_heads
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
@@ -249,56 +251,68 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _cache_for(cfg: ModelConfig, kind: str, count: int, batch: int,
-               max_len: int, dtype, device) -> dict:
+               max_len: int, dtype, device,
+               plan: ShardingPlan = NULL_PLAN) -> dict:
     """One layer group's dense per-slot buffers (a recurrent kind: its
     carried state; the local attention: its ring; whisper's decoder also
-    the cross-attention's K/V ``xk``/``xv`` over the encoder's frames)."""
+    the cross-attention's K/V ``xk``/``xv`` over the encoder's frames).
+    On a mesh: this rank's rows, its heads when they split, its ``ffn``
+    block of the RG-LRU's width."""
     h = cfg.d_model
     f32 = torch.float32
+    cut = plan.tp if plan.heads_sharded(cfg) else 1
     if kind in ("dense", "moe", "xdec"):
         if cfg.attention == "mla":
             tails = {"c": (cfg.kv_lora_rank,), "kr": (cfg.rope_head_dim,)}
         else:
-            tails = {n: (cfg.n_kv_heads, cfg.head_dim) for n in ("k", "v")}
+            tails = {n: (cfg.n_kv_heads // cut, cfg.head_dim)
+                     for n in ("k", "v")}
         shapes = {n: ((max_len,) + t, dtype) for n, t in tails.items()}
         if kind == "xdec":
-            x = (cfg.encoder.n_frames, cfg.n_heads, cfg.head_dim)
+            x = (cfg.encoder.n_frames, cfg.n_heads // cut, cfg.head_dim)
             shapes.update(xk=(x, dtype), xv=(x, dtype))
     elif kind == "rwkv":
-        nh = max(1, h // 64)
+        nh = rwkv_heads(cfg)
         hd = h // nh
-        shapes = {"state": ((nh, hd, hd), f32), "x_tm": ((1, h), dtype),
-                  "x_cm": ((1, h), dtype)}
+        shapes = {"state": ((nh // cut, hd, hd), f32),
+                  "x_tm": ((1, h), dtype), "x_cm": ((1, h), dtype)}
     elif kind == "rec":
-        w, cw = cfg.lru_width, cfg.conv1d_width
+        w, cw = cfg.lru_width // plan.tp, cfg.conv1d_width
         shapes = {"lru": ((w,), f32), "conv": ((cw - 1, w), dtype)}
     elif kind == "attn":
         W = min(cfg.window_size, max_len) if cfg.window_size else max_len
-        kv = (W, cfg.n_kv_heads, cfg.head_dim)
+        kv = (W, cfg.n_kv_heads // cut, cfg.head_dim)
         shapes = {"k": (kv, dtype), "v": (kv, dtype),
                   "kpos": ((W,), torch.int32)}
     else:
         raise KeyError(kind)
     # ring positions start invalid (-1); everything else at zero
-    return {n: torch.full((count, batch) + shape,
+    rows = plan.rows(batch)
+    return {n: torch.full((count, rows.stop - rows.start) + shape,
                           -1 if dt == torch.int32 else 0, dtype=dt,
                           device=device)
             for n, (shape, dt) in shapes.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda",
+               plan: ShardingPlan = NULL_PLAN):
     """Dense cache: per group ``k``/``v`` ``(count, batch, max_len, nkv,
     hd)`` for GQA (MLA: ``c`` / ``kr``; whisper's decoder also ``xk`` /
     ``xv`` ``(count, batch, n_frames, nq, hd)``; the recurrent kinds their
     state, the local attention its ring; a pattern group one such dict a
     sub-layer, under ``l0``, ``l1``, ...), and a 0-d int32 ``length`` —
     one offset for the whole batch (``serving.kv_cache.make_batched_cache``
-    makes it a per-slot vector)."""
+    makes it a per-slot vector).  On a mesh each rank holds its block:
+    its ``batch / dp`` rows (every row when the batch axes do not divide
+    ``batch``), its ``nkv / tp`` (and ``nq / tp``, RWKV6's ``nh / tp``)
+    heads when ``plan.heads_sharded``, the RG-LRU's ``lru_width / tp``
+    channels; MLA's latent has no head axis and stays whole.  ``length``
+    covers every slot."""
     groups = []
     for g in layer_plan(cfg):
         subs = {key: _cache_for(cfg, k, g.count, batch, max_len, dtype,
-                                device) for key, k in _sub_groups(g)}
+                                device, plan) for key, k in _sub_groups(g)}
         groups.append(subs if g.kind == "pattern" else subs[None])
     return {"groups": groups,
             "length": torch.zeros((), dtype=torch.int32, device=device)}
@@ -328,20 +342,23 @@ def _ring_from_prefill(k, v, W: int, s: int):
     return kc, vc, kpos.expand(b, W)
 
 
-def _local_attn(p, x, cfg: ModelConfig, c, length):
+def _local_attn(p, x, cfg: ModelConfig, c, length,
+                plan: ShardingPlan = NULL_PLAN, seq_sharded: bool = False):
     """Sliding-window GQA layer (recurrentgemma) over a ring-buffer cache
     ``c`` (k/v (b, W, nkv, hd), kpos (b, W)), updated in place; None on
     the stateless path.  A prefill (s > 1, one offset for the batch)
     attends over [ring ; fresh rows] with explicit positions, then rebuilds
     the ring from the fresh rows; a decode writes its row at slot
-    ``position % W``."""
-    b, s, h = x.shape
+    ``position % W``.  On a mesh the ring holds this rank's rows (and
+    heads, when they split)."""
     W = c["k"].shape[1] if c is not None else cfg.window_size
-    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    xn = plan.gather_seq(L.rms_norm(x, p["norm"], cfg.norm_eps),
+                         seq_sharded)
+    b, s, h = xn.shape
     q = L._proj_heads(xn, p["wq"])
     k = L._proj_heads(xn, p["wk"])
     v = L._proj_heads(xn, p["wv"])
-    idx = 0 if c is None else length
+    idx = 0 if c is None else L._local_rows(plan, length)[0]
     positions = L.positions_from(idx, s, x.device)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -378,31 +395,35 @@ def _local_attn(p, x, cfg: ModelConfig, c, length):
                                                               x.device),
                                  window=cfg.window_size,
                                  k_positions=c["kpos"])
-    return L._heads_out(out, p["wo"])
+    return L._attn_out(plan, cfg, L._heads_out(out, p["wo"]), seq_sharded)
 
 
-def _apply_recurrent(kind: str, p, x, c, cfg: ModelConfig, length):
+def _apply_recurrent(kind: str, p, x, c, cfg: ModelConfig, length,
+                     plan: ShardingPlan = NULL_PLAN,
+                     seq_sharded: bool = False):
     """One residual layer of the recurrent families (rwkv, rec, attn);
     its carried state in ``c`` is updated in place."""
+    kw = dict(seq_sharded=seq_sharded)
     if kind == "rwkv":
         t_out, (state, x_tm) = S.rwkv6_time_mix(
-            p["tm"], x, cfg, state=None if c is None else c["state"],
-            x_prev=None if c is None else c["x_tm"])
+            p["tm"], x, cfg, plan, state=None if c is None else c["state"],
+            x_prev=None if c is None else c["x_tm"], **kw)
         x = x + t_out
         c_out, x_cm = S.rwkv6_channel_mix(
-            p["cm"], x, cfg, x_prev=None if c is None else c["x_cm"])
+            p["cm"], x, cfg, plan, x_prev=None if c is None else c["x_cm"],
+            **kw)
         x = x + c_out
         new = {"state": state, "x_tm": x_tm, "x_cm": x_cm}
     elif kind == "rec":
         r_out, (lru, conv) = S.rglru_block(
-            p["rglru"], x, cfg, state=None if c is None else c["lru"],
-            conv_state=None if c is None else c["conv"])
+            p["rglru"], x, cfg, plan, state=None if c is None else c["lru"],
+            conv_state=None if c is None else c["conv"], **kw)
         x = x + r_out
-        x = x + L.mlp(p["mlp"], x, cfg)
+        x = x + L.mlp(p["mlp"], x, cfg, plan, **kw)
         new = {"lru": lru, "conv": conv}
     elif kind == "attn":
-        x = x + _local_attn(p["attn"], x, cfg, c, length)
-        return x + L.mlp(p["mlp"], x, cfg)
+        x = x + _local_attn(p["attn"], x, cfg, c, length, plan, **kw)
+        return x + L.mlp(p["mlp"], x, cfg, plan, **kw)
     else:
         raise KeyError(kind)
     if c is not None:
@@ -411,17 +432,21 @@ def _apply_recurrent(kind: str, p, x, c, cfg: ModelConfig, length):
     return x
 
 
-def _cross_attn(p, x, cfg: ModelConfig, xk, xv):
+def _cross_attn(p, x, cfg: ModelConfig, xk, xv,
+                plan: ShardingPlan = NULL_PLAN, seq_sharded: bool = False):
     """Whisper decoder cross-attention over the encoder's K/V ``xk`` /
     ``xv`` (b, n_frames, nq, hd): bidirectional, the plain body (the
-    reference routes it to no kernel)."""
-    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    reference routes it to no kernel).  On a mesh: this rank's rows and
+    heads."""
+    xn = plan.gather_seq(L.rms_norm(x, p["norm"], cfg.norm_eps),
+                         seq_sharded)
     out = L.chunked_attention(L._proj_heads(xn, p["wq"]), xk, xv,
                               causal=False)
-    return L._heads_out(out, p["wo"])
+    return L._attn_out(plan, cfg, L._heads_out(out, p["wo"]), seq_sharded)
 
 
-def _apply_xattn(p, x, c, cfg: ModelConfig, enc_out):
+def _apply_xattn(p, x, c, cfg: ModelConfig, enc_out,
+                 plan: ShardingPlan = NULL_PLAN, seq_sharded: bool = False):
     """The cross-attention residual of an ``xdec`` layer.  With a cache and
     no ``enc_out`` (a decode) it reads the cached ``xk`` / ``xv``;
     otherwise it projects ``enc_out`` and, with a cache (a prefill),
@@ -438,7 +463,7 @@ def _apply_xattn(p, x, c, cfg: ModelConfig, enc_out):
         if c is not None:
             c["xk"].copy_(xk)
             c["xv"].copy_(xv)
-    return x + _cross_attn(p, x, cfg, xk, xv)
+    return x + _cross_attn(p, x, cfg, xk, xv, plan, seq_sharded)
 
 
 def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
@@ -463,7 +488,8 @@ def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
             f"unified mixed step (q_lens) unsupported for layer kind "
             f"{kind!r} — serve this family through the legacy engine path")
     if kind not in ("dense", "moe", "xdec"):
-        return _apply_recurrent(kind, p, x, c, cfg, length), aux, counts
+        return _apply_recurrent(kind, p, x, c, cfg, length, plan,
+                                seq_sharded), aux, counts
     if cfg.attention == "mla":
         a_out, _ = L.mla_attention(
             p["attn"], x, cfg, plan,
@@ -478,7 +504,7 @@ def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
                                    seq_sharded=seq_sharded)
     x = x + a_out
     if kind == "xdec":
-        x = _apply_xattn(p["xattn"], x, c, cfg, enc_out)
+        x = _apply_xattn(p["xattn"], x, c, cfg, enc_out, plan, seq_sharded)
     if kind == "moe":
         r = MOE.moe_rank(p["moe"], x, cfg, plan, with_stats=with_stats,
                          seq_sharded=seq_sharded)
@@ -543,13 +569,17 @@ def lm_head(x, head, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN):
 # Encoder (whisper)
 # ---------------------------------------------------------------------------
 
-def encode_audio(params, frames, cfg: ModelConfig):
+def encode_audio(params, frames, cfg: ModelConfig,
+                 plan: ShardingPlan = NULL_PLAN):
     """frames (b, n_frames, d_enc): the precomputed conv/mel stub
     embeddings.  ``frames + pos``, then per layer: RMS norm,
     bidirectional MHA (the plain body, no kernel, as in the reference),
     the ``wo`` residual, RMS norm, the tanh-GELU MLP residual; then the
     final norm.  The reference's promotion holds: f32 frames on bf16
-    weights run the whole encoder in f32 (each weight cast at its use)."""
+    weights run the whole encoder in f32 (each weight cast at its use).
+    On a mesh: this rank's rows of ``frames``, its heads (when they split)
+    and its ``d_ff`` block, each row-parallel product summed over TP; the
+    residual stays whole along the frames."""
     p_enc = params["enc"]
     x = frames + p_enc["pos"][None]
     for p in p_enc["layers"]:
@@ -557,11 +587,13 @@ def encode_audio(params, frames, cfg: ModelConfig):
         a = L.chunked_attention(L._proj_heads(xn, p["wq"]),
                                 L._proj_heads(xn, p["wk"]),
                                 L._proj_heads(xn, p["wv"]), causal=False)
-        x = x + L._heads_out(a, p["wo"])
+        x = x + L._attn_out(plan, cfg, L._heads_out(a, p["wo"]), False)
         xn = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         up = F.gelu(torch.matmul(*L._promoted(xn, p["mlp_in"])),
                     approximate="tanh")
-        x = x + torch.matmul(*L._promoted(up, p["mlp_out"]))
+        x = x + plan.reduce_out(torch.matmul(*L._promoted(up,
+                                                          p["mlp_out"])),
+                                False)
     return L.rms_norm(x, p_enc["final_norm"], cfg.norm_eps)
 
 
@@ -576,8 +608,6 @@ def _embed_input(params, cfg: ModelConfig, plan: ShardingPlan, tokens,
         parts.append(e.to(params["embed"].dtype))
     if tokens is not None:
         parts.append(embed_tokens(params["embed"], tokens, cfg, plan))
-    if not parts:
-        raise ValueError("forward needs tokens or embeds")
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
@@ -651,17 +681,16 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     if block_tables is not None and q_lens is None:
         raise ValueError("a paged cache (block_tables) requires the unified "
                          "mixed step (q_lens)")
-    if block_tables is None:
-        L.single_device(plan, "the forward on a dense cache or none")
-        len_loc, q_loc, rows_loc = length, q_lens, logit_rows
-    else:
-        if plan.enabled and (embeds is not None or frames is not None
-                             or positions is not None or cfg.mrope):
-            L.single_device(plan, "the frontend families' forward")
-        tokens, len_loc, q_loc = (plan.shard(t, ("batch",))
-                                  for t in (tokens, length, q_lens))
-        rows_loc = None if logit_rows is None \
-            else plan.shard(logit_rows, ("batch",))
+    # on a mesh: this rank's batch rows of every per-row input (a batch
+    # the batch axes do not divide runs whole on every batch rank)
+    if tokens is None and embeds is None:
+        raise ValueError("forward needs tokens or embeds")
+    b_all = (tokens if tokens is not None else embeds).shape[0]
+    plan = plan.for_batch(b_all)
+    tokens, embeds, frames, len_loc, q_loc, rows_loc = L._local_rows(
+        plan, tokens, embeds, frames, length, q_lens, logit_rows)
+    if positions is not None and positions.shape[0] == b_all:
+        positions = L._local_rows(plan, positions)[0]   # else (1, ...)
     x = _embed_input(params, cfg, plan, tokens, embeds)
     b, s = x.shape[:2]
     seq_sharded = plan.seq_sharded(s)
@@ -671,7 +700,7 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                                      x.device)
         if cfg.mrope:
             positions = positions[:, None].expand(b, 3, s)
-    enc_out = encode_audio(params, frames, cfg) \
+    enc_out = encode_audio(params, frames, cfg, plan) \
         if cfg.family == "audio" and frames is not None else None
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)

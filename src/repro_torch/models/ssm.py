@@ -13,6 +13,24 @@ dtype before the cast, and the conv state stays in the serving dtype.
 
 No hand kernel lies on these layers: the products are plain matmuls and the
 recurrences are the plain bodies of the reference's scans.
+
+On a mesh (``plan.enabled``) each rank runs its batch rows and its TP
+block of the channels, as the reference's rules lay them out: RWKV6's
+time-mix on its wkv heads (``wr`` / ``wk`` / ``wv`` / ``wg``, the decay and
+the bonus cut over ``heads`` when ``plan.heads_sharded``), the channel-mix
+and the RG-LRU on their ``ffn`` block; the carried states are cut alike
+(the wkv memory over heads, the LRU state and the conv tail over ``ffn``).
+The recurrences need whole time order, so a seq-cut residual is gathered
+on entry and every row-parallel output leaves through ``plan.reduce_out``.
+Two products cross the cut: RWKV6's ``ln_x`` normalises over all heads
+(its mean of squares is a TP psum of each rank's sum), and the RG-LRU's
+gates multiply the rank's ``conv`` columns by its row block of
+``w_input_gate`` / ``w_rec_gate`` (``("ffn", None)``), a partial sum over
+TP: each rank forms it in f32, one reduce-scatter along the channels
+sums the ranks' partials in f32 and leaves each rank its own columns,
+rounded once to the serving dtype (the reference's one product
+accumulates in f32 and rounds once too; only the order of the f32 sum
+differs).
 """
 
 from __future__ import annotations
@@ -23,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
+from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan, rwkv_heads
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.param import P
 
@@ -33,7 +53,7 @@ from repro_torch.models.param import P
 
 def rwkv6_spec(cfg: ModelConfig) -> dict:
     h = cfg.d_model
-    nh = max(1, h // 64)           # rwkv6 uses head_size 64
+    nh = rwkv_heads(cfg)           # rwkv6 uses head_size 64
     hd = h // nh
     lora = 64                       # decay LoRA rank (w_lora in Finch)
     return {
@@ -75,17 +95,43 @@ def _rwkv6_step(state, r, kv, ukv, w):
     return state * w[..., :, None] + kv, out
 
 
-def rwkv6_time_mix(p, x, cfg: ModelConfig, *,
-                   state: Optional[torch.Tensor] = None,
-                   x_prev: Optional[torch.Tensor] = None):
+def _channel_block(plan: ShardingPlan, n: int) -> slice:
+    """This rank's block of ``n`` channels cut over the TP axes."""
+    if plan.tp <= 1:
+        return slice(0, n)
+    k = n // plan.tp
+    j = C.axis_index(plan.mesh, plan.tp_axes)
+    return slice(j * k, (j + 1) * k)
+
+
+def _ln_x(out, w, cfg: ModelConfig, plan: ShardingPlan, heads_cut: bool):
+    """``rms_norm`` over all heads of ``out`` (b, s, nh * hd): with the
+    heads cut over TP, ``out`` holds this rank's and the mean of squares
+    is the TP psum of each rank's sum over the whole width."""
+    if not heads_cut:
+        return rms_norm(out, w, cfg.norm_eps)
+    xf = out.float()
+    ss = C.psum(xf.square().sum(-1, keepdim=True), plan.mesh, plan.tp_axes)
+    var = ss / cfg.d_model
+    w_loc = w[_channel_block(plan, w.shape[0])]
+    return ((xf * torch.rsqrt(var + cfg.norm_eps))
+            * (1.0 + w_loc.float())).to(out.dtype)
+
+
+def rwkv6_time_mix(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN,
+                   *, state: Optional[torch.Tensor] = None,
+                   x_prev: Optional[torch.Tensor] = None,
+                   seq_sharded: bool = False):
     """RWKV6 time-mix.  x (b, s, h).  Returns (out, (state, x_last)):
     ``state`` is the (b, nh, hd, hd) f32 wkv memory, ``x_last`` the last
     normed row (b, 1, h), the next call's ``x_prev`` (token shift across
-    decode steps)."""
-    b, s, h = x.shape
+    decode steps).  On a mesh nh is this rank's heads, x (and out) its
+    seq block when ``seq_sharded``, x_last whole."""
+    heads_cut = plan.heads_sharded(cfg)
     nh = p["w0"].shape[0]
-    hd = h // nh
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
+    b, s, h = xn.shape
+    hd = h // rwkv_heads(cfg)
     shifted = _token_shift(xn, x_prev)
     mix = xn[None] + p["mu"][:, None, None, :] * (shifted - xn)[None]
     xr, xk, xv, xw, xg = mix
@@ -109,10 +155,14 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *,
     for t in range(s):
         state, o = _rwkv6_step(state, r[:, t], kv[:, t], ukv[:, t], w[:, t])
         outs.append(o)
-    out = torch.stack(outs, 1).reshape(b, s, h).to(x.dtype)
-    out = rms_norm(out, p["ln_x"], cfg.norm_eps) * g.reshape(b, s, h)
-    out = out.reshape(b * s, h) @ p["wo"].reshape(h, h)
-    return out.reshape(b, s, h), (state, xn[:, -1:])
+    out = torch.stack(outs, 1).reshape(b, s, nh * hd).to(x.dtype)
+    out = _ln_x(out, p["ln_x"], cfg, plan, heads_cut) \
+        * g.reshape(b, s, nh * hd)
+    out = out.reshape(b * s, nh * hd) @ p["wo"].reshape(nh * hd, h)
+    out = out.reshape(b, s, h)
+    out = plan.reduce_out(out, seq_sharded) if heads_cut \
+        else plan.cut_seq(out, seq_sharded)
+    return out, (state, xn[:, -1:])
 
 
 def rwkv6_channel_mix_spec(cfg: ModelConfig) -> dict:
@@ -126,14 +176,19 @@ def rwkv6_channel_mix_spec(cfg: ModelConfig) -> dict:
     }
 
 
-def rwkv6_channel_mix(p, x, cfg: ModelConfig, *,
-                      x_prev: Optional[torch.Tensor] = None):
-    """RWKV6 channel-mix.  x (b, s, h).  Returns (out, x_last)."""
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+def rwkv6_channel_mix(p, x, cfg: ModelConfig,
+                      plan: ShardingPlan = NULL_PLAN, *,
+                      x_prev: Optional[torch.Tensor] = None,
+                      seq_sharded: bool = False):
+    """RWKV6 channel-mix.  x (b, s, h).  Returns (out, x_last).  On a mesh
+    ``wk`` / ``wv`` are this rank's ``ffn`` block (column- then
+    row-parallel): ``k @ wv`` is reduced before the receptance gate."""
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
     shifted = _token_shift(xn, x_prev)
     xk, xr = xn[None] + p["mu"][:, None, None, :] * (shifted - xn)[None]
     k = torch.relu(xk @ p["wk"]).square()
-    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    kv = plan.reduce_out(k @ p["wv"], seq_sharded)
+    out = torch.sigmoid(plan.cut_seq(xr, seq_sharded) @ p["wr"]) * kv
     return out, xn[:, -1:]
 
 
@@ -164,15 +219,33 @@ def rglru_spec(cfg: ModelConfig) -> dict:
 _C_LRU = 8.0  # Griffin's fixed scalar on the recurrence gate
 
 
-def rglru_block(p, x, cfg: ModelConfig, *,
+def _rglru_gates(p, conv, plan: ShardingPlan):
+    """The input and recurrence gates' pre-activations of ``conv`` (b, s,
+    w_loc).  On one device (or TP 1) ``conv @ W`` in the serving dtype;
+    with TP, this rank's f32 partial sums over its rows of W, reduced and
+    scattered along the channels in f32, then rounded to conv's dtype."""
+    if plan.tp <= 1:
+        return conv @ p["w_input_gate"], conv @ p["w_rec_gate"]
+    cf = conv.float()
+    part = torch.stack([cf @ p["w_input_gate"].float(),
+                        cf @ p["w_rec_gate"].float()])      # (2, b, s, w)
+    both = C.psum_scatter(part, plan.mesh, plan.tp_axes,
+                          scatter_dimension=-1).to(conv.dtype)
+    return both[0], both[1]
+
+
+def rglru_block(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                 state: Optional[torch.Tensor] = None,
-                conv_state: Optional[torch.Tensor] = None):
+                conv_state: Optional[torch.Tensor] = None,
+                seq_sharded: bool = False):
     """Griffin recurrent block: causal conv1d + RG-LRU, gated.  x (b, s, h).
 
-    Returns (out, (lru_state (b, w) f32, conv_state (b, cw - 1, w)))."""
-    b, s, h = x.shape
-    w, cw = cfg.lru_width, cfg.conv1d_width
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    Returns (out, (lru_state (b, w) f32, conv_state (b, cw - 1, w))); on a
+    mesh w is this rank's ``ffn`` block of ``lru_width``."""
+    cw = cfg.conv1d_width
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
+    b, s, h = xn.shape
+    w = p["w_x"].shape[1]
     gate = F.gelu(xn @ p["w_gate_branch"], approximate="tanh")
     u = xn @ p["w_x"]
 
@@ -187,8 +260,9 @@ def rglru_block(p, x, cfg: ModelConfig, *,
     conv = conv + p["conv_b"]
 
     # RG-LRU
-    i_gate = torch.sigmoid(conv @ p["w_input_gate"] + p["b_input_gate"])
-    r_gate = torch.sigmoid(conv @ p["w_rec_gate"] + p["b_rec_gate"])
+    pre_i, pre_r = _rglru_gates(p, conv, plan)
+    i_gate = torch.sigmoid(pre_i + p["b_input_gate"])
+    r_gate = torch.sigmoid(pre_r + p["b_rec_gate"])
     log_a = -_C_LRU * r_gate * F.softplus(p["lambda_p"])
     a = torch.exp(log_a.float())
     gated_x = (i_gate * conv).float()
@@ -203,7 +277,8 @@ def rglru_block(p, x, cfg: ModelConfig, *,
         state = a[:, t] * state + drive[:, t]
         ys.append(state)
     y = torch.stack(ys, 1).to(x.dtype)
-    return (y * gate) @ p["w_out"], (state, new_conv_state)
+    return plan.reduce_out((y * gate) @ p["w_out"], seq_sharded), \
+        (state, new_conv_state)
 
 
 __all__ = [

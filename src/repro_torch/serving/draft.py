@@ -15,8 +15,10 @@ side: where the k proposed tokens come from.
     a model proposing greedily on its own dense per-slot KV cache, fed in
     ``DRAFT_CHUNK``-row unified steps, with host mirrors of what each slot
     has consumed.  ``draft="self"`` reuses the serving model's own cfg and
-    params object (greedy self-drafts are always accepted); any other
-    config name runs that config reduced, with random weights.
+    params object (greedy self-drafts are always accepted; on a mesh it
+    runs under the serving plan, on a dense cache of the rank's rows and
+    heads); any other config name runs that config reduced, with random
+    weights, whole on every rank.
 
 ``MTPDraft``
     the interface stub of a DeepSeek-V3-style multi-token-prediction head:
@@ -105,6 +107,11 @@ class ModelDraft(DraftSource):
     A context id outside the draft's vocabulary (a foreign draft with a
     smaller one) is read as its last id, the clamp the reference's
     docstring gives ``jnp.take``.
+
+    On a mesh every rank runs the same host logic on the same contexts:
+    under a mesh plan the forward returns every slot's whole logits on
+    every rank (all-gathered), so the argmax, and with it the proposals,
+    agree across ranks.
     """
 
     name = "model"
@@ -112,15 +119,11 @@ class ModelDraft(DraftSource):
     def __init__(self, cfg: ModelConfig, params, *,
                  plan: ShardingPlan = NULL_PLAN, max_batch: int = 8,
                  max_len: int = 512, dtype=torch.bfloat16, device="cuda"):
-        if plan.enabled:
-            raise NotImplementedError(
-                "a model draft needs the dense per-slot cache, which is not "
-                "ported on a mesh (ROADMAP A12); use draft='ngram'")
         self.cfg, self.params, self.plan = cfg, params, plan
         self.max_len = max_len
         self.device = torch.device(device)
         self.cache = make_batched_cache(cfg, max_batch, max_len, dtype,
-                                        self.device)
+                                        self.device, plan)
         self._len = np.zeros(max_batch, np.int64)    # tokens consumed
         self._fed: list[Optional[np.ndarray]] = [None] * max_batch
         self.n_forward = 0
@@ -238,10 +241,12 @@ def make_draft(sc: SpeculationConfig, cfg: ModelConfig, params, *,
     """The draft source a resolved ``SpeculationConfig`` names.
 
     "ngram" -> NGramDraft; "self" -> ModelDraft on the serving model's own
-    cfg and params object; "mtp" -> the stub (raises); any other name ->
-    that config reduced, with weights drawn from a generator seeded 0, run
-    on one device with the serving plan's kernel policy.  On a mesh only
-    "ngram" is served (a model draft needs the dense cache, ROADMAP A12).
+    cfg and params object under the serving plan (on a mesh: sharded as
+    the serve); "mtp" -> the stub (raises); any other name -> that config
+    reduced, with weights drawn from a generator seeded 0 on ``device``,
+    run unsharded with the serving plan's kernel policy: on a mesh every
+    rank draws the same weights and runs the whole draft, as the
+    reference runs a foreign draft replicated under ``NULL_PLAN``.
     """
     if sc.draft == "ngram":
         return NGramDraft(ngram=sc.ngram)
@@ -252,11 +257,6 @@ def make_draft(sc: SpeculationConfig, cfg: ModelConfig, params, *,
     if sc.draft == "self":
         return ModelDraft(cfg, params, plan=plan, **kw)
     dcfg = C.get_reduced(sc.draft)     # raises KeyError on unknown arch
-    if plan.enabled:
-        raise NotImplementedError(
-            f"a model draft ({sc.draft}) on a mesh needs the dense per-slot "
-            "cache, which is not ported there (ROADMAP A12); use "
-            "draft='ngram'")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     dparams = init_params(gen, dcfg, dtype, device)

@@ -31,22 +31,28 @@ the scheduler, page allocator and sampler are identical on each rank and
 see the whole batch's logits, while the model runs in MixServe's layout
 (``models.model.forward``): each rank computes its batch rows' attention on
 its heads, its vocab block of the embedding and LM head, its slice of the
-dense MLP and the MoE blocks, and holds its heads' slice of every KV page;
-so the greedy streams agree across ranks.
+dense MLP and the MoE blocks, and holds its heads' slice of every KV page
+(the dense backend: its rows and heads of the per-slot buffers); so the
+greedy streams agree across ranks.
 
 Speculative decoding (``spec.speculation``, greedy only): a draft source
 (``serving.draft``) proposes up to k tokens a decoding slot, the planner
 prices them as budget rows before prefill, the step verifies them, and the
 rejected tail rolls back (the device length inside the step, the paged
-pages through ``kv.rollback``).  On a mesh only the n-gram draft is served.
+pages through ``kv.rollback``).  On a mesh a self draft runs sharded as
+the serve, a foreign draft whole on every rank.
 
 Legacy path — the reference's pre-unified two-program engine (bucket-padded
 blocking prefill in ``admit`` + a separate decode step) serves the families
 the unified step cannot (``unified_supported`` False: the recurrent state
 of rwkv6 and the ring buffers of recurrentgemma advance by every row, so a
 ragged tail cannot be masked; the frontend families take their stub
-inputs at prefill).  It pins the dense cache, runs on one device (a mesh
-raises, ROADMAP A12) and never speculates.  It keeps the reference's
+inputs at prefill).  It pins the dense cache and never speculates.  On a
+mesh the batch-1 prefill does not split over the batch axes: every batch
+rank runs it whole on its heads and channels, the logits come back
+gathered over TP only, and the rank whose rows hold the slot inserts the
+cache; the decode step splits its (max_batch, 1) rows as usual.  It keeps
+the reference's
 semantics, faults included: the prompt is padded to its bucket with id 0
 and the whole bucket runs through the prefill, so the recurrent state and
 the ring come from the last bucket row, not the last real one (only the
@@ -74,7 +80,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cost_model import cap_rows_for
 from repro_torch.core.resolve import KVConfig
-from repro_torch.models.layers import single_device
 from repro_torch.models.model import forward, init_cache
 from repro_torch.serving.draft import make_draft
 from repro_torch.serving.faults import FaultInjector, InjectedFault
@@ -184,11 +189,8 @@ class Engine:
             raise TypeError("Engine needs a resolved spec: Engine(cfg, "
                             "params, ServeSpec(...).resolve(cfg))")
         # the blocking-prefill path serves the families the unified step
-        # cannot (recurrent state, ring buffers); it keeps the dense cache,
-        # which a mesh does not serve yet
+        # cannot (recurrent state, ring buffers); it keeps the dense cache
         self.legacy = not unified_supported(cfg)
-        if self.legacy:
-            single_device(spec.plan, f"the legacy blocking path ({cfg.name})")
         self.device = resolve_device(device)
         self.spec = spec
         # the vlm / audio stub frontend: embeds_fn(batch) -> forward kwargs
@@ -383,8 +385,10 @@ class Engine:
     def _prefill_impl(self, tokens, real_len: int):
         """The legacy blocking prefill of one bucket-padded prompt (1,
         bucket) into a fresh batch-1 dense cache: the logits of the last
-        REAL row and the cache, its length the real length."""
-        cache = init_cache(self.cfg, 1, self.max_len, self.dtype, self.device)
+        REAL row and the cache, its length the real length.  On a mesh
+        the batch of 1 runs whole on every batch rank (``for_batch``)."""
+        cache = init_cache(self.cfg, 1, self.max_len, self.dtype, self.device,
+                           self.plan)
         kw = self.embeds_fn(1) if self.embeds_fn is not None else {}
         out = forward(self.params, self.cfg, self.plan, tokens=tokens,
                       cache=cache, **kw)
@@ -472,7 +476,7 @@ class Engine:
             torch.from_numpy(toks).to(self.device), s)
         self.n_prefill += 1
         first = int(torch.argmax(last_logits[0]))
-        insert_slot(self.cache, cache1, slot)
+        insert_slot(self.cache, cache1, slot, self.plan)
         self.cur_tokens[slot, 0] = first
         req.out_tokens.append(first)
         req.t_admitted = req.t_first_token = time.perf_counter()

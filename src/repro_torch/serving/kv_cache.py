@@ -29,12 +29,14 @@ surface:
 Which backend a spec gets is the ``ServeSpec.kv`` knob.  The device state
 is updated in place: ``begin``/``free`` write the slot's ``length`` entry,
 the paged ``flush`` copies the host block tables to the device only when
-they changed.  A mesh serves the paged backend only: ``kv="dense"`` raises
-there (ROADMAP A12).  ``rollback`` drops a slot's rejected speculative
+they changed.  On a mesh both backends hold this rank's heads; the dense
+buffers also only this rank's batch rows, while ``length`` covers every
+slot on every rank.  ``rollback`` drops a slot's rejected speculative
 tail.  The dense backend also holds the recurrent families' state (RWKV6's
 and the RG-LRU's in f32 whatever the serving dtype, the local attention's
 ring); the legacy blocking path fills one slot of it from a batch-1
-prefill cache with ``insert_slot``.
+prefill cache with ``insert_slot`` (on a mesh, on the rank that holds the
+slot's row).
 """
 
 from __future__ import annotations
@@ -129,9 +131,11 @@ class DenseKVCache(KVCache):
     backend = "dense"
 
     def __init__(self, cfg: ModelConfig, batch: int, max_len: int,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda",
+                 plan: ShardingPlan = NULL_PLAN):
         self.batch, self.max_len = batch, max_len
-        self.cache = make_batched_cache(cfg, batch, max_len, dtype, device)
+        self.cache = make_batched_cache(cfg, batch, max_len, dtype, device,
+                                        plan)
         self.stats = KVStats()
 
     def begin(self, slot: int, tokens) -> int:
@@ -361,13 +365,10 @@ def make_kv_cache(cfg: ModelConfig, kv: Optional[KVConfig], batch: int,
                   max_len: int, dtype=torch.bfloat16, device="cuda",
                   plan: ShardingPlan = NULL_PLAN) -> KVCache:
     """Construct the backend a resolved ``ServeSpec.kv`` asks for; on a
-    mesh ``plan`` cuts the pools to this rank's heads."""
+    mesh ``plan`` cuts the pools to this rank's heads, the dense buffers
+    to its rows and heads."""
     if kv is None or kv.backend == "dense":
-        if plan.enabled:
-            raise NotImplementedError(
-                "kv='dense' on a mesh is not ported yet (ROADMAP A12) — use "
-                "kv='paged' or kv='auto'")
-        return DenseKVCache(cfg, batch, max_len, dtype, device)
+        return DenseKVCache(cfg, batch, max_len, dtype, device, plan)
     ps = kv.page_size           # resolver-matching fallback: halve until
     while ps > 1 and max_len % ps:     # the page divides max_len
         ps //= 2
@@ -377,14 +378,20 @@ def make_kv_cache(cfg: ModelConfig, kv: Optional[KVConfig], batch: int,
                         dtype=dtype, device=device, plan=plan)
 
 
-def insert_slot(big, small, slot: int):
+def insert_slot(big, small, slot: int, plan: ShardingPlan = NULL_PLAN):
     """Copy a batch-1 cache ``small`` into batch slot ``slot`` of ``big``
     IN PLACE (cast to ``big``'s dtypes); returns ``big``.  Every buffer is
     (layers, batch, ...), the ring positions ``kpos`` (layers, batch, W)
-    included, so the slot is axis 1; ``length`` is (batch,)."""
+    included, so the slot is axis 1; ``length`` is (batch,).  On a mesh
+    ``big`` holds this rank's rows: only the rank whose rows hold the slot
+    copies (at its local row); every rank sets the slot's length."""
     big["length"][slot] = small["length"].reshape(-1)[0]
+    rows = plan.rows(big["length"].shape[0])
+    if not rows.start <= slot < rows.stop:
+        return big
+    i = slot - rows.start
     for b, s in zip(_leaves(big["groups"]), _leaves(small["groups"])):
-        b[:, slot:slot + 1].copy_(s)
+        b[:, i:i + 1].copy_(s)
     return big
 
 
@@ -397,10 +404,12 @@ def with_lengths(cache, lengths):
 
 
 def make_batched_cache(cfg: ModelConfig, batch: int, max_len: int,
-                       dtype=torch.bfloat16, device="cuda"):
+                       dtype=torch.bfloat16, device="cuda",
+                       plan: ShardingPlan = NULL_PLAN):
     """A dense batch cache whose ``length`` is a per-slot vector (all
-    zero)."""
-    c = init_cache(cfg, batch, max_len, dtype, device)
+    zero) of every slot; on a mesh the buffers are this rank's block
+    (``init_cache``)."""
+    c = init_cache(cfg, batch, max_len, dtype, device, plan)
     return with_lengths(c, torch.zeros(batch, dtype=torch.int32,
                                        device=device))
 

@@ -383,3 +383,51 @@ def _forward_case(inputs, meshes, case):
                     last_only=True)
         census[width] = dict(C.counters)
     return res, census
+
+
+def options_rank(rank, world):
+    """tests/test_torch_guard.py's serve options on one rank of the 2x2
+    mixserve mesh, at reduced widths: the stateless forward and the
+    forward on a dense cache (smollm), a self and a foreign draft's
+    proposals, a ``kv="dense"`` serve, and the legacy serves of the four
+    families the unified step cannot serve; shapes and greedy streams."""
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.core.resolve import SpeculationConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as MOD
+    from repro_torch.serving.api import LLM, ServeSpec
+    from repro_torch.serving.draft import make_draft
+    import repro_torch.configs as TC
+    mesh = make_host_mesh(2, 2)
+    cfg = TC.get_reduced("smollm-360m")
+    plan = make_plan("mixserve", mesh)
+    params = MOD.init_params(torch.Generator().manual_seed(0), cfg,
+                             torch.float32, "cpu", plan=plan)
+    tokens = torch.zeros(4, 8, dtype=torch.int64)
+    out = {"stateless": tuple(MOD.forward(params, cfg, plan,
+                                          tokens=tokens).logits.shape)}
+    cache = MOD.init_cache(cfg, 4, 16, torch.float32, "cpu", plan)
+    out["dense"] = tuple(MOD.forward(params, cfg, plan, tokens=tokens,
+                                     cache=cache).logits.shape)
+    out["dense_length"] = int(cache["length"])
+    ctx = {0: np.arange(1, 12), 3: np.arange(5, 9)}
+    for draft in ("self", "gemma-2b"):
+        d = make_draft(SpeculationConfig(k=2, draft=draft), cfg, params,
+                       plan=plan, max_batch=4, max_len=32,
+                       dtype=torch.float32, device="cpu")
+        out[draft] = {s: p.tolist() for s, p in
+                      d.propose(ctx, {0: 2, 3: 2}).items()}
+    rng = np.random.default_rng(0)
+    out["streams"] = {}
+    for arch, kv in (("smollm-360m", "dense"), ("rwkv6-1.6b", "auto"),
+                     ("recurrentgemma-9b", "auto"),
+                     ("whisper-tiny", "auto"), ("qwen2-vl-7b", "auto")):
+        c = TC.get_reduced(arch)
+        llm = LLM.from_spec(ServeSpec(arch=arch, max_batch=4, max_len=64,
+                                      chunk=8, kv=kv, strategy="mixserve"),
+                            mesh=mesh, device="cpu")
+        prompts = [rng.integers(0, c.vocab_size, n).astype(np.int32)
+                   for n in (5, 9)]
+        out["streams"][arch] = (llm.generate(prompts, 2),
+                                llm.engine.legacy, llm.engine.kv.backend)
+    return out

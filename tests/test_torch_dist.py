@@ -321,8 +321,9 @@ def test_forward_pools_are_the_reference_pools_heads(dist, case):
                         np.testing.assert_array_equal(ga[k], gb[k])
 
 
-def _expected_forward_census(case, width):
-    """(kind, axes) -> calls in one forward of ``width`` rows.
+def _expected_forward_census(case, width, kv="paged"):
+    """(kind, axes) -> calls in one forward of ``width`` rows on a ``kv``
+    cache ("paged" or "dense").
 
     Rule held instead of the census's 2 TP all-reduces a layer: one TP
     reduction after ``wo`` (heads split) and one after a dense ``w_out``,
@@ -331,8 +332,10 @@ def _expected_forward_census(case, width):
     Each reduction is a psum, or with the residual stream cut a
     psum_scatter whose all_gather is the next sub-layer's entry; once a
     forward, an embedding psum and the logits all_gathers (vocab over TP,
-    batch over the batch axes); one all_gather of the new KV rows a layer
-    over the batch axes."""
+    batch over the batch axes); on the paged cache one all_gather of the
+    new KV rows a layer over the batch axes (every rank holds every page;
+    a dense buffer holds only the rank's rows, so the dense cache has
+    none)."""
     arch, m, lay, algo, sp = case
     cfg = H._cfg(arch)
     plan = H._plan(Mesh(("data", "model"), m), lay, algo, "dropless",
@@ -366,8 +369,8 @@ def _expected_forward_census(case, width):
         want[("all_gather", tp_g)] += 1             # logits, vocab
     else:
         assert attn == 0
-    if plan.dp > 1:
-        want[("all_gather", dp_g)] += n_layers + 1  # KV rows + logits
+    if plan.dp > 1:                     # KV rows (paged) + logits
+        want[("all_gather", dp_g)] += (n_layers if kv == "paged" else 0) + 1
     return dict(want)
 
 

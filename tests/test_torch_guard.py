@@ -59,57 +59,65 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_unported_options_raise():
-    """Each option the port does not serve yet raises, naming its ROADMAP
-    item: the dense KV backend, the stateless forward, a model draft for
-    speculative decoding and the legacy blocking path on a mesh (A12; on
-    one device all four run, and the n-gram draft runs on a mesh too), the
-    frontend families (whisper, qwen2-vl) on a mesh, which the legacy path
-    serves (A12)."""
+def test_unported_options_raise(tmp_path):
+    """The options a mesh once refused (the dense KV backend, the
+    stateless forward, a model draft for speculative decoding, the legacy
+    blocking path and with it the recurrent and frontend families) build
+    on rank 0's plan of a 2x2 mesh and run on 4 gloo ranks; the MTP draft
+    stub still raises, and the kernel policy's defaults hold."""
+    import _torch_dist_helpers as H
     import repro_torch.configs as TC
     from repro_torch.core.partitioner import make_plan
     from repro_torch.core.resolve import KVConfig
     from repro_torch.kernels.policy import KernelPolicy
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.ranks import run_ranks
     from repro_torch.models import model as MOD
     from repro_torch.serving.api import LLM, ServeSpec
-    from repro_torch.serving.draft import make_draft
-    from repro_torch.serving.kv_cache import make_kv_cache
+    from repro_torch.serving.draft import ModelDraft, make_draft
+    from repro_torch.serving.kv_cache import DenseKVCache, make_kv_cache
     from repro_torch.core.resolve import SpeculationConfig
     cfg = TC.get_reduced("smollm-360m")
-    plan = make_plan("mixserve", Mesh(("data", "model"), (2, 2), 0))
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_kv_cache(cfg, KVConfig(backend="dense"), 4, 64, torch.float32,
-                      "cpu", plan=plan)
+    mesh = Mesh(("data", "model"), (2, 2), 0)
+    plan = make_plan("mixserve", mesh)
+    kv = make_kv_cache(cfg, KVConfig(backend="dense"), 4, 64, torch.float32,
+                       "cpu", plan=plan)
+    assert isinstance(kv, DenseKVCache)
+    # rank 0's rows (2 of 4); smollm's 15/5 heads do not split over TP 2
+    assert tuple(kv.cache["groups"][0]["k"].shape) == (2, 2, 64, 5, 16)
+    assert kv.cache["length"].shape == (4,)
     params = MOD.init_params(torch.Generator().manual_seed(0), cfg,
                              torch.float32, "cpu", plan=plan)
-    tokens = torch.zeros(4, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A12"):
-        MOD.forward(params, cfg, plan, tokens=tokens)
-    with pytest.raises(NotImplementedError, match="A12"):
-        MOD.forward(params, cfg, plan, tokens=tokens, cache=MOD.init_cache(
-            cfg, 4, 16, torch.float32, "cpu"))
     for draft in ("self", "gemma-2b"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            make_draft(SpeculationConfig(k=2, draft=draft), cfg, params,
+        d = make_draft(SpeculationConfig(k=2, draft=draft), cfg, params,
                        plan=plan, dtype=torch.float32, device="cpu")
+        assert isinstance(d, ModelDraft)
+        assert d.plan.enabled == (draft == "self")
     assert make_draft(SpeculationConfig(k=2, draft="ngram"), cfg, params,
                       plan=plan).name == "ngram"
-    for arch in ("whisper-tiny", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            LLM.from_spec(ServeSpec(arch=arch, max_batch=4, max_len=64,
-                                    chunk=8, kv="auto", strategy="mixserve"),
-                          mesh=Mesh(("data", "model"), (2, 2), 0),
-                          device="cpu")
-    from repro_torch.serving.engine import Engine
-    rcfg = TC.get_reduced("rwkv6-1.6b")
-    spec = ServeSpec(arch="rwkv6-1.6b", max_batch=4, max_len=64, chunk=8,
-                     strategy="mixserve").resolve(
-        mesh=Mesh(("data", "model"), (2, 2), 0), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        Engine(rcfg, MOD.init_params(torch.Generator().manual_seed(0), rcfg,
-                                     torch.float32, "cpu"), spec,
-               device="cpu")
+    with pytest.raises(NotImplementedError, match="MTP"):
+        make_draft(SpeculationConfig(k=2, draft="mtp"), cfg, params,
+                   plan=plan)
+    for arch in ("whisper-tiny", "qwen2-vl-7b", "rwkv6-1.6b",
+                 "recurrentgemma-9b"):
+        llm = LLM.from_spec(ServeSpec(arch=arch, max_batch=4, max_len=64,
+                                      chunk=8, kv="auto",
+                                      strategy="mixserve"),
+                            mesh=mesh, device="cpu")
+        assert llm.engine.legacy and llm.engine.kv.backend == "dense"
+        assert llm.engine.plan.enabled
+    ranks = run_ranks(H.options_rank, 4, workdir=tmp_path, device="cpu",
+                      threads=1, timeout_s=300)
+    v = TC.get_reduced("smollm-360m").padded_vocab
+    for r in ranks:
+        assert r["stateless"] == (4, 8, v) and r["dense"] == (4, 8, v)
+        assert r["dense_length"] == 8
+        assert r["self"] == ranks[0]["self"] and set(r["self"]) == {0, 3}
+        assert r["gemma-2b"] == ranks[0]["gemma-2b"]
+        assert r["streams"] == ranks[0]["streams"]
+    for arch, (streams, legacy, backend) in ranks[0]["streams"].items():
+        assert [len(s) for s in streams] == [2, 2]
+        assert backend == "dense" and legacy == (arch != "smollm-360m")
     assert KernelPolicy.auto("cpu") == KernelPolicy()
     assert KernelPolicy.auto("cuda") == KernelPolicy.parse("on")
 

@@ -12,7 +12,6 @@ draft-source units are held against the reference's code on the same
 state.  Float32 on the CPU; kernels resolve to off there (``auto``).
 """
 
-import types
 
 import numpy as np
 import pytest
@@ -33,6 +32,7 @@ from repro_torch.bridge import from_reference  # noqa: E402
 from repro_torch.core.partitioner import make_plan as t_make_plan  # noqa
 from repro_torch.core.resolve import AUTO  # noqa: E402
 from repro_torch.core.resolve import SpeculationConfig as TSC  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import model as TMOD  # noqa: E402
 from repro_torch.serving import kv_cache as TKV  # noqa: E402
 from repro_torch.serving.api import LLM, ServeSpec  # noqa: E402
@@ -619,11 +619,23 @@ def test_make_draft_resolves_sources(models):
     for a, b in zip(foreign.params["groups"][0], again.params["groups"][0]):
         for k in a["attn"]:
             assert torch.equal(a["attn"][k], b["attn"][k])   # seeded
-    # on a mesh a model draft raises naming A12; the n-gram one serves
-    mesh_plan = types.SimpleNamespace(enabled=True, kernels=None)
-    for d in ("self", "gemma-2b"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            make_draft(TSC(k=2, draft=d), tcfg, tp, plan=mesh_plan, **kw)
+    # on a mesh (rank 0 of 2x2) every source builds: the self draft under
+    # the serving plan on the rank's rows, a foreign one unsharded with
+    # the one-device draw's weights; the n-gram one as everywhere
+    mesh_plan = t_make_plan("mixserve", Mesh(("data", "model"), (2, 2), 0))
+    self_m = make_draft(TSC(k=2, draft="self"), tcfg, tp, plan=mesh_plan,
+                        **kw)
+    assert isinstance(self_m, ModelDraft) and self_m.plan is mesh_plan
+    assert self_m.cache["groups"][0]["k"].shape[1] == 1      # 2 rows / dp 2
+    assert self_m.cache["length"].shape == (2,)
+    foreign_m = make_draft(TSC(k=2, draft="gemma-2b"), tcfg, tp,
+                           plan=mesh_plan, **kw)
+    assert not foreign_m.plan.enabled
+    assert foreign_m.cache["groups"][0]["k"].shape[1] == 2
+    for a, b in zip(foreign_m.params["groups"][0],
+                    foreign.params["groups"][0]):
+        for k in a["attn"]:
+            assert torch.equal(a["attn"][k], b["attn"][k])
     assert isinstance(make_draft(TSC(k=2, draft="ngram"), tcfg, tp,
                                  plan=mesh_plan, **kw), NGramDraft)
 
