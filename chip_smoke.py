@@ -192,6 +192,28 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
              every attention geometry (c) and (d) launched is then held to
              the plain version on the card, and the dense-cache rank step
              and the legacy rank decode timed beside SDPA and their bound
+  6 train    the training path on one card (training.train_step: the
+             stateless forward, cross-entropy plus the router's aux loss,
+             autograd, AdamW), the plain bodies only (no kernel has a
+             backward):
+             (a) f32, every config reduced, the zero-initialised leaves
+                 drawn: one value_and_grad and AdamW step on the card and
+                 on the CPU from the same weights and batch: the loss,
+                 every gradient leaf (within the CPU parity tests'
+                 bounds) and the weights after the step;
+             (b) smollm-360m whole (32 layers), bf16, remat, batch
+                 8 x 256, 30 steps (lr 2e-3, warm-up 3, clip off): the
+                 loss falls by 0.1 or more; ms a step, tokens/s, peak
+                 memory, a profiler window; (e) a checkpoint of the
+                 trained params and optimizer state restored bit for bit;
+                 the first 10 steps with the default clip (printed); the
+                 peak with remat off;
+             (c) phi3.5-moe-42b at full width, 2 of 32 layers (2.86 B
+                 params), capacity dispatch, bf16, remat, batch 4 x 256,
+                 10 steps, the same checks and numbers; the first step
+                 again with microbatches=2, its loss within 2^-7;
+             no kernel counter moves in (a)-(c); (d) a kernels-on forward
+             under autograd raises, under no_grad it launches the kernels
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4326,6 +4348,387 @@ def _report_rwkv(ranks, card_line, label):
           f"(d) rwkv6 streams {rs[0]['streams']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training on one device
+# ---------------------------------------------------------------------------
+
+# (a) each reduced config's gradient leaves, the card against the CPU:
+# |cuda - cpu| <= bound * max|cpu leaf|.  The CPU tests hold the port to
+# the reference with the same bounds (tests/_torch_train_helpers.py
+# GRAD_BOUND): above 1e-4 the float32 gradient is ill-conditioned (the
+# reference's own float32 gradients stray from float64 by that order).
+TRAIN_GRAD_BOUND = {
+    "smollm-360m": 6e-4, "phi3.5-moe-42b": 1.5e-3, "gemma-2b": 5e-3,
+    "deepseek-v2-236b": 1e-4, "minicpm3-4b": 1e-4, "minitron-8b": 2e-3,
+    "rwkv6-1.6b": 1e-4, "recurrentgemma-9b": 1e-3, "whisper-tiny": 1.5e-2,
+    "qwen2-vl-7b": 1e-3,
+}
+# the loss, relative (whisper's float32 outputs are chaotic under a change
+# of summation order: ROADMAP queue C)
+TRAIN_LOSS_BOUND = {"whisper-tiny": 1e-4}
+# (a)'s AdamW step: eps above most |g| keeps the step smooth in the
+# gradient (the first step is g / (|g| + eps)), no clip, so an entry's
+# move differs between the devices by at most lr |dg| / eps (checked
+# elementwise with a factor 2), plus the last rounding of the new weight
+# (the card fuses p - lr u into one multiply-add): 2^-23 (|p| + lr)
+TRAIN_PARITY_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-2,
+                        grad_clip=0.0)
+# (b) smollm-360m whole; (c) phi3.5-moe-42b, 2 of 32 layers, full width
+TRAIN_SMOLLM = dict(batch=8, seq=256, steps=30)
+TRAIN_PHI = dict(layers=2, batch=4, seq=256, steps=10)
+# test_training.py's schedule with the clip off: with the default clip at
+# 1.0 a 32-layer model's gradient norm (a few hundred at init) shrinks
+# every entry of the gradient that much, most of them under Adam's eps, and
+# the loss does not move in 30 steps (in the reference as in the port:
+# tests/test_torch_train_deep.py); (b) also runs the clip for comparison
+TRAIN_OPT = dict(lr=2e-3, warmup_steps=3, total_steps=30, grad_clip=0.0)
+TRAIN_CLIP_STEPS = 10
+# the microbatched first step's loss against the whole batch's, relative:
+# two bf16 roundings of the loss (its activations carry 8-bit mantissas;
+# the half batch also gives capacity dispatch half the buffer rows, which
+# moves which slots drop)
+TRAIN_MICRO_BOUND = 2.0 ** -7
+
+
+def draw_zero_leaves(torch, tree, gen):
+    """``tree`` with every all-zero leaf (the norms' weights and the
+    recurrent leaves init_params zeroes) drawn from ``gen``: the token-shift
+    mixes uniform in [0, 1], lambda_p from N(-2, 1), the rest from
+    N(0, 0.25)."""
+    def leaf(t, name):
+        if bool(t.any()):
+            return t
+        z = torch.randn(t.shape, generator=gen, device=t.device)
+        if name == "mu":
+            z = torch.rand(t.shape, generator=gen, device=t.device)
+        elif name == "lambda_p":
+            z = z - 2.0
+        else:
+            z = 0.5 * z
+        return z.to(t.dtype)
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, key) for v in node)
+        return leaf(node, key)
+    return walk(tree)
+
+
+def _train_batches(torch, cfg, batch, seq, n, dev, seed=0):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(cfg, DataConfig(batch=batch, seq_len=seq, seed=seed))
+    return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            for b in data.batches(n)]
+
+
+def train_parity(torch, arch):
+    """(a) One value_and_grad and AdamW step of a reduced config on the
+    card and on the CPU from the same float32 weights and batch."""
+    import repro_torch.configs as C
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                init_opt_state)
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import flatten_with_paths, tree_map
+    cfg = C.get_reduced(arch)
+    gen = torch.Generator().manual_seed(11)
+    cpu = draw_zero_leaves(torch, init_params(gen, cfg, torch.float32,
+                                              "cpu"), gen)
+    dev = tree_map(lambda t: t.cuda(), cpu)
+    b_cpu = _train_batches(torch, cfg, 2, 32, 1, "cpu")[0]
+    b_dev = {k: v.cuda() for k, v in b_cpu.items()}
+    (l_dev, _), g_dev = value_and_grad(dev, b_dev, cfg)
+    (l_cpu, _), g_cpu = value_and_grad(cpu, b_cpu, cfg)
+    loss_err = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    bound = TRAIN_GRAD_BOUND[arch]
+    worst, worst_at = 0.0, None
+    for (p, a), (_, c) in zip(flatten_with_paths(g_dev),
+                              flatten_with_paths(g_cpu)):
+        e = float((a.cpu() - c).abs().max()) / max(float(c.abs().max()),
+                                                   1e-30)
+        if e > worst:
+            worst, worst_at = e, "/".join(map(str, p))
+    opt = AdamWConfig(**TRAIN_PARITY_OPT)
+    adamw_update(opt, g_dev, init_opt_state(dev), dev)
+    adamw_update(opt, g_cpu, init_opt_state(cpu), cpu)
+    step_ratio = 0.0
+    for (_, pa), (_, pc), (_, ga), (_, gc) in zip(
+            flatten_with_paths(dev), flatten_with_paths(cpu),
+            flatten_with_paths(g_dev), flatten_with_paths(g_cpu)):
+        allowed = 2 * opt.lr * (ga.cpu() - gc).abs() / opt.eps \
+            + 2.0 ** -23 * (pc.abs() + opt.lr)
+        step_ratio = max(step_ratio,
+                         float(((pa.cpu() - pc).abs() / allowed).max()))
+    loss_bound = TRAIN_LOSS_BOUND.get(arch, 1e-5)
+    ok = loss_err <= loss_bound and worst <= bound and step_ratio <= 1.0
+    print(f"[train] parity {arch}: loss cuda {float(l_dev):.6f} cpu "
+          f"{float(l_cpu):.6f} (rel {loss_err:.2e}, bound "
+          f"{loss_bound:.0e}); worst "
+          f"gradient leaf {worst_at} {worst:.3e} of its largest (bound "
+          f"{bound:.1e}); params after an AdamW step within "
+          f"{step_ratio:.3f} of 2 lr |dg| / eps (bound 1)")
+    check(ok, f"train parity {arch}: card and CPU disagree")
+
+
+def _profile_steps(torch, step, n):
+    """Device busy ms and idle share over ``n`` calls of ``step``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted(((getattr(ev, "self_device_time_total", 0.0) / 1e3,
+                    ev.key) for ev in prof.key_averages()
+                   if ev.device_type.name == "CUDA"), reverse=True)
+    busy = sum(ms for ms, _ in kern)
+    if busy <= 0:
+        return None
+    return {"busy_ms": busy / n, "wall_ms": wall_ms / n,
+            "idle_share": max(0.0, 1 - busy / wall_ms),
+            "top": [(name[:48], ms / busy) for ms, name in kern[:4]]}
+
+
+def _train_run(torch, cfg, params, batches, card_line, label, *,
+               remat=True, microbatches=1, prof_steps=2, **opt_kw):
+    """Steps of make_train_step over ``batches`` (made beforehand): the
+    losses, ms a step by wall clock (steps after the first), tokens/s,
+    the peak memory, and a profiler window of ``prof_steps`` further
+    steps (device ms a step, idle share)."""
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, opt_cfg=AdamWConfig(**dict(TRAIN_OPT,
+                                                           **opt_kw)),
+                           remat=remat, microbatches=microbatches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t1 = None
+    for i, b in enumerate(batches):
+        params, opt, m = step(params, opt, b)
+        losses.append(m["loss"])
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    n = len(batches) - 1
+    ms = (time.perf_counter() - t1) * 1e3 / max(n, 1)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    out = {"losses": losses, "peak": peak, "params": params, "opt": opt}
+    if not n:
+        return out
+    dev = "no profiler window"
+    if prof_steps:
+        def one():
+            step(params, opt, batches[-1])
+        prof = _profile_steps(torch, one, prof_steps)
+        dev = ("device not measured (the profiler reported no CUDA "
+               "kernel time)" if prof is None else
+               f"device {prof['busy_ms']:.1f} ms a step, idle share "
+               f"{prof['idle_share']:.3f} over {prof_steps} profiled "
+               f"steps (wall {prof['wall_ms']:.1f} ms a step, profiler on; "
+               f"largest device-time shares: "
+               + ", ".join(f"{k} {v:.3f}" for k, v in prof["top"]) + ")")
+    print(f"[train] {label}: {len(batches)} steps, {ms:.1f} ms a step "
+          f"(wall, steps 2-{len(batches)}), "
+          f"{batches[0]['tokens'].numel() / (ms / 1e3):.0f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB; {dev}; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} [{card_line}]")
+    return out
+
+
+def _falling(losses):
+    k = min(5, len(losses) // 2)
+    first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    return all(math.isfinite(x) for x in losses) and last < first - 0.1, \
+        first, last
+
+
+def train_smollm(torch, card_line):
+    """(b) smollm-360m, all 32 layers, bf16, remat on: 30 steps of batch
+    8 x 256 (made before the timed loop) and (e) a checkpoint of the
+    trained state; then the first 10 steps again with the default clip
+    (1.0), whose loss is printed, not held; then 3 steps with remat off
+    from the same weights, for its peak memory."""
+    import repro_torch.configs as C
+    from repro_torch.models.model import count_params, init_params
+    cfg = C.get("smollm-360m")
+    tr = TRAIN_SMOLLM
+    batches = _train_batches(torch, cfg, tr["batch"], tr["seq"],
+                             tr["steps"], "cuda")
+
+    def fresh():
+        return init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, torch.bfloat16, "cuda")
+    label = (f"smollm-360m whole ({cfg.n_layers} layers), bf16, remat, "
+             f"batch {tr['batch']} x {tr['seq']}")
+    run = _train_run(torch, cfg, fresh(), batches, card_line, label)
+    ok, first, last = _falling(run["losses"])
+    print(f"[train] smollm-360m: losses finite, mean of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f} (must fall by 0.1)")
+    check(ok, "smollm-360m: the loss did not fall")
+    train_checkpoint(torch, {"params": run.pop("params"),
+                             "opt": run.pop("opt")}, "smollm-360m",
+                     card_line)
+    free_memory(torch)
+    n_clip = TRAIN_CLIP_STEPS
+    clip = _train_run(torch, cfg, fresh(), batches[:n_clip], card_line,
+                      label + ", grad_clip 1.0", prof_steps=0,
+                      grad_clip=1.0)
+    print(f"[train] smollm-360m, the first {n_clip} steps: with the "
+          f"default clip 1.0 the loss went {clip['losses'][0]:.4f} -> "
+          f"{clip['losses'][-1]:.4f}, without it "
+          f"{run['losses'][0]:.4f} -> {run['losses'][n_clip - 1]:.4f}")
+    del clip
+    free_memory(torch)
+    off = _train_run(torch, cfg, fresh(), batches[:3], card_line,
+                     label.replace("remat", "remat off"), remat=False,
+                     prof_steps=0)
+    n = count_params(cfg)
+    print(f"[train] smollm-360m peak memory: remat on "
+          f"{run['peak'] / 2**30:.2f} GiB, remat off "
+          f"{off['peak'] / 2**30:.2f} GiB; {n:,} params: "
+          f"{_train_state_bytes(n) / 2**30:.2f} GiB of bf16 params and "
+          f"grads and f32 moments [{card_line}]")
+    del run, off
+    free_memory(torch)
+
+
+def _train_state_bytes(n_params: int) -> int:
+    """bf16 params and grads, f32 m and v: 12 bytes a parameter."""
+    return n_params * (2 + 2 + 4 + 4)
+
+
+def train_checkpoint(torch, tree, label, card_line):
+    """(e) ``tree`` (trained params and optimizer state) saved through the
+    build directory (gitignored) and restored bit for bit."""
+    from repro_torch.training import checkpoint
+    from repro_torch.training.tree import flatten_with_paths
+    ck_dir = ROOT / "build" / "train_checkpoint"
+    ck_dir.mkdir(parents=True, exist_ok=True)
+    path = ck_dir / "state.npz"
+    t0 = time.perf_counter()
+    checkpoint.save(str(path), tree)
+    t_save = time.perf_counter() - t0
+    size = path.stat().st_size
+    t0 = time.perf_counter()
+    back = checkpoint.restore(str(path), tree)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for (_, a), (_, b) in zip(flatten_with_paths(back),
+                                         flatten_with_paths(tree)))
+    path.unlink()
+    print(f"[train] checkpoint of {label}'s trained params and optimizer "
+          f"state: {size / 1e9:.2f} GB, save {t_save:.1f} s, restore "
+          f"{t_restore:.1f} s, bitwise equal {same} [{card_line}]")
+    check(same, f"{label}: the checkpoint did not restore bit for bit")
+
+
+def train_phi(torch, card_line):
+    """(c) phi3.5-moe-42b at full width, 2 of 32 layers (16 experts,
+    top-2, capacity dispatch), bf16, remat on: 10 steps of batch 4 x 256;
+    then the first step again from the same weights with
+    microbatches=2."""
+    from repro_torch.models.model import count_params, init_params
+    tr = TRAIN_PHI
+    cfg = _cut("phi3.5-moe-42b", tr["layers"])
+    n = count_params(cfg)
+    print(f"[train] phi3.5-moe-42b {tr['layers']} layers: {n:,} params, "
+          f"{_train_state_bytes(n) / 1e9:.1f} GB of bf16 params and grads "
+          f"and f32 moments")
+    batches = _train_batches(torch, cfg, tr["batch"], tr["seq"],
+                             tr["steps"], "cuda")
+
+    def fresh():
+        return init_params(torch.Generator(device="cuda").manual_seed(1),
+                           cfg, torch.bfloat16, "cuda")
+    label = (f"phi3.5-moe-42b ({cfg.n_layers} of 32 layers, 16 experts, "
+             f"top-2, capacity), bf16, remat, batch {tr['batch']} x "
+             f"{tr['seq']}")
+    run = _train_run(torch, cfg, fresh(), batches, card_line, label)
+    ok, first, last = _falling(run["losses"])
+    print(f"[train] phi3.5-moe-42b: losses finite, mean of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f} (must fall by 0.1)")
+    check(ok, "phi3.5-moe-42b: the loss did not fall")
+
+    del run["params"], run["opt"]
+    free_memory(torch)
+
+    micro = _train_run(torch, cfg, fresh(), batches[:1], card_line,
+                       label + ", microbatches 2", microbatches=2,
+                       prof_steps=0)
+    rel = abs(micro["losses"][0] - run["losses"][0]) / abs(run["losses"][0])
+    print(f"[train] phi3.5-moe-42b first step, microbatches 2 against the "
+          f"whole batch: loss {micro['losses'][0]:.5f} against "
+          f"{run['losses'][0]:.5f}, rel {rel:.2e} (bound "
+          f"{TRAIN_MICRO_BOUND:.2e}); peak {micro['peak'] / 2**30:.2f} GiB "
+          f"[{card_line}]")
+    check(rel <= TRAIN_MICRO_BOUND, "phi3.5-moe-42b: the microbatched step "
+                                    "strays from the whole batch's")
+    del run, micro
+    free_memory(torch)
+
+
+def train_guard(torch):
+    """(d) on the card, a kernels-on forward under autograd raises (no
+    kernel has a backward); the same forward under no_grad runs through
+    the kernels."""
+    import repro_torch.configs as C
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.models.model import init_params
+    from repro_torch.training.train_step import loss_fn, value_and_grad
+    cfg = C.get_reduced("phi3.5-moe-42b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(2),
+                         cfg, torch.float32, "cuda")
+    plan = make_plan("mixserve", None, kernels=KernelPolicy.all_on())
+    b = _train_batches(torch, cfg, 2, 32, 1, "cuda")[0]
+    try:
+        value_and_grad(params, b, cfg, plan)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    before = dict(ops.counters)
+    with torch.no_grad():
+        loss, _ = loss_fn(params, b, cfg, plan)
+    moved = {k: v - before.get(k, 0) for k, v in ops.counters.items()
+             if v != before.get(k, 0)}
+    print(f"[train] guard: kernels on under autograd raised: "
+          f"{raised[:80]!r}; under no_grad the forward ran (loss "
+          f"{float(loss):.4f}) with launches {json.dumps(moved)}")
+    check("no backward" in raised, "a kernels-on forward under autograd "
+                                   "did not raise")
+    check(math.isfinite(float(loss)) and moved.get("moe_gemm", 0) > 0,
+          "the kernels-on forward under no_grad did not run the kernels")
+
+
+def phase_train(torch, card_line):
+    """Phase 6: (a) parity on the card, (b) smollm-360m whole with (e)
+    its checkpoint, (c) phi3.5-moe-42b at full width, none of which
+    launches a kernel, then (d) the guard."""
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = dict(ops.counters)
+    for arch in TRAIN_GRAD_BOUND:
+        train_parity(torch, arch)
+    free_memory(torch)
+    train_smollm(torch, card_line)
+    train_phi(torch, card_line)
+    check(dict(ops.counters) == before,
+          "the training phases moved a kernel counter")
+    train_guard(torch)
+    free_memory(torch)
+
+
 def kernels_record(kres, launches):
     out = []
     for name, source, replaces in KERNELS:
@@ -4545,6 +4948,9 @@ def main() -> int:
     geo_res.recs = kres
     timed("dist_geometries", check_dist_geometries, torch, geo_res,
           dist["geometries"], torch.device("cuda"))
+    free_memory(torch)
+    # training launches no kernel (none has a backward): no launches here
+    timed("train", phase_train, torch, card_line)
     launches: dict = {}
     for s in serves + [dist] + [frontend[a] for a in FRONT_SERVES]:
         for k, v in s["launches"].items():

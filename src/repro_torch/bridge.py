@@ -76,4 +76,20 @@ def from_reference(params_np: dict, cfg: ModelConfig, device="cpu",
     return out
 
 
-__all__ = ["from_reference"]
+def opt_state_from_reference(state, cfg: ModelConfig, device="cpu"):
+    """The port's ``AdamWState`` from the reference's (its ``step``, ``m``
+    and ``v`` as numpy, as ``jax.tree.map(np.asarray, state)`` gives
+    them): the moments unstacked as ``from_reference`` unstacks the
+    parameters, whose layout they share, in the reference's moment dtype."""
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.tree import leaves
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+        str(leaves(state.m)[0].dtype)]
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        m=from_reference(state.m, cfg, device, dtype),
+        v=from_reference(state.v, cfg, device, dtype))
+
+
+__all__ = ["from_reference", "opt_state_from_reference"]

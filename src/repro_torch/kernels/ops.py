@@ -5,7 +5,9 @@ Every wrapper validates device, dtype, shape and contiguity, then:
 * a CPU tensor goes to the plain PyTorch version in ``ref`` (the CPU tests
   and the kernels-on CPU path run there);
 * a CUDA tensor launches the kernel from ``build.load()`` on PyTorch's
-  current stream, or raises — there is no fallback.
+  current stream, or raises — there is no fallback;
+* an input that requires grad, under grad mode, raises on either device:
+  the kernels have no backward (``_check_inputs``).
 
 ``counters[name]`` counts kernel launches (CUDA only), one per launch and
 nowhere else; ``reset_counters()`` zeroes them.  A run can read them to show
@@ -40,7 +42,19 @@ def _check_inputs(name: str, floats: tuple, ints: tuple = (),
     one device, CPU or CUDA; ``floats`` of one dtype the kernels take;
     ``ints`` int32; ``floats`` and ``ints`` contiguous (``others`` are held
     to the device alone).  Returns the device; raises ``ValueError`` for
-    the first failure in that order, its message built only then."""
+    the first failure in that order, its message built only then.
+
+    First of all, under autograd (grad mode on and a float input that
+    requires grad) it raises ``RuntimeError``: no kernel has a backward
+    (nor has the reference's), so a kernel would cut the gradient to every
+    weight before it.  The plain body's CPU branch is refused alike."""
+    if torch.is_grad_enabled() and (
+            any(t.requires_grad for t in floats)
+            or any(t.requires_grad for t in others)):
+        raise RuntimeError(
+            f"{name}: the hand-written kernels have no backward; run this "
+            f"forward under torch.no_grad() or with the kernels off "
+            f"(KernelPolicy.off())")
     dev = floats[0].device
     dt = floats[0].dtype
     ok = dev.type in ("cpu", "cuda") and dt in _DTYPES

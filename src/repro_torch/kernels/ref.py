@@ -16,14 +16,14 @@ NEG_INF = -1e30
 
 def top_k_first(p, k: int):
     """Top-k of p (T, E) by iterative argmax: ties go to the lowest index.
-    Returns (values (T, k) in p's dtype, idx (T, k) int32)."""
-    p = p.clone()
+    Returns (values (T, k) in p's dtype, idx (T, k) int32).  Each mask is
+    a new tensor (no in-place write), so the values carry p's gradient."""
     ws, iis = [], []
     for _ in range(k):
         idx = torch.argmax(p, dim=-1)           # first maximal index
         ws.append(torch.gather(p, 1, idx[:, None])[:, 0])
         iis.append(idx)
-        p.scatter_(1, idx[:, None], -1.0)
+        p = p.scatter(1, idx[:, None], -1.0)
     return torch.stack(ws, -1), torch.stack(iis, -1).to(torch.int32)
 
 

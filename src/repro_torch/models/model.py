@@ -51,11 +51,13 @@ rows back, so every rank returns the whole logits.  A dense cache
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
@@ -628,7 +630,8 @@ class Output:
 def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
             tokens=None, embeds=None, frames=None, positions=None,
             cache=None, q_lens=None, last_only: bool = False,
-            logit_rows=None, expert_stats: bool = False) -> Output:
+            logit_rows=None, expert_stats: bool = False,
+            remat: bool = False) -> Output:
     """The forward pass, in the reference's modes.
 
     tokens  (b, s_text) int  — None for a pure-embedding input
@@ -668,6 +671,12 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                           draft position this way)
     expert_stats          sum per-expert routed-slot counts over the MoE
                           layers into ``Output.expert_counts``
+    remat                 the stateless forward keeps no activations of a
+                          decoder layer for the backward but its input, and
+                          recomputes the layer there (the reference's
+                          ``jax.checkpoint`` of its scanned layer body); the
+                          recompute's outputs are discarded, so nothing the
+                          forward returns is counted twice
     """
     if q_lens is not None and cache is None:
         raise ValueError("q_lens (unified mixed step) requires a cache")
@@ -714,11 +723,18 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                 b_k = bufs if key is None or bufs is None else bufs[key]
                 c_l = None if b_k is None else {n: t[li]
                                                 for n, t in b_k.items()}
-                x, a, cnt = apply_sublayer(
-                    kind, p_k, x, c_l, cfg=cfg, plan=plan,
+                layer = functools.partial(
+                    apply_sublayer, kind, p_k, cfg=cfg, plan=plan,
                     positions=positions, length=length, q_lens=q_lens,
                     block_tables=block_tables, with_stats=expert_stats,
                     seq_sharded=seq_sharded, enc_out=enc_out)
+                if remat and cache is None:
+                    # the forward draws no random numbers: no RNG state
+                    x, a, cnt = torch.utils.checkpoint.checkpoint(
+                        layer, x, None, use_reentrant=False,
+                        preserve_rng_state=False)
+                else:
+                    x, a, cnt = layer(x, c_l)
                 aux_total = aux_total + a
                 if expert_stats:
                     counts_total = counts_total + cnt

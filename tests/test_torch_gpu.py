@@ -1036,3 +1036,89 @@ def test_frontend_serve_on_card(dev, arch):
     want = full[:, front:]
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
+
+
+def test_every_wrapper_refuses_autograd_on_card(dev):
+    """No kernel has a backward: on the card too a wrapper given an input
+    that requires grad raises under grad mode (it would otherwise return a
+    tensor with no gradient history), and launches under no_grad."""
+    from _kernel_calls import wrapper_calls
+    for name, call in wrapper_calls(dev).items():
+        ops.reset_counters()
+        with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
+            call(True)
+        assert not ops.counters, name
+        with torch.no_grad():
+            call(True)
+        torch.cuda.synchronize()
+        assert sum(ops.counters.values()) >= 1, name
+
+
+# one reduced config a family: the loss to 1e-5 (whisper, whose float32
+# outputs are chaotic under a change of summation order: 1e-4), the card's
+# gradients against the CPU's within the CPU parity tests' bounds
+# (tests/_torch_train_helpers.py, GRAD_BOUND), and the weights after an
+# AdamW step whose eps (1e-2, no clip) keeps it smooth in the gradient,
+# within 2 lr |dg| / eps plus the new weight's last rounding (the card
+# fuses p - lr u into one multiply-add)
+TRAIN_FAMILIES = {"smollm-360m": 6e-4, "phi3.5-moe-42b": 1.5e-3,
+                  "rwkv6-1.6b": 1e-4, "recurrentgemma-9b": 1e-3,
+                  "qwen2-vl-7b": 1e-3, "whisper-tiny": 1.5e-2}
+
+
+def _zero_leaves_drawn(tree, gen):
+    """Every all-zero leaf (norms, recurrent leaves) drawn: token-shift
+    mixes in [0, 1], lambda_p from N(-2, 1), the rest N(0, 0.25)."""
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, key) for v in node]
+        if node.any():
+            return node
+        if key == "mu":
+            return torch.rand(node.shape, generator=gen)
+        z = torch.randn(node.shape, generator=gen)
+        return z - 2.0 if key == "lambda_p" else 0.5 * z
+    return walk(tree)
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_FAMILIES))
+def test_train_step_on_card_matches_cpu(dev, arch):
+    import repro_torch.configs as C
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                init_opt_state)
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import flatten_with_paths, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = C.get_reduced(arch)
+    gen = torch.Generator().manual_seed(3)
+    cpu = _zero_leaves_drawn(init_params(gen, cfg, torch.float32, "cpu"),
+                             gen)
+    card = tree_map(lambda t: t.to(dev), cpu)
+    b = {k: torch.from_numpy(v) for k, v in next(iter(SyntheticLM(
+        cfg, DataConfig(batch=2, seq_len=32, seed=0)).batches(1))).items()}
+    ops.reset_counters()
+    (l_card, _), g_card = value_and_grad(card, {k: v.to(dev) for k, v in
+                                                b.items()}, cfg)
+    (l_cpu, _), g_cpu = value_and_grad(cpu, b, cfg)
+    torch.testing.assert_close(l_card.cpu(), l_cpu, atol=0, rtol=1e-4
+                               if arch == "whisper-tiny" else 1e-5)
+    for (p, a), (_, c) in zip(flatten_with_paths(g_card),
+                              flatten_with_paths(g_cpu)):
+        err = float((a.cpu() - c).abs().max() / c.abs().max().clamp_min(
+            1e-30))
+        assert err <= TRAIN_FAMILIES[arch], (p, err)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-2,
+                      grad_clip=0.0)
+    adamw_update(opt, g_card, init_opt_state(card), card)
+    adamw_update(opt, g_cpu, init_opt_state(cpu), cpu)
+    for (p, a), (_, c), (_, ga), (_, gc) in zip(
+            flatten_with_paths(card), flatten_with_paths(cpu),
+            flatten_with_paths(g_card), flatten_with_paths(g_cpu)):
+        allowed = 2 * opt.lr * (ga.cpu() - gc).abs() / opt.eps \
+            + 2.0 ** -23 * (c.abs() + opt.lr)
+        assert ((a.cpu() - c).abs() <= allowed).all(), p
+    assert not ops.counters

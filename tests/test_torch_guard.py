@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _kernel_calls import wrapper_calls  # noqa: E402
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -166,3 +168,51 @@ def test_chip_smoke_refuses_without_card_or_port(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_training_import_leaves_jax_unloaded():
+    """The training path (data, optimizer, step, checkpoints, the CLI)
+    loads neither JAX nor the reference package."""
+    code = ("import sys; import repro_torch.data.pipeline, "
+            "repro_torch.training.train_step, repro_torch.training.checkpoint,"
+            " repro_torch.launch.train; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_kernel_wrapper_refuses_autograd_on_the_cpu(monkeypatch):
+    """No kernel has a backward: under grad mode a wrapper given an input
+    that requires grad raises before its CPU branch (the plain body, which
+    autograd could differentiate, is not run either); under no_grad, or
+    with no input requiring grad, it runs its plain body."""
+    from repro_torch.kernels import ops, ref
+    calls = wrapper_calls()
+    helpers = {"flash_plan", "topk_plan", "moe_gemm_plan", "moe_gemm_split",
+               "moe_gemm_bn", "grouped_gemm_visits", "permute_plan",
+               "unpermute_plan", "counters", "reset_counters"}
+    assert set(ops.__all__) - helpers == set(calls)
+    ran = []
+    for name in dir(ref):
+        fn = getattr(ref, name)
+        if callable(fn) and name.endswith("_ref"):
+            def spy(*a, _fn=fn, _n=name, **k):
+                ran.append(_n)
+                return _fn(*a, **k)
+            monkeypatch.setattr(ref, name, spy)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
+            call(True)
+        assert not ran, (name, ran)
+        with torch.no_grad():
+            out = call(True)
+        assert ran, name
+        ran.clear()
+        out = call(False)
+        assert ran and not (out[0] if isinstance(out, tuple)
+                            else out).requires_grad, name
+        ran.clear()
