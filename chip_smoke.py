@@ -214,6 +214,28 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                  again with microbatches=2, its loss within 2^-7;
              no kernel counter moves in (a)-(c); (d) a kernels-on forward
              under autograd raises, under no_grad it launches the kernels
+  7 train-mesh
+             training on a 2x2 (data, model) mesh, 4 ranks over gloo on
+             the one card (as phase 5; NCCL with 4 cards), no kernel:
+             (a) phi3.5-moe-42b and smollm-360m reduced, f32, capacity
+                 factor 8 (nothing drops), mixserve with sp and fsdp on,
+                 remat: two steps from the same weights and batches as
+                 the unsharded steps on the card (their router aux by the
+                 mesh's rule): the first step's loss within 1e-5 and each
+                 gradient block within the CPU tests' GRAD_BOUND, the
+                 weights after two AdamW steps within Adam's move under
+                 both steps' gradient differences;
+             (b) phi3.5-moe-42b at full width, 2 of 32 layers, through
+                 ``launch.train.train_loop`` as the CLI trains (mixserve,
+                 sp on, bf16, remat), batch 4 x 256, 3 steps: ms a step,
+                 tokens/s, peak GiB a rank, the host clock inside
+                 collectives, the collectives a step by (kind, axes,
+                 forward or backward), the loss finite and falling, the
+                 same on every rank;
+             (c) (a)'s phi3.5 state (params, moments, step) saved through
+                 the mesh is byte-equal to the single-device file of the
+                 same state (assembled from the ranks' blocks), and
+                 restores to every rank's blocks bit for bit
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4729,6 +4751,390 @@ def phase_train(torch, card_line):
     free_memory(torch)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training on a mesh
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH = (2, 2)                      # (data, model)
+# (a) parity: reduced configs, f32, capacity factor 8 (nothing drops);
+# each gradient block within TRAIN_GRAD_BOUND (the CPU tests' GRAD_BOUND)
+TRAIN_MESH_ARCHS = ("phi3.5-moe-42b", "smollm-360m")
+TRAIN_MESH_PARITY = dict(batch=4, seq=32, cf=8.0)
+# (b) phi3.5-moe-42b at full width, 2 of 32 layers, as the CLI trains it
+TRAIN_MESH_WIDE = dict(layers=2, batch=4, seq=256, steps=3, lr=2e-3)
+
+
+def _mesh_aux(dp):
+    """The unsharded MoE's router aux by the mesh's rule (mixserve: the
+    mean of the aux of each of the ``dp`` batch ranks' rows); the routing
+    itself is per token, unchanged.  Returns the restore function."""
+    from repro_torch.models import moe as M
+    orig = M.route_topk
+
+    def route(logits, k, renorm=True, use_kernel=False):
+        idx, w, _ = orig(logits, k, renorm, use_kernel)
+        n = logits.shape[0] // dp
+        auxs = [orig(logits[d * n:(d + 1) * n], k, renorm, use_kernel)[2]
+                for d in range(dp)]
+        return idx, w, sum(auxs) / dp
+    M.route_topk = route
+
+    def restore():
+        M.route_topk = orig
+    return restore
+
+
+def _train_mesh_cfg(arch):
+    import repro_torch.configs as C
+    return dataclasses.replace(C.get_reduced(arch),
+                               capacity_factor=TRAIN_MESH_PARITY["cf"])
+
+
+def _train_mesh_reference(torch, path):
+    """(a)'s unsharded f32 steps on the card: per config the weights, two
+    batches, the loss and gradients of each step, the weights after the
+    two AdamW steps (the aux by the mesh's rule), all on the host."""
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                init_opt_state)
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_map
+    opt = AdamWConfig(**TRAIN_PARITY_OPT)
+    tp = TRAIN_MESH_PARITY
+    out = {}
+    restore = _mesh_aux(TRAIN_MESH[0])
+    try:
+        for arch in TRAIN_MESH_ARCHS:
+            cfg = _train_mesh_cfg(arch)
+            gen = torch.Generator(device="cuda").manual_seed(21)
+            w0 = draw_zero_leaves(torch, init_params(
+                gen, cfg, torch.float32, "cuda"), gen)
+            params = tree_map(lambda t: t.clone(), w0)
+            batches = _train_batches(torch, cfg, tp["batch"], tp["seq"], 2,
+                                     "cuda")
+            state = init_opt_state(params)
+            rec = {"weights": tree_map(lambda t: t.cpu(), w0),
+                   "batches": [{k: v.cpu() for k, v in b.items()}
+                               for b in batches], "loss": [], "grads": []}
+            for b in batches:
+                (loss, _), g = value_and_grad(params, b, cfg, remat=False)
+                rec["loss"].append(float(loss))
+                rec["grads"].append(tree_map(lambda t: t.cpu(), g))
+                params, state, _ = adamw_update(opt, g, state, params)
+            rec["params"] = tree_map(lambda t: t.cpu(), params)
+            out[arch] = rec
+    finally:
+        restore()
+    torch.save(out, path)
+
+
+def _block_tree(torch, plan, cfg, tree, dev=None):
+    """This rank's blocks of a whole tree (``training.tree.store_specs``)."""
+    from repro_torch.training.tree import (flatten_with_paths, store_specs,
+                                           tree_map)
+    specs = iter(store_specs(cfg, plan, tree))
+    paths = iter(flatten_with_paths(tree))
+
+    def one(t):
+        next(paths)
+        s = next(specs)
+        t = t if s is None else t[plan.block(tuple(t.shape), s)]
+        return t.contiguous().to(dev) if dev else t.contiguous()
+    return tree_map(one, tree)
+
+
+def _train_mesh_parity_rank(torch, mesh, ref, work):
+    """(a) on this rank: two mesh steps (mixserve, sp and fsdp on, remat)
+    from the reference's weights: the first step's loss and each of its
+    gradient blocks against the unsharded ones (the second step's weights
+    already differ by rounding, and a routing decision near a tie may
+    flip), the weights after the two AdamW steps elementwise within
+    Adam's move under both steps' gradient differences; (c) phi3.5's
+    state saved through the mesh and as this rank's blocks."""
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                init_opt_state)
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import (flatten_with_paths, store_specs,
+                                           tree_map)
+    opt = AdamWConfig(**TRAIN_PARITY_OPT)
+    out = {}
+    for arch in TRAIN_MESH_ARCHS:
+        cfg = _train_mesh_cfg(arch)
+        plan = make_plan("mixserve", mesh, fsdp=True)
+        r = ref[arch]
+        params = _block_tree(torch, plan, cfg, r["weights"], "cuda")
+        state = init_opt_state(params)
+        cuts = [tuple(a for m in s if m is not None for a in m)
+                for s in store_specs(cfg, plan, params)]
+        worst, worst_at, dgs, losses = 0.0, None, [], []
+        t0 = time.perf_counter()
+        for i, b in enumerate(r["batches"]):
+            b = {k: v.cuda() for k, v in b.items()}
+            (loss, _), g = value_and_grad(params, b, cfg, plan)
+            losses.append(abs(float(loss) - r["loss"][i]) / abs(r["loss"][i]))
+            want = _block_tree(torch, plan, cfg, r["grads"][i])
+            dg = []
+            for (p, a), (_, w), (_, whole) in zip(
+                    flatten_with_paths(g), flatten_with_paths(want),
+                    flatten_with_paths(r["grads"][i])):
+                d = (a.cpu() - w).abs()
+                e = float(d.max()) / max(float(whole.abs().max()), 1e-30)
+                if i == 0 and e > worst:
+                    worst, worst_at = e, "/".join(map(str, p))
+                dg.append(d)
+            dgs.append(dg)
+            params, state, _ = adamw_update(opt, g, state, params,
+                                            cuts=cuts, mesh=mesh)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / len(r["batches"])
+        # each step moves an entry by lr * u; u's move under a gradient
+        # change dg is at most ~2 |dg| / eps a step (no clip), plus the
+        # new weights' last rounding
+        want_p = _block_tree(torch, plan, cfg, r["params"])
+        ratio = 0.0
+        for i, ((_, a), (_, w)) in enumerate(zip(flatten_with_paths(params),
+                                                 flatten_with_paths(want_p))):
+            allowed = 4 * opt.lr * (dgs[0][i] + dgs[1][i]) / opt.eps \
+                + 2.0 ** -22 * (w.abs() + 2 * opt.lr)
+            ratio = max(ratio, float(((a.cpu() - w).abs() / allowed).max()))
+        out[arch] = {"loss_err": losses, "worst": worst,
+                     "worst_at": worst_at, "ratio": ratio,
+                     "step_s": step_s,
+                     "ok": losses[0] <= TRAIN_LOSS_BOUND.get(arch, 1e-5)
+                     and worst <= TRAIN_GRAD_BOUND[arch] and ratio <= 1.0}
+        if arch == "phi3.5-moe-42b":       # (c)
+            tree = {"params": params, "opt": state}
+            t0 = time.perf_counter()
+            checkpoint.save(str(work / "mesh_state.npz"), tree, plan=plan,
+                            cfg=cfg)
+            out["save_s"] = time.perf_counter() - t0
+            torch.save(tree_map(lambda t: t.cpu(), tree),
+                       work / f"blocks{mesh.rank}.pt")
+            like = tree_map(torch.zeros_like, tree)
+            back = checkpoint.restore(str(work / "mesh_state.npz"), like,
+                                      plan=plan, cfg=cfg)
+            out["restored"] = all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for (_, a), (_, b) in zip(flatten_with_paths(back),
+                                          flatten_with_paths(tree)))
+    return out
+
+
+def _train_mesh_wide_rank(torch, mesh):
+    """(b) on this rank: phi3.5-moe-42b at full width, 2 layers, through
+    ``launch.train.train_loop`` as the CLI trains (mixserve, sp on, bf16,
+    remat): ms a step, peak memory, the collectives a step."""
+    from repro_torch.core import collectives as C
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import count_params
+    tw = TRAIN_MESH_WIDE
+    cfg = _cut("phi3.5-moe-42b", tw["layers"])
+    plan = make_plan("mixserve", mesh)
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_counters()
+    # host seconds inside collectives (a gloo call waits for the kernels
+    # that make its input), and inside the after-backward gradient sums,
+    # timed here only: the port's module keeps no clock
+    spent = {"all": 0.0, "grad_sums": 0.0}
+    issue, sums = C._issue, C.psum_grads
+
+    def clocked(fn, key):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return run
+    C._issue, C.psum_grads = clocked(issue, "all"), clocked(sums,
+                                                           "grad_sums")
+    t0 = time.perf_counter()
+    try:
+        params, _, hist = train_loop(cfg, plan, "cuda", steps=tw["steps"],
+                                     batch=tw["batch"], seq=tw["seq"],
+                                     lr=tw["lr"], dtype=torch.bfloat16,
+                                     remat=True, log=None)
+    finally:
+        C._issue, C.psum_grads = issue, sums
+    wall = time.perf_counter() - t0
+    coll = {"/".join([k[0], "+".join(k[1])] + list(k[2:])): v
+            for k, v in sorted(C.counters.items())}
+    n_local = sum(t.numel() for t in _leaves(params))
+    del params
+    return {"losses": [h["loss"] for h in hist],
+            "ms": [h["ms"] for h in hist], "wall_s": wall, "spent": spent,
+            "peak": torch.cuda.max_memory_allocated(),
+            "collectives": coll, "n_local": n_local,
+            "n_params": count_params(cfg),
+            "capacity": _capacity_rows(cfg, tw, plan)}
+
+
+def _capacity_rows(cfg, tw, plan):
+    """(C a rank's buffers hold per expert, rows each expert's FFN
+    takes after the exchange)."""
+    from repro_torch.models.moe import capacity_for
+    t = tw["batch"] // plan.dp * tw["seq"]
+    c = capacity_for(t, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    return c, c * plan.ep
+
+
+def train_mesh_rank(rank, world, workdir):
+    """One rank of phase 7 (runs in its own process)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = pathlib.Path(workdir)
+    mesh = make_host_mesh(*TRAIN_MESH)
+    ref = torch.load(work / "train_ref.pt", weights_only=False)
+    before = dict(ops.counters)
+    parity = _train_mesh_parity_rank(torch, mesh, ref, work)
+    del ref
+    free_memory(torch)
+    wide = _train_mesh_wide_rank(torch, mesh)
+    free_memory(torch)
+    return {"rank": rank, "backend": mesh.backend, "parity": parity,
+            "wide": wide, "kernels_moved": dict(ops.counters) != before}
+
+
+def _train_mesh_whole_file(torch, work):
+    """(c) the single-device file of the mesh state: each leaf assembled
+    from the 4 ranks' blocks (written by each rank, placed by
+    ``plan.block`` here, not by the mesh's gathers), saved by one
+    process."""
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.training import checkpoint
+    from repro_torch.training.tree import (flatten_with_paths, store_specs,
+                                           tree_map)
+    cfg = _train_mesh_cfg("phi3.5-moe-42b")
+    world = TRAIN_MESH[0] * TRAIN_MESH[1]
+    blocks = [torch.load(work / f"blocks{r}.pt", weights_only=False)
+              for r in range(world)]
+    plans = [make_plan("mixserve", Mesh(("data", "model"), TRAIN_MESH, r),
+                       fsdp=True) for r in range(world)]
+    # whole shapes: each leaf's block times its cut sizes
+    specs = store_specs(cfg, plans[0], blocks[0])
+    wholes = []
+    for i, ((_, b0), s) in enumerate(zip(flatten_with_paths(blocks[0]),
+                                         specs)):
+        shape = list(b0.shape)
+        for d, m in enumerate(s or ()):
+            if m is not None:
+                shape[d] *= plans[0].mesh.axis_size(m)
+        w = torch.empty(shape, dtype=b0.dtype)
+        for r in range(world):
+            blk = flatten_with_paths(blocks[r])[i][1]
+            w[plans[r].block(tuple(shape), s) if s else ...] = blk
+        wholes.append(w)
+    it = iter(wholes)
+    whole = tree_map(lambda _: next(it), blocks[0])
+    checkpoint.save(str(work / "whole_state.npz"), whole)
+    same = (work / "whole_state.npz").read_bytes() \
+        == (work / "mesh_state.npz").read_bytes()
+    size = (work / "mesh_state.npz").stat().st_size
+    for p in list(work.glob("blocks*.pt")) + [work / "whole_state.npz",
+                                             work / "mesh_state.npz"]:
+        p.unlink()
+    return same, size
+
+
+def phase_train_mesh(torch, card_line):
+    """Phase 7: training on a 2x2 (data, model) mesh, 4 ranks over gloo
+    on the one card (NCCL, one rank a card, where there are 4): (a) f32
+    parity of mesh steps against the unsharded ones, (b) phi3.5-moe-42b
+    at full width as the CLI trains it, (c) the mesh checkpoint against
+    the single-device file; no kernel counter moves."""
+    from repro_torch.launch.mesh import pick_backend
+    from repro_torch.launch.ranks import RankFailed, run_ranks
+    work = ROOT / "build" / "train_mesh"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _train_mesh_reference(torch, work / "train_ref.pt")
+    free_memory(torch)
+    backend = pick_backend(4, "cuda")
+    label = ("4 ranks sharing one card" if backend == "gloo"
+             else "4 ranks, one card each")
+    print(f"[train-mesh] unsharded f32 references in "
+          f"{time.perf_counter() - t0:.1f}s; spawning 4 ranks, backend "
+          f"{backend}, mesh (data, model) = {TRAIN_MESH} [{label}]")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(train_mesh_rank, 4, (str(work),), workdir=work,
+                          device="cuda", timeout_s=600)
+    except RankFailed as e:
+        raise SmokeError(f"training on a mesh: {e}") from e
+    wall = time.perf_counter() - t0
+    (work / "train_ref.pt").unlink()
+    # (a)
+    for arch in TRAIN_MESH_ARCHS:
+        per = [r["parity"][arch] for r in ranks]
+        w = max(per, key=lambda c: c["worst"])
+        print(f"[train-mesh] (a) {arch} reduced, f32, mixserve 2x2, sp and "
+              f"fsdp on, remat, batch {TRAIN_MESH_PARITY['batch']} x "
+              f"{TRAIN_MESH_PARITY['seq']}, 2 AdamW steps: loss rel err "
+              f"{max(c['loss_err'][0] for c in per):.2e} (bound "
+              f"{TRAIN_LOSS_BOUND.get(arch, 1e-5):.0e}; the second step's "
+              f"{max(c['loss_err'][1] for c in per):.2e}); worst gradient "
+              f"block {w['worst_at']} {w['worst']:.3e} of the leaf's "
+              f"largest (bound {TRAIN_GRAD_BOUND[arch]:.1e}); weights after "
+              f"2 steps within {max(c['ratio'] for c in per):.3f} of Adam's "
+              f"move under the gradients' differences (bound 1); "
+              f"{max(c['step_s'] for c in per) * 1e3:.0f} ms a step")
+        check(all(c["ok"] for c in per),
+              f"training on a mesh, {arch}: the mesh step strays from the "
+              f"unsharded one")
+    # (b)
+    wd = [r["wide"] for r in ranks]
+    tw = TRAIN_MESH_WIDE
+    w0 = wd[0]
+    cap, rows = w0["capacity"]
+    print(f"[train-mesh] (b) phi3.5-moe-42b {tw['layers']} of 32 layers at "
+          f"full width ({w0['n_params']:,} params; "
+          f"{[r['wide']['n_local'] for r in ranks]} a rank), mixserve 2x2 "
+          f"fused, sp on, bf16, remat, batch {tw['batch']} x {tw['seq']}, "
+          f"capacity C {cap} a rank ({rows} rows an expert after the "
+          f"exchange), {tw['steps']} steps [{label}]")
+    for r, x in enumerate(wd):
+        steady = x["ms"][1:] or x["ms"]
+        ms = sum(steady) / len(steady)
+        coll = {k: round(v / tw["steps"], 2)
+                for k, v in x["collectives"].items()}
+        print(f"[train-mesh] (b) rank {r}: {ms:.1f} ms a step (wall, "
+              f"steps 2-{tw['steps']}; first {x['ms'][0]:.1f}), "
+              f"{tw['batch'] * tw['seq'] / (ms / 1e3):.0f} tokens/s, peak "
+              f"{x['peak'] / 2**30:.2f} GiB; host clock inside "
+              f"collectives {x['spent']['all']:.2f}s of the loop's "
+              f"{x['wall_s']:.2f}s (the gradient sums after the backward "
+              f"{x['spent']['grad_sums']:.2f}s); losses "
+              f"{[round(v, 4) for v in x['losses']]} [{card_line}]")
+        print(f"[train-mesh] (b) rank {r}: collectives a step by kind/axes"
+              f"[/backward]: {json.dumps(coll)}")
+        check(all(math.isfinite(v) for v in x["losses"])
+              and x["losses"][-1] < x["losses"][0],
+              f"training on a mesh, rank {r}: losses {x['losses']}")
+        check(x["losses"] == w0["losses"],
+              f"training on a mesh: rank {r}'s losses differ from rank 0's")
+    check(not any(r["kernels_moved"] for r in ranks),
+          "training on a mesh moved a kernel counter")
+    # (c)
+    same, size = _train_mesh_whole_file(torch, work)
+    save_s = ranks[0]["parity"]["save_s"]
+    print(f"[train-mesh] (c) phi3.5 reduced mesh state (params, moments, "
+          f"step; {size / 1e6:.1f} MB) saved through the mesh in "
+          f"{save_s:.2f}s: byte-equal to the single-device file of the "
+          f"same state {same}; restored to every rank's blocks bit for "
+          f"bit {all(r['parity']['restored'] for r in ranks)}; phase 7 "
+          f"ranks {wall:.1f}s")
+    check(same, "the mesh checkpoint differs from the single-device file")
+    check(all(r["parity"]["restored"] for r in ranks),
+          "the mesh checkpoint did not restore to each rank's blocks")
+
+
 def kernels_record(kres, launches):
     out = []
     for name, source, replaces in KERNELS:
@@ -4951,6 +5357,8 @@ def main() -> int:
     free_memory(torch)
     # training launches no kernel (none has a backward): no launches here
     timed("train", phase_train, torch, card_line)
+    free_memory(torch)
+    timed("train_mesh", phase_train_mesh, torch, card_line)
     launches: dict = {}
     for s in serves + [dist] + [frontend[a] for a in FRONT_SERVES]:
         for k, v in s["launches"].items():

@@ -35,11 +35,21 @@ layout with explicit collectives, through the few helpers the layers call:
                      this rank's block of the rows
   seq_sharded(s)     the residual stream of an s-row step is cut along seq
                      over the TP axes (``sp`` on and the TP size divides s)
-  gather_seq / reduce_out / cut_seq
-                     a sub-layer's entry (all_gather along seq), its
-                     row-parallel exit (psum_scatter along seq, or psum),
-                     and the cut of a TP-replicated output to this rank's
-                     seq block (no collective)
+  gather_seq / reduce_out / cut_seq / copy_in
+                     a sub-layer's entry (all_gather along seq, or, with
+                     the stream whole, the identity whose backward psums
+                     the gradient), its row-parallel exit (psum_scatter
+                     along seq, or psum), and the cut of a TP-replicated
+                     output to this rank's seq block (no collective)
+  store_spec / unshard
+                     the mesh axes each dim of a leaf is stored cut over
+                     (with ``fsdp`` the ``embed`` axis over "data" too,
+                     ZeRO-3 style; ``training.tree.store_specs`` gives
+                     every leaf of a state tree its own), and the gather
+                     of a layer's FSDP leaves on use
+  grad_sum_axes      the axes a leaf's gradient is summed over after the
+                     backward (``core.collectives``' convention; the leaf's
+                     declaration says where TP ranks hold shares)
 
 With no mesh the plan is the single-device one (``enabled`` False) and
 every helper is the identity.
@@ -80,6 +90,12 @@ class ShardingPlan:
         if not self.enabled or not axes:
             return 1
         return self.mesh.axis_size(axes)
+
+    @property
+    def fsdp(self) -> bool:
+        """Parameters (and their optimizer moments) stored with the
+        ``embed`` axis cut over "data", gathered on use (training only)."""
+        return self.enabled and self.rules.get("embed") is not None
 
     @property
     def tp(self) -> int:
@@ -169,19 +185,8 @@ class ShardingPlan:
     def local_slices(self, shape: tuple, logical_axes: tuple) -> tuple:
         """This rank's block of a tensor laid out by ``spec``: one slice
         per dim (the reference's ``shard_map`` in_spec cut)."""
-        sl = [slice(None)] * len(shape)
-        for i, m in enumerate(self.spec(logical_axes)):
-            if m is None:
-                continue
-            axes = m if isinstance(m, tuple) else (m,)
-            n = self.mesh.axis_size(axes)
-            if shape[i] % n:
-                raise ValueError(f"dim {i} of {tuple(shape)} ({logical_axes}"
-                                 f") does not split over {axes} ({n} ranks)")
-            blk = shape[i] // n
-            j = self.mesh.axis_index(axes)
-            sl[i] = slice(j * blk, (j + 1) * blk)
-        return tuple(sl)
+        return self.block(shape, _per_dim(self.spec(logical_axes),
+                                          len(shape)))
 
     def shard(self, t, logical_axes: tuple):
         """This rank's block of a whole tensor ``t`` (a view)."""
@@ -240,36 +245,104 @@ class ShardingPlan:
         return (self.rules.get("seq_resid") is not None and self.tp > 1
                 and s % self.tp == 0)
 
+    def _cut_axes(self, cfg) -> set:
+        cut = {"vocab", "ffn", "expert", "expert_ffn"}
+        if self.heads_sharded(cfg):
+            cut |= {"heads", "kv_heads"}
+        if self.fsdp:
+            cut |= {"embed"}
+        return cut
+
+    def store_spec(self, cfg, p) -> tuple:
+        """The mesh axes each dim of leaf ``p`` (a ``models.param.P``) is
+        stored cut over: one entry a dim, None or a tuple of axis names.
+        The axes the port shards (``keep_hook``); with ``fsdp`` also
+        ``embed`` over "data" at the lowest priority, where the dim splits
+        and no other axis of the leaf took "data" (``spec_for_shape``)."""
+        cut = self._cut_axes(cfg)
+        axes = tuple(a if a in cut else None for a in p.axes)
+        spec = self.spec_for_shape(p.shape, axes) if self.fsdp \
+            else self.spec(axes)
+        return _per_dim(spec, len(p.shape))
+
+    def block(self, shape: tuple, spec: tuple) -> tuple:
+        """This rank's slices of a whole tensor of ``shape`` stored by
+        ``spec`` (``store_spec``)."""
+        sl = []
+        for i, m in enumerate(spec):
+            if m is None:
+                sl.append(slice(None))
+                continue
+            n = self.mesh.axis_size(m)
+            if shape[i] % n:
+                raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                                 f"over {m} ({n} ranks)")
+            blk, j = shape[i] // n, self.mesh.axis_index(m)
+            sl.append(slice(j * blk, (j + 1) * blk))
+        return tuple(sl)
+
     def keep_hook(self, cfg):
         """The ``models.param.init_tree`` keep-hook: each rank keeps its
         block of the axes the port shards (``vocab``, ``ffn``, ``expert``,
         ``expert_ffn``, and ``heads`` / ``kv_heads`` when
-        ``heads_sharded``); every other axis stays whole on every rank.
-        None with no mesh."""
+        ``heads_sharded``; with ``fsdp`` also ``embed``: ``store_spec``);
+        every other axis stays whole on every rank.  None with no mesh."""
         if not self.enabled:
             return None
-        cut = {"vocab", "ffn", "expert", "expert_ffn"}
-        if self.heads_sharded(cfg):
-            cut |= {"heads", "kv_heads"}
 
         def keep(path, p):
-            axes = tuple(a if a in cut else None for a in p.axes)
-            if all(self.rules.get(a) is None for a in axes if a):
+            spec = self.store_spec(cfg, p)
+            if all(m is None for m in spec):
                 return None
-            return self.local_slices(p.shape, axes)
+            return self.block(p.shape, spec)
         return keep
 
-    def gather_seq(self, x, seq_sharded: bool):
-        """Whole rows of a residual-layout ``x``: with the stream cut,
-        (b, s/tp, ...) -> (b, s, ...) by an all_gather over the TP axes."""
-        if not seq_sharded:
-            return x
-        return C.all_gather(x, self.mesh, self.tp_axes, axis=1)
+    def unshard(self, cfg, p, spec):
+        """Layer weights ``p`` with each FSDP-cut leaf gathered whole along
+        its ``embed`` dim over the data axes (``spec``: the matching tree
+        of ``models.param.P``).  The backward reduce-scatters each
+        gathered leaf's gradient: the data ranks' sum of their rows'
+        shares.  Without ``fsdp``, ``p`` itself."""
+        if not self.fsdp:
+            return p
+        if isinstance(spec, dict):
+            return {k: self.unshard(cfg, v, spec[k]) for k, v in p.items()}
+        if isinstance(spec, list):
+            return [self.unshard(cfg, v, sp) for v, sp in zip(p, spec)]
+        for i, (a, m) in enumerate(zip(spec.axes,
+                                       self.store_spec(cfg, spec))):
+            if a == "embed" and m is not None:
+                return C.all_gather(p, self.mesh, m, axis=i)
+        return p
+
+    def gather_seq(self, x, seq_sharded: bool, *, parallel: bool = True):
+        """A sub-layer's entry: whole rows of a residual-layout ``x``.
+        With the stream cut, (b, s/tp, ...) -> (b, s, ...) by an
+        all_gather over the TP axes.  ``parallel``: the sub-layer's
+        products are TP-parallel (column-parallel after the entry), so
+        each rank's gradient of the gathered rows is a share: the
+        all_gather's backward reduce-scatters it, and with the stream
+        whole the entry is ``copy_in``.  Otherwise (replicated heads) every
+        rank's gradient is whole: the gather's backward takes its block
+        and a whole stream needs nothing."""
+        if seq_sharded:
+            return C.all_gather(x, self.mesh, self.tp_axes, axis=1,
+                                grad="sum" if parallel else "whole")
+        return self.copy_in(x) if parallel else x
+
+    def copy_in(self, x):
+        """``x``, whole on every TP rank, entering TP-parallel products:
+        the identity, whose backward psums the gradient over the TP axes
+        (``collectives.copy_in``)."""
+        if self.tp > 1:
+            return C.copy_in(x, self.mesh, self.tp_axes)
+        return x
 
     def reduce_out(self, y, seq_sharded: bool):
         """A row-parallel output, (b, s, h) partial over the TP axes, into
         the residual layout: the sum cut along seq (psum_scatter) when the
-        stream is cut, else the whole sum (psum)."""
+        stream is cut, else the whole sum (psum, whose gradient every
+        rank holds whole)."""
         if seq_sharded:
             return C.psum_scatter(y, self.mesh, self.tp_axes,
                                   scatter_dimension=1)
@@ -277,17 +350,51 @@ class ShardingPlan:
             return C.psum(y, self.mesh, self.tp_axes)
         return y
 
-    def cut_seq(self, y, seq_sharded: bool):
+    def cut_seq(self, y, seq_sharded: bool, *, grad: str = "whole"):
         """A (b, s, ...) output replicated over the TP axes into the
-        residual layout: this rank's seq block, no collective."""
+        residual layout: this rank's seq block, no collective.  Its
+        backward (``grad="whole"``) all_gathers the blocks' gradients, so
+        ``y``'s is whole on every rank; ``grad="sum"`` leaves each rank
+        its block's share (zero elsewhere), for a ``y`` whose gradient is
+        held in shares."""
         if not seq_sharded:
             return y
+        if grad == "whole":
+            return C.scatter(y, self.mesh, self.tp_axes, axis=1)
         n = y.shape[1] // self.tp
         j = C.axis_index(self.mesh, self.tp_axes)
         return y[:, j * n:(j + 1) * n]
 
+    def grad_sum_axes(self, cfg, p, spec: tuple, seq_sharded: bool) \
+            -> tuple:
+        """The mesh axes the gradient of a leaf declared by ``p`` (a
+        ``models.param.P``) is psummed over after the backward
+        (``core.collectives``' convention): the batch axes it is not
+        stored cut over (its rows' shares; an FSDP leaf's data axes are
+        summed by its gather's reduce-scatter), and the TP axes where each
+        TP rank holds only a share of its gradient (``p.tp_share``).
+        ``spec``: its ``store_spec``."""
+        if not self.enabled:
+            return ()
+        cut = {a for m in spec if m is not None for a in m}
+        axes = [a for a in self.dp_axes if a not in cut]
+        share = p.tp_share == "tp" \
+            or (p.tp_share == "heads" and self.heads_sharded(cfg)) \
+            or (p.tp_share == "seq" and seq_sharded)
+        if self.tp > 1 and share:
+            axes += [a for a in self.tp_axes if a not in cut]
+        return tuple(a for a in self.mesh.axis_names if a in axes)
+
 
 NULL_PLAN = ShardingPlan()
+
+
+def _per_dim(spec: tuple, ndim: int) -> tuple:
+    """A spec (trailing Nones dropped, single axes bare) as one entry a
+    dim: None or a tuple of mesh axis names."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    return tuple(m if m is None or isinstance(m, tuple) else (m,)
+                 for m in spec)
 
 
 def rwkv_heads(cfg) -> int:
@@ -297,13 +404,16 @@ def rwkv_heads(cfg) -> int:
 
 def make_plan(strategy: str | Strategy, mesh=None, comm_algo: str = "fused",
               *, kernels: Optional[KernelPolicy] = None,
-              sp: bool = True, dispatch: str = "auto",
+              fsdp: bool = False, sp: bool = True, dispatch: str = "auto",
               ep_overlap: Optional[EpOverlap] = None) -> ShardingPlan:
     """The plan for a layout name (or an analyzer ``Strategy``) on
     ``mesh``.  With no mesh every layout is the single-device plan.
     ``kernels=None`` leaves every kernel off.  ``sp=False`` turns off the
     Megatron-SP cut of the residual stream (``seq_resid`` -> None), as the
-    reference's switch does."""
+    reference's switch does.  ``fsdp=True`` (training): parameters and
+    their optimizer moments store the ``embed`` axis cut over "data",
+    ZeRO-3 style, at the lowest priority (an expert axis on the same leaf
+    keeps "data"), gathered on use (``unshard``)."""
     kernels = kernels if kernels is not None else NULL_POLICY
     if isinstance(strategy, Strategy):
         # analyzer output: moe_tp > 1 selects the hybrid layout
@@ -318,7 +428,8 @@ def make_plan(strategy: str | Strategy, mesh=None, comm_algo: str = "fused",
     data, model = ("data",), ("model",)
     common = {"vocab": model, "heads": model, "ffn": model,
               "batch": pod + data, "kv_heads": model, "qk": model,
-              "embed": None, "head_dim": model, "kv_head_dim": model,
+              "embed": data if fsdp else None, "head_dim": model,
+              "kv_head_dim": model,
               "seq": None, "layers": None, "kv_seq": model,
               "seq_resid": model if sp else None}
     if strategy == "mixserve":

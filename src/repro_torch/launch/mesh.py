@@ -14,6 +14,7 @@ the rank JAX would call ``i``.
 
     init_ranks(rank, world, init_method)        # every process
     mesh = make_host_mesh(data=2, model=2)      # (data=2, model=2)
+    mesh = make_production_mesh()               # (data=16, model=16)
 
 ``init_method`` is a ``file://`` path or ``tcp://localhost:<port>`` on a
 free port (never a fixed one: several runs may share the host).
@@ -32,32 +33,58 @@ import torch.distributed as dist
 PG_TIMEOUT_S = 600.0
 
 
-def pick_backend(world: int, device: str = "cuda") -> str:
-    """NCCL when every rank has a card of its own, gloo otherwise (the
-    CPU, or several ranks sharing one card: NCCL refuses two ranks on one
-    GPU)."""
+def pick_backend(local_world: int, device: str = "cuda") -> str:
+    """NCCL when each of the host's ``local_world`` ranks has a card of
+    its own, gloo otherwise (the CPU, or several ranks sharing one card:
+    NCCL refuses two ranks on one GPU)."""
     if torch.device(device).type == "cuda" \
-            and torch.cuda.device_count() >= world:
+            and torch.cuda.device_count() >= local_world:
         return "nccl"
     return "gloo"
 
 
-def rank_device(rank: int, device: str = "cuda") -> torch.device:
-    """The device rank ``rank`` computes on: ``cuda:(rank mod cards)`` for
-    CUDA (every rank on ``cuda:0`` when there is one card), else the CPU."""
+def rank_device(local_rank: int, device: str = "cuda") -> torch.device:
+    """The device the host's rank ``local_rank`` computes on:
+    ``cuda:(local_rank mod cards)`` for CUDA (every rank on ``cuda:0``
+    when there is one card), else the CPU."""
     if torch.device(device).type != "cuda":
         return torch.device("cpu")
-    return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def rank_layout(rank: int, world: int, device: str = "cuda", *,
+                local_rank: Optional[int] = None,
+                local_world: Optional[int] = None) -> tuple:
+    """(backend, device) of rank ``rank`` of ``world``: by its place on
+    its host (``local_rank`` of ``local_world``, as ``torchrun`` sets
+    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``; one host by default)."""
+    local_rank = rank if local_rank is None else local_rank
+    local_world = world if local_world is None else local_world
+    return (pick_backend(local_world, device),
+            rank_device(local_rank, device))
+
+
+def torchrun_ranks(env) -> dict:
+    """``init_ranks``' rank arguments from the environment ``torchrun``
+    gives each process: ``RANK`` of ``WORLD_SIZE``, and ``LOCAL_RANK`` of
+    ``LOCAL_WORLD_SIZE`` on its host where set."""
+    out = {"rank": int(env["RANK"]), "world": int(env["WORLD_SIZE"])}
+    for key, name in (("local_rank", "LOCAL_RANK"),
+                      ("local_world", "LOCAL_WORLD_SIZE")):
+        if name in env:
+            out[key] = int(env[name])
+    return out
 
 
 def init_ranks(rank: int, world: int, init_method: str, *,
-               device: str = "cuda") -> str:
+               device: str = "cuda", local_rank: Optional[int] = None,
+               local_world: Optional[int] = None) -> str:
     """Join the process group as ``rank`` of ``world``; returns the
-    backend (``pick_backend``).  On CUDA it also makes
-    ``rank_device(rank)`` current.  A collective that waits longer than
+    backend.  On CUDA it also makes the rank's device current
+    (``rank_layout``).  A collective that waits longer than
     ``PG_TIMEOUT_S`` fails."""
-    backend = pick_backend(world, device)
-    dev = rank_device(rank, device)
+    backend, dev = rank_layout(rank, world, device, local_rank=local_rank,
+                               local_world=local_world)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(
@@ -165,6 +192,22 @@ class Mesh:
         return self._groups[axes]
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh over the initialised process group
+    (``torchrun`` starts one process a rank): (data=16, model=16) on 256
+    ranks, or (pod=2, data=16, model=16) on 512.  Any other world size
+    raises ``ValueError`` naming the one it needs."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != need:
+        raise ValueError(
+            f"the {'multi' if multi_pod else 'single'}-pod mesh {shape} "
+            f"needs a world of {need} ranks; this one has {world}")
+    return Mesh(names, shape, dist.get_rank(), connect=True)
+
+
 def make_host_mesh(data: int = 2, model: int = 2, pod: int = 0) -> Mesh:
     """The mesh ``(data, model)``, or ``(pod, data, model)`` when ``pod``,
     over the initialised process group; this process is its rank."""
@@ -175,5 +218,5 @@ def make_host_mesh(data: int = 2, model: int = 2, pod: int = 0) -> Mesh:
                 connect=True)
 
 
-__all__ = ["Mesh", "make_host_mesh", "init_ranks", "pick_backend",
-           "rank_device"]
+__all__ = ["Mesh", "make_host_mesh", "make_production_mesh", "init_ranks",
+           "pick_backend", "rank_device", "rank_layout", "torchrun_ranks"]

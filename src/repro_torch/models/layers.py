@@ -391,7 +391,7 @@ def gqa_spec(cfg: ModelConfig) -> dict:
         "wk": P((h, nkv, hd), ("embed", "kv_heads", "kv_head_dim")),
         "wv": P((h, nkv, hd), ("embed", "kv_heads", "kv_head_dim")),
         "wo": P((nq, hd, h), ("heads", "head_dim", "embed")),
-        "norm": P((h,), ("embed",), init="zeros"),
+        "norm": P((h,), ("embed",), init="zeros", tp_share="seq"),
     }
 
 
@@ -456,7 +456,8 @@ def gqa_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     if paged and q_lens is None:
         raise NotImplementedError(
             "paged KV cache requires the unified mixed step (q_lens)")
-    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded,
+                         parallel=plan.heads_sharded(cfg))
     b, s, h = xn.shape
     q = _proj_heads(xn, p["wq"])
     k = _proj_heads(xn, p["wk"])
@@ -527,16 +528,16 @@ def mla_spec(cfg: ModelConfig) -> dict:
     r, qr, rd, vd = (cfg.kv_lora_rank, cfg.q_lora_rank or cfg.d_model,
                      cfg.rope_head_dim, cfg.v_head_dim)
     return {
-        "w_dq": P((h, qr), ("embed", "qk")),
-        "q_norm": P((qr,), ("qk",), init="zeros"),
+        "w_dq": P((h, qr), ("embed", "qk"), tp_share="heads"),
+        "q_norm": P((qr,), ("qk",), init="zeros", tp_share="heads"),
         "w_uq": P((qr, nh, hd + rd), ("qk", "heads", "head_dim")),
-        "w_dkv": P((h, r), ("embed", "qk")),
-        "kv_norm": P((r,), ("qk",), init="zeros"),
-        "w_kr": P((h, rd), ("embed", None)),
+        "w_dkv": P((h, r), ("embed", "qk"), tp_share="heads"),
+        "kv_norm": P((r,), ("qk",), init="zeros", tp_share="heads"),
+        "w_kr": P((h, rd), ("embed", None), tp_share="heads"),
         "w_uk": P((r, nh, hd), ("qk", "heads", "head_dim")),
         "w_uv": P((r, nh, vd), ("qk", "heads", "head_dim")),
         "wo": P((nh, vd, h), ("heads", "head_dim", "embed")),
-        "norm": P((h,), ("embed",), init="zeros"),
+        "norm": P((h,), ("embed",), init="zeros", tp_share="seq"),
     }
 
 
@@ -586,7 +587,8 @@ def mla_attention(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     if paged and q_lens is None:
         raise NotImplementedError(
             "paged KV cache requires the unified mixed step (q_lens)")
-    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded,
+                         parallel=plan.heads_sharded(cfg))
     b, s, h = xn.shape
     nh, hd, rd = p["w_uk"].shape[1], cfg.head_dim, cfg.rope_head_dim
     if absorb is None:
@@ -658,7 +660,7 @@ def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     spec = {
         "w_in": P((h, f), ("embed", "ffn")),
         "w_out": P((f, h), ("ffn", "embed")),
-        "norm": P((h,), ("embed",), init="zeros"),
+        "norm": P((h,), ("embed",), init="zeros", tp_share="seq"),
     }
     if gated:
         spec["w_gate"] = P((h, f), ("embed", "ffn"))

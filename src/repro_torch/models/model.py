@@ -45,7 +45,10 @@ runs every layer on its rows, its heads and its ``d_ff`` / expert /
 recurrent-channel slices, carries the residual stream cut along seq when
 ``plan.seq_sharded``, and gathers the logits of its vocab block and batch
 rows back, so every rank returns the whole logits.  A dense cache
-(``init_cache(plan=)``) holds this rank's rows and heads.
+(``init_cache(plan=)``) holds this rank's rows and heads.  Under autograd
+the collectives' backwards follow ``core.collectives``' rule, and with
+``plan.fsdp`` each layer gathers its FSDP-cut weights on use, inside what
+``remat`` recomputes.
 """
 
 from __future__ import annotations
@@ -126,7 +129,7 @@ def xattn_spec(cfg: ModelConfig) -> dict:
         "wk": P((h, nq, hd), ("embed", "heads", "head_dim")),
         "wv": P((h, nq, hd), ("embed", "heads", "head_dim")),
         "wo": P((nq, hd, h), ("heads", "head_dim", "embed")),
-        "norm": P((h,), ("embed",), init="zeros"),
+        "norm": P((h,), ("embed",), init="zeros", tp_share="seq"),
     }
 
 
@@ -180,7 +183,7 @@ def model_spec(cfg: ModelConfig) -> dict:
     h, v = cfg.d_model, cfg.padded_vocab
     spec: dict[str, Any] = {
         "embed": P((v, h), ("vocab", "embed"), scale=0.02),
-        "final_norm": P((h,), ("embed",), init="zeros"),
+        "final_norm": P((h,), ("embed",), init="zeros", tp_share="seq"),
         "groups": [group_spec(cfg, g) for g in layer_plan(cfg)],
     }
     if not cfg.tie_embeddings:
@@ -355,7 +358,7 @@ def _local_attn(p, x, cfg: ModelConfig, c, length,
     heads, when they split)."""
     W = c["k"].shape[1] if c is not None else cfg.window_size
     xn = plan.gather_seq(L.rms_norm(x, p["norm"], cfg.norm_eps),
-                         seq_sharded)
+                         seq_sharded, parallel=plan.heads_sharded(cfg))
     b, s, h = xn.shape
     q = L._proj_heads(xn, p["wq"])
     k = L._proj_heads(xn, p["wk"])
@@ -441,7 +444,7 @@ def _cross_attn(p, x, cfg: ModelConfig, xk, xv,
     reference routes it to no kernel).  On a mesh: this rank's rows and
     heads."""
     xn = plan.gather_seq(L.rms_norm(x, p["norm"], cfg.norm_eps),
-                         seq_sharded)
+                         seq_sharded, parallel=plan.heads_sharded(cfg))
     out = L.chunked_attention(L._proj_heads(xn, p["wq"]), xk, xv,
                               causal=False)
     return L._attn_out(plan, cfg, L._heads_out(out, p["wo"]), seq_sharded)
@@ -460,6 +463,8 @@ def _apply_xattn(p, x, c, cfg: ModelConfig, enc_out,
         if enc_out is None:
             raise ValueError("whisper's stateless forward needs frames "
                              "(forward(frames=...))")
+        if plan.heads_sharded(cfg):     # column-parallel on enc_out
+            enc_out = plan.copy_in(enc_out)
         xk = L._proj_heads(enc_out, p["wk"])
         xv = L._proj_heads(enc_out, p["wv"])
         if c is not None:
@@ -471,7 +476,7 @@ def _apply_xattn(p, x, c, cfg: ModelConfig, enc_out,
 def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
                    plan: ShardingPlan, positions, length, q_lens,
                    block_tables, with_stats: bool = False,
-                   seq_sharded: bool = False, enc_out=None):
+                   seq_sharded: bool = False, enc_out=None, spec=None):
     """One residual layer.  ``c`` holds this layer's cache buffers (K/V,
     or MLA's latent c/kr; pools when ``block_tables`` is given; a
     recurrent kind's state, the local attention's ring; whisper's
@@ -481,7 +486,10 @@ def apply_sublayer(kind: str, p, x, c, *, cfg: ModelConfig,
     the per-expert routed-slot vector (zeros for non-MoE layers) when
     ``with_stats``, else None.  The recurrent kinds advance their state by
     every row, so they cannot mask a ragged tail: the unified step
-    (``q_lens``) refuses them, as in the reference."""
+    (``q_lens``) refuses them, as in the reference.  With ``plan.fsdp``
+    the layer first gathers its FSDP-cut weights (``spec``: their
+    ``models.param.P`` tree; ``ShardingPlan.unshard``)."""
+    p = plan.unshard(cfg, p, spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     counts = torch.zeros(max(cfg.n_experts, 1), dtype=torch.int32,
                          device=x.device) if with_stats else None
@@ -560,10 +568,14 @@ def lm_head(x, head, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN):
     v0 = _vocab_start(plan, head.shape[1])
     if cfg.padded_vocab != cfg.vocab_size:   # mask padding columns
         logits[..., max(0, cfg.vocab_size - v0):] = L.NEG_INF
+    # every rank computes the loss on the whole logits: its gradient of
+    # them is whole, and each block's is its own
     if plan.tp > 1:
-        logits = C.all_gather(logits, plan.mesh, plan.tp_axes, axis=-1)
+        logits = C.all_gather(logits, plan.mesh, plan.tp_axes, axis=-1,
+                              grad="whole")
     if plan.dp > 1:
-        logits = C.all_gather(logits, plan.mesh, plan.dp_axes, axis=0)
+        logits = C.all_gather(logits, plan.mesh, plan.dp_axes, axis=0,
+                              grad="whole")
     return logits
 
 
@@ -583,14 +595,18 @@ def encode_audio(params, frames, cfg: ModelConfig,
     and its ``d_ff`` block, each row-parallel product summed over TP; the
     residual stays whole along the frames."""
     p_enc = params["enc"]
+    if plan.fsdp:
+        p_enc = plan.unshard(cfg, p_enc, model_spec(cfg)["enc"])
     x = frames + p_enc["pos"][None]
     for p in p_enc["layers"]:
         xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
+        if plan.heads_sharded(cfg):        # column-parallel heads
+            xn = plan.copy_in(xn)
         a = L.chunked_attention(L._proj_heads(xn, p["wq"]),
                                 L._proj_heads(xn, p["wk"]),
                                 L._proj_heads(xn, p["wv"]), causal=False)
         x = x + L._attn_out(plan, cfg, L._heads_out(a, p["wo"]), False)
-        xn = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        xn = plan.copy_in(L.rms_norm(x, p["mlp_norm"], cfg.norm_eps))
         up = F.gelu(torch.matmul(*L._promoted(xn, p["mlp_in"])),
                     approximate="tanh")
         x = x + plan.reduce_out(torch.matmul(*L._promoted(up,
@@ -700,6 +716,11 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
         plan, tokens, embeds, frames, length, q_lens, logit_rows)
     if positions is not None and positions.shape[0] == b_all:
         positions = L._local_rows(plan, positions)[0]   # else (1, ...)
+    specs = model_spec(cfg) if plan.fsdp else None
+    if specs is not None:      # the FSDP-cut leaves outside the layers
+        top = [k for k in ("embed", "final_norm", "lm_head") if k in params]
+        params = dict(params, **plan.unshard(
+            cfg, {k: params[k] for k in top}, {k: specs[k] for k in top}))
     x = _embed_input(params, cfg, plan, tokens, embeds)
     b, s = x.shape[:2]
     seq_sharded = plan.seq_sharded(s)
@@ -723,11 +744,15 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                 b_k = bufs if key is None or bufs is None else bufs[key]
                 c_l = None if b_k is None else {n: t[li]
                                                 for n, t in b_k.items()}
+                spec = None
+                if specs is not None:
+                    spec = specs["groups"][gi][li]
+                    spec = spec if key is None else spec[key]
                 layer = functools.partial(
                     apply_sublayer, kind, p_k, cfg=cfg, plan=plan,
                     positions=positions, length=length, q_lens=q_lens,
                     block_tables=block_tables, with_stats=expert_stats,
-                    seq_sharded=seq_sharded, enc_out=enc_out)
+                    seq_sharded=seq_sharded, enc_out=enc_out, spec=spec)
                 if remat and cache is None:
                     # the forward draws no random numbers: no RNG state
                     x, a, cnt = torch.utils.checkpoint.checkpoint(
@@ -739,13 +764,17 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                 if expert_stats:
                     counts_total = counts_total + cnt
 
-    x = plan.gather_seq(x, seq_sharded)
+    # the LM head's entry: with the stream cut the gather's backward sums
+    # the ranks' shares of the gradient, else copy_in after the norm
+    x = plan.gather_seq(x, seq_sharded, parallel=seq_sharded)
     if last_only and rows_loc is not None:   # the rows asked for
         x = x[torch.arange(b, device=x.device)[:, None], rows_loc.long()]
     elif last_only:   # per-slot last valid row; norm/head are per-token ops
         rows = (q_loc.long() - 1).clamp_min(0)
         x = x[torch.arange(b, device=x.device), rows][:, None]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if not seq_sharded:
+        x = plan.copy_in(x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = lm_head(x, head, cfg, plan)
     if cache is not None:

@@ -69,8 +69,8 @@ def moe_spec(cfg: ModelConfig) -> dict:
     h, e, de = cfg.d_model, cfg.n_experts, cfg.d_expert
     gated = cfg.activation in ("swiglu", "geglu")
     spec = {
-        "norm": P((h,), ("embed",), init="zeros"),
-        "router": P((h, e), ("embed", None), scale=0.02),
+        "norm": P((h,), ("embed",), init="zeros", tp_share="tp"),
+        "router": P((h, e), ("embed", None), scale=0.02, tp_share="tp"),
         "w_in": P((e, h, de), ("expert", "embed", "expert_ffn")),
         "w_out": P((e, de, h), ("expert", "expert_ffn", "embed")),
     }
@@ -455,7 +455,7 @@ def _shared_epilogue(out_tok, p, tok_full, tok, cfg, mesh, tp_axes, tp,
             sp = shared_expert_ffn(p, tok, cfg)
             out_tok = out_tok + C.psum_scatter(sp, mesh, tp_axes,
                                                scatter_dimension=1)
-        return C.all_gather(out_tok, mesh, tp_axes, axis=-1)
+        return C.all_gather(out_tok, mesh, tp_axes, axis=-1, grad="whole")
     if cfg.n_shared_experts:
         sp = shared_expert_ffn(p, tok_full if token_sliced else tok, cfg)
         if tp > 1:             # shared FFN weights are TP-sharded partials
@@ -481,10 +481,15 @@ def _moe_shard_fn(p, x, *, cfg: ModelConfig, mesh, tp_axes, ep_axes,
     t_real, t = x.shape[0] * x.shape[1], tok.shape[0]
     idx, w, aux = route_topk(tok @ p["router"], cfg.top_k,
                              use_kernel=policy.topk_gate)
-    cap = capacity_for(t, cfg.top_k, e_global, cfg.capacity_factor)
-    d = make_dispatch(idx, w, e_global, cap)
     fused = comm_algo in ("fused", "sync") and tp > 1 and ep > 1 \
         and not token_sliced
+    if tp > 1 and not fused and not token_sliced:
+        # the combine below runs on the whole width: every TP rank's
+        # gradient of w is whole, but the router's inputs hold theirs in
+        # shares (core.collectives)
+        w = C.share(w, mesh, tp_axes)
+    cap = capacity_for(t, cfg.top_k, e_global, cfg.capacity_factor)
+    d = make_dispatch(idx, w, e_global, cap)
 
     # ---- dispatch: fused scatters only this rank's 1/tp hidden shard, so
     # the A2A moves 1/tp of the volume and an AG restores full width ----
@@ -519,7 +524,8 @@ def _moe_shard_fn(p, x, *, cfg: ModelConfig, mesh, tp_axes, ep_axes,
     out_tok = gather_from_buffers(out_buf, d, t,
                                   use_kernel=policy.fused_permute)
     if token_sliced and tp > 1:     # undo the token slice, drop its pad
-        out_tok = C.all_gather(out_tok, mesh, tp_axes, axis=0)[:t_real]
+        out_tok = C.all_gather(out_tok, mesh, tp_axes, axis=0,
+                               grad="whole")[:t_real]
     out_tok = _shared_epilogue(out_tok, p, tok_full, tok, cfg, mesh,
                                tp_axes, tp, token_sliced, fused)
     return _finish(out_tok, x, aux, idx, cfg=cfg, mesh=mesh,
@@ -755,6 +761,11 @@ def moe_rank(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
               comm_algo="unfused" if token_sliced else plan.comm_algo,
               token_sliced=token_sliced, mesh_axes=mesh.axis_names,
               policy=plan.kernels, with_stats=with_stats)
+    if mode == "dropless" and torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "the dropless MoE on a mesh has no backward (its EP exchange is "
+            "issued asynchronously; ROADMAP A9c): train with "
+            "dispatch 'capacity' or 'auto'")
     x_loc = plan.gather_seq(x, seq_sharded).contiguous()
     if mode == "dropless":
         r = _moe_shard_dropless_fn(p, x_loc, ep_overlap=plan.ep_overlap,

@@ -24,10 +24,18 @@ class P:
     axes: tuple  # logical axis names (or None), len == len(shape)
     init: str = "normal"     # normal | zeros | ones
     scale: Optional[float] = None  # stddev; default 1/sqrt(fan_in)
+    # on a mesh, when each TP rank's gradient of this leaf (replicated over
+    # the TP axes) is only a share, to be summed after the backward:
+    # "tp" always, "heads" when the heads split over TP (the leaf feeds
+    # head-split products), "seq" when the residual stream is cut along
+    # seq (the leaf is applied to the rank's seq block)
+    tp_share: Optional[str] = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+        if self.tp_share not in (None, "tp", "heads", "seq"):
+            raise ValueError(f"tp_share {self.tp_share!r}")
 
 
 def _init_one(gen: torch.Generator, p: P, dtype, device):

@@ -57,17 +57,19 @@ def rwkv6_spec(cfg: ModelConfig) -> dict:
     hd = h // nh
     lora = 64                       # decay LoRA rank (w_lora in Finch)
     return {
-        "norm": P((h,), ("embed",), init="zeros"),
-        "mu": P((5, h), (None, "embed"), init="zeros"),     # r,k,v,w,g mixes
+        "norm": P((h,), ("embed",), init="zeros", tp_share="seq"),
+        "mu": P((5, h), (None, "embed"), init="zeros",      # r,k,v,w,g mixes
+                tp_share="heads"),
         "wr": P((h, nh, hd), ("embed", "heads", None)),
         "wk": P((h, nh, hd), ("embed", "heads", None)),
         "wv": P((h, nh, hd), ("embed", "heads", None)),
         "wg": P((h, nh, hd), ("embed", "heads", None)),
         "w0": P((nh, hd), ("heads", None), init="zeros"),   # decay bias
-        "w_lora_a": P((h, lora), ("embed", None)),
+        "w_lora_a": P((h, lora), ("embed", None), tp_share="heads"),
         "w_lora_b": P((lora, nh, hd), (None, "heads", None)),
         "bonus": P((nh, hd), ("heads", None), init="zeros"),  # first-token u
-        "ln_x": P((h,), ("embed",), init="zeros"),          # output norm
+        "ln_x": P((h,), ("embed",), init="zeros",           # output norm
+                  tp_share="heads"),
         "wo": P((nh, hd, h), ("heads", None, "embed")),
     }
 
@@ -111,7 +113,9 @@ def _ln_x(out, w, cfg: ModelConfig, plan: ShardingPlan, heads_cut: bool):
     if not heads_cut:
         return rms_norm(out, w, cfg.norm_eps)
     xf = out.float()
-    ss = C.psum(xf.square().sum(-1, keepdim=True), plan.mesh, plan.tp_axes)
+    # each rank's gradient of the sum is its heads' share
+    ss = C.psum(xf.square().sum(-1, keepdim=True), plan.mesh, plan.tp_axes,
+                grad="sum")
     var = ss / cfg.d_model
     w_loc = w[_channel_block(plan, w.shape[0])]
     return ((xf * torch.rsqrt(var + cfg.norm_eps))
@@ -129,7 +133,8 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN,
     seq block when ``seq_sharded``, x_last whole."""
     heads_cut = plan.heads_sharded(cfg)
     nh = p["w0"].shape[0]
-    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded,
+                         parallel=heads_cut)
     b, s, h = xn.shape
     hd = h // rwkv_heads(cfg)
     shifted = _token_shift(xn, x_prev)
@@ -168,11 +173,11 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN,
 def rwkv6_channel_mix_spec(cfg: ModelConfig) -> dict:
     h, f = cfg.d_model, cfg.d_ff
     return {
-        "norm": P((h,), ("embed",), init="zeros"),
-        "mu": P((2, h), (None, "embed"), init="zeros"),
+        "norm": P((h,), ("embed",), init="zeros", tp_share="seq"),
+        "mu": P((2, h), (None, "embed"), init="zeros", tp_share="seq"),
         "wk": P((h, f), ("embed", "ffn")),
         "wv": P((f, h), ("ffn", "embed")),
-        "wr": P((h, h), ("embed", None)),
+        "wr": P((h, h), ("embed", None), tp_share="seq"),
     }
 
 
@@ -182,13 +187,20 @@ def rwkv6_channel_mix(p, x, cfg: ModelConfig,
                       seq_sharded: bool = False):
     """RWKV6 channel-mix.  x (b, s, h).  Returns (out, x_last).  On a mesh
     ``wk`` / ``wv`` are this rank's ``ffn`` block (column- then
-    row-parallel): ``k @ wv`` is reduced before the receptance gate."""
-    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded)
+    row-parallel): ``k @ wv`` is reduced before the receptance gate.
+    The receptance runs on the rank's rows whole (its seq block when the
+    stream is cut), so only ``xk`` enters the TP-parallel products: with
+    the stream whole it alone passes ``copy_in``."""
+    xn = plan.gather_seq(rms_norm(x, p["norm"], cfg.norm_eps), seq_sharded,
+                         parallel=seq_sharded)
     shifted = _token_shift(xn, x_prev)
     xk, xr = xn[None] + p["mu"][:, None, None, :] * (shifted - xn)[None]
+    if not seq_sharded:
+        xk = plan.copy_in(xk)
     k = torch.relu(xk @ p["wk"]).square()
     kv = plan.reduce_out(k @ p["wv"], seq_sharded)
-    out = torch.sigmoid(plan.cut_seq(xr, seq_sharded) @ p["wr"]) * kv
+    out = torch.sigmoid(plan.cut_seq(xr, seq_sharded, grad="sum")
+                        @ p["wr"]) * kv
     return out, xn[:, -1:]
 
 
@@ -201,7 +213,7 @@ def rglru_spec(cfg: ModelConfig) -> dict:
     w = cfg.lru_width
     cw = cfg.conv1d_width
     return {
-        "norm": P((h,), ("embed",), init="zeros"),
+        "norm": P((h,), ("embed",), init="zeros", tp_share="seq"),
         "w_x": P((h, w), ("embed", "ffn")),       # input branch
         "w_gate_branch": P((h, w), ("embed", "ffn")),
         "conv_w": P((cw, w), (None, "ffn"), init="zeros"),

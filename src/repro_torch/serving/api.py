@@ -154,7 +154,7 @@ class ServeSpec:
     # ------------------------------------------------------------------
     def resolve(self, cfg: Optional[ModelConfig] = None,
                 cluster: Union[str, ClusterSpec, None] = None, *,
-                mesh=None, device="cuda",
+                mesh=None, device="cuda", fsdp: bool = False,
                 sp: bool = True) -> "ResolvedServeSpec":
         """Fill every ``"auto"`` field from the analyzer / cost model.
 
@@ -168,6 +168,8 @@ class ServeSpec:
         the Hopper kernels on exactly when it is CUDA.
         ``sp=False`` keeps the residual stream whole on every TP rank (no
         Megatron-SP cut along seq; ``partitioner.make_plan``).
+        ``fsdp=True`` (training only) stores the weights' ``embed`` axis
+        cut over "data", gathered on use (``partitioner.make_plan``).
         Deterministic: same inputs, same resolved spec.
         """
         import torch
@@ -328,7 +330,7 @@ class ServeSpec:
             cfg, cost_strat, cluster_spec, batch=max_batch, l_in=l_in,
             l_out=l_out, value=self.ep_overlap)
 
-        plan = make_plan(name, mesh, comm_algo=comm_algo, sp=sp,
+        plan = make_plan(name, mesh, comm_algo=comm_algo, fsdp=fsdp, sp=sp,
                          kernels=kernels, dispatch=dispatch,
                          ep_overlap=ep_ovl)
 

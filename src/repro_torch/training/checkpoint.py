@@ -8,6 +8,12 @@ writes one, its raw 2-byte words under the descr ``<V2``, and restored by
 viewing those words as bfloat16 (the reference's own ``restore`` cannot
 cast them back).  ``restore`` rebuilds the structure of ``like``, checks
 every shape and casts to ``like``'s dtypes on ``like``'s devices.
+
+On a mesh (``plan=``, ``cfg=``) each rank holds its blocks of the
+parameters and their moments (``training.tree.store_specs``): ``save``
+gathers every leaf whole, one at a time, and rank 0 alone writes the file
+the single-device state gives, byte for byte; ``restore`` gives each rank
+its block of every leaf.
 """
 
 from __future__ import annotations
@@ -18,8 +24,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.training.tree import flatten_with_paths, tree_map
+from repro_torch.core import collectives as C
+from repro_torch.training.tree import flatten_with_paths, store_specs, tree_map
 
 
 def _key(path: tuple) -> str:
@@ -38,15 +46,42 @@ def _write_member(fid, t: torch.Tensor) -> None:
         np.lib.format.write_array(fid, t.numpy())
 
 
-def save(path: str, tree: Any) -> None:
-    """Write ``tree`` to ``path`` through ``<path>.tmp`` and a rename."""
+def _whole(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf of this rank's block ``t`` stored by ``spec``: one
+    all_gather along each cut dim."""
+    for i, m in enumerate(spec or ()):
+        if m is not None:
+            t = C.all_gather(t, mesh, m, axis=i)
+    return t
+
+
+def save(path: str, tree: Any, *, plan=None, cfg=None) -> None:
+    """Write ``tree`` to ``path`` through ``<path>.tmp`` and a rename.  On
+    a mesh every rank calls it: each leaf is gathered whole in turn, rank
+    0 writes, and every rank returns once the file is in place."""
+    leaves_ = flatten_with_paths(tree)
+    mesh = None if plan is None or not plan.enabled else plan.mesh
+    specs = store_specs(cfg, plan, tree) if mesh is not None \
+        else [None] * len(leaves_)
+    writer = mesh is None or mesh.rank == 0
     tmp = path + ".tmp"
-    with zipfile.ZipFile(tmp, "w", compression=zipfile.ZIP_STORED,
-                         allowZip64=True) as zf:
-        for p, leaf in flatten_with_paths(tree):
-            with zf.open(_key(p) + ".npy", "w", force_zip64=True) as fid:
-                _write_member(fid, torch.as_tensor(leaf))
-    os.replace(tmp, path)
+    zf = zipfile.ZipFile(tmp, "w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) if writer else None
+    try:
+        for (p, leaf), spec in zip(leaves_, specs):
+            whole = torch.as_tensor(leaf) if mesh is None \
+                else _whole(torch.as_tensor(leaf), spec, mesh)
+            if writer:
+                with zf.open(_key(p) + ".npy", "w",
+                             force_zip64=True) as fid:
+                    _write_member(fid, whole)
+    finally:
+        if zf is not None:
+            zf.close()
+    if writer:
+        os.replace(tmp, path)
+    if mesh is not None:
+        dist.barrier()
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -57,17 +92,24 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(path: str, like: Any) -> Any:
-    """The tree of ``like`` read from ``path``, a member at a time."""
+def restore(path: str, like: Any, *, plan=None, cfg=None) -> Any:
+    """The tree of ``like`` read from ``path``, a member at a time.  On a
+    mesh ``like`` holds this rank's blocks, and so does the result: each
+    member is read whole and cut to the rank's block (``plan.block``)."""
     paths = iter(flatten_with_paths(like))
+    mesh_on = plan is not None and plan.enabled
+    specs = iter(store_specs(cfg, plan, like) if mesh_on else ())
 
     def one(ref):
         key = _key(next(paths)[0])
-        arr = data[key + ".npy"]
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{key}: shape {arr.shape} != "
+        t = _tensor(data[key + ".npy"])
+        spec = next(specs) if mesh_on else None
+        if spec is not None:
+            t = t[plan.block(tuple(t.shape), spec)].contiguous()
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != "
                              f"{tuple(ref.shape)}")
-        return _tensor(arr).to(device=ref.device, dtype=ref.dtype)
+        return t.to(device=ref.device, dtype=ref.dtype)
     with np.load(path) as data:
         return tree_map(one, like)
 

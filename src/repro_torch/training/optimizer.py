@@ -15,6 +15,11 @@ tensors, one leaf after the other: the peak is one leaf's float32 working
 set, and the old and new state never coexist (the reference's compiled step
 gets the same from its buffers).  Callers that keep the old values clone
 them first.
+
+On a mesh each rank holds its blocks of the parameters, the gradients and
+the moments; the update is elementwise on each block, and ``global_norm``
+sums every distinct block once (``cuts``), so the clip is the
+single-device one.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import collectives as C
 from repro_torch.training.tree import leaves, tree_map
 
 
@@ -80,21 +86,35 @@ def init_opt_state(params, dtype=torch.float32) -> AdamWState:
                                          device=p.device), params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, cuts=None, mesh=None) -> torch.Tensor:
     """sqrt of the float32 sum of every leaf's sum of squares, summed leaf
-    by leaf in flatten order."""
-    sq = None
-    for x in leaves(tree):
+    by leaf in flatten order.
+
+    On a mesh ``cuts`` gives each leaf (flatten order) the mesh axes its
+    block is cut over: the leaves cut alike are summed on each rank, then
+    psummed over those axes, so each block counts once and a replicated
+    leaf (cut over none) once."""
+    xs = leaves(tree)
+    parts: dict = {}
+    for x, axes in zip(xs, cuts if cuts is not None else [()] * len(xs)):
         s = torch.sum(torch.square(x.float()))
+        parts[axes] = s if axes not in parts else parts[axes] + s
+    sq = None
+    for axes, s in parts.items():
+        if axes:
+            s = C.psum(s, mesh, tuple(a for a in mesh.axis_names
+                                      if a in axes))
         sq = s if sq is None else sq + s
     return torch.sqrt(sq)
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
+                 cuts=None, mesh=None):
     """One AdamW step.  Returns (params, new_state, stats) with ``params``
-    and the state's moments updated in place (the same tensors)."""
-    gnorm = global_norm(grads)
+    and the state's moments updated in place (the same tensors).  On a
+    mesh ``cuts`` and ``mesh`` go to ``global_norm``."""
+    gnorm = global_norm(grads, cuts, mesh)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip > 0 else 1.0
     step = state.step + 1

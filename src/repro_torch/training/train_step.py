@@ -1,11 +1,21 @@
 """The training step: cross-entropy (+ the MoE router's aux loss), its
-gradients by autograd, and an AdamW step, on one device.
+gradients by autograd, and an AdamW step, on one device or on a mesh.
 
 The step runs the stateless forward with the plan's kernel policy; the
 hand-written kernels have no backward (nor have the reference's), so a plan
 with kernels on raises at the first kernel the forward reaches
 (``kernels.ops``).  ``remat=True`` recomputes each layer in the backward
 instead of keeping its activations (``forward(remat=)``).
+
+On a mesh (``plan.enabled``) every rank is handed the whole batch; the
+forward takes the rank's rows (``plan.rows``) and gathers the logits back,
+so every rank computes the same loss: the whole batch's mean
+cross-entropy plus the coefficient times the mesh's router aux (the mean
+of every rank's, ``models.moe``).  Each rank's gradients are those of its
+stored blocks after ``core.collectives``' reductions, the same blocks of
+the single-device step's.  The batch axes must divide the batch, and
+``microbatches`` the rank's rows: microbatch i holds the batch's i-th
+contiguous slice, its rows split over the batch ranks, as on one device.
 """
 
 from __future__ import annotations
@@ -17,10 +27,12 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core.partitioner import NULL_PLAN, ShardingPlan
 from repro_torch.models.model import forward
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
-from repro_torch.training.tree import flatten_with_paths, leaves, tree_map
+from repro_torch.training.tree import (leaf_decls, leaves, store_specs,
+                                       tree_map)
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -56,22 +68,85 @@ def loss_fn(params, batch, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN,
     return loss, {"ce": ce, "aux": out.aux}
 
 
-def value_and_grad(params, batch, cfg: ModelConfig,
-                   plan: ShardingPlan = NULL_PLAN, *, remat: bool = True):
-    """((loss, {ce, aux}), grads): grads a tree like ``params``, in each
-    leaf's dtype.  The leaves are taken as views that require grad, so the
-    caller's tensors need not."""
-    paths = flatten_with_paths(params)
-    live = [p.detach().requires_grad_() for _, p in paths]
+def _seq_len(batch) -> int:
+    """The rows of the residual stream: the vlm patch stub, then the
+    tokens."""
+    emb = batch.get("embeds")
+    return batch["tokens"].shape[1] + (0 if emb is None else emb.shape[1])
+
+
+def reduce_grads(grads: list, decls: list, specs: list, cfg: ModelConfig,
+                 plan: ShardingPlan, seq_sharded: bool) -> list:
+    """Each leaf's gradient summed over ``plan.grad_sum_axes`` (``decls``:
+    each leaf's ``models.param.P``, ``specs``: its ``store_spec``): one
+    all_reduce per distinct tuple of axes and dtype, in flatten order."""
+    groups: dict = {}
+    for i, (decl, spec) in enumerate(zip(decls, specs)):
+        axes = plan.grad_sum_axes(cfg, decl, spec, seq_sharded)
+        if axes:
+            groups.setdefault((axes, grads[i].dtype), []).append(i)
+    out = list(grads)
+    for (axes, _), idx in groups.items():
+        for i, g in zip(idx, C.psum_grads([grads[i] for i in idx],
+                                          plan.mesh, axes)):
+            out[i] = g
+    return out
+
+
+def _local_grads(params, batch, cfg: ModelConfig, plan: ShardingPlan,
+                 remat: bool):
+    """((loss, {ce, aux}), [grad]): this rank's gradient of each leaf, in
+    flatten order, before the reductions after the backward."""
+    live = [p.detach().requires_grad_() for p in leaves(params)]
     it = iter(live)
     tree = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
         loss, parts = loss_fn(tree, batch, cfg, plan, remat=remat)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
-    it = iter(torch.zeros_like(p) if g is None else g
-              for g, p in zip(grads, live))
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, live)]
     parts = {k: v.detach() for k, v in parts.items()}
-    return (loss.detach(), parts), tree_map(lambda _: next(it), params)
+    return (loss.detach(), parts), grads
+
+
+def _reduce(grads: list, params, batch, cfg: ModelConfig,
+            plan: ShardingPlan) -> list:
+    if not plan.enabled:
+        return grads
+    return reduce_grads(grads, leaf_decls(cfg, params),
+                        store_specs(cfg, plan, params), cfg, plan,
+                        plan.seq_sharded(_seq_len(batch)))
+
+
+def value_and_grad(params, batch, cfg: ModelConfig,
+                   plan: ShardingPlan = NULL_PLAN, *, remat: bool = True):
+    """((loss, {ce, aux}), grads): grads a tree like ``params``, in each
+    leaf's dtype.  The leaves are taken as views that require grad, so the
+    caller's tensors need not.  On a mesh ``params`` are the rank's blocks
+    and so are the grads, reduced over the ranks that share a block
+    (``reduce_grads``)."""
+    out, grads = _local_grads(params, batch, cfg, plan, remat)
+    it = iter(_reduce(grads, params, batch, cfg, plan))
+    return out, tree_map(lambda _: next(it), params)
+
+
+def check_microbatches(b: int, microbatches: int,
+                       plan: ShardingPlan = NULL_PLAN) -> int:
+    """The rows of one microbatch: refuses (before any forward) a batch
+    the batch axes do not divide, or rows per rank that ``microbatches``
+    does not divide, as the reference's reshape does (on a mesh each
+    microbatch's rows split over the batch ranks)."""
+    if plan.enabled and plan.dp > 1 and b % plan.dp:
+        raise ValueError(f"a batch of {b} rows does not split over the "
+                         f"{plan.dp} batch ranks")
+    rows = b // plan.dp if plan.enabled else b
+    microbatches = max(microbatches, 1)
+    if rows % microbatches:
+        where = f"{rows} rows a batch rank" if plan.enabled and plan.dp > 1 \
+            else f"a batch of {rows} rows"
+        raise ValueError(f"microbatches={microbatches} does not divide "
+                         f"{where}")
+    return b // microbatches
 
 
 def train_step(params, opt_state, batch, *, cfg: ModelConfig,
@@ -81,32 +156,43 @@ def train_step(params, opt_state, batch, *, cfg: ModelConfig,
     """One optimizer step: (params, opt_state, metrics), the parameters and
     moments updated in place (``adamw_update``).
 
-    ``microbatches > 1`` splits the batch into that many slices along its
-    first axis and accumulates their gradients in ``accum_dtype`` (each sum
-    rounded once from float32), then scales them by 1/M in float32."""
+    ``microbatches > 1`` splits the batch into that many contiguous slices
+    along its first axis (on a mesh, each slice's rows split over the
+    batch ranks, as the reference's reshape does) and accumulates their
+    gradients in ``accum_dtype`` (each sum rounded once from float32),
+    then scales them by 1/M in float32 and reduces them over the ranks
+    once.  A batch (on a mesh: the rank's rows) that ``microbatches``
+    does not divide raises ``ValueError`` before any forward."""
     opt_cfg = opt_cfg or AdamWConfig()
+    n = check_microbatches(next(iter(batch.values())).shape[0],
+                           microbatches, plan)
     if microbatches <= 1:
         (loss, parts), grads = value_and_grad(params, batch, cfg, plan,
                                               remat=remat)
     else:
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
-                                              device=p.device), params)
+        gsum = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                for p in leaves(params)]
         loss = ce = aux = torch.zeros((), dtype=torch.float32,
-                                      device=leaves(params)[0].device)
-        n = next(iter(batch.values())).shape[0] // microbatches
+                                      device=gsum[0].device)
         for i in range(microbatches):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            (l_i, p_i), g = value_and_grad(params, mb, cfg, plan,
-                                           remat=remat)
-            for a, b in zip(leaves(gsum), leaves(g)):
+            (l_i, p_i), g = _local_grads(params, mb, cfg, plan, remat)
+            for a, b in zip(gsum, g):
                 a.copy_(a.float() + b.float())
             del g
             loss, ce, aux = loss + l_i, ce + p_i["ce"], aux + p_i["aux"]
         inv = 1.0 / microbatches
-        grads = tree_map(lambda g: g.float().mul_(inv), gsum)
+        it = iter(_reduce([g.float().mul_(inv) for g in gsum], params,
+                          batch, cfg, plan))
+        grads = tree_map(lambda _: next(it), params)
         loss, parts = loss * inv, {"ce": ce * inv, "aux": aux * inv}
+    cuts = None
+    if plan.enabled:
+        cuts = [tuple(a for m in spec if m is not None for a in m)
+                for spec in store_specs(cfg, plan, params)]
     params, opt_state, stats = adamw_update(opt_cfg, grads, opt_state,
-                                            params)
+                                            params, cuts=cuts,
+                                            mesh=plan.mesh)
     return params, opt_state, {"loss": loss, **parts, **stats}
 
 
@@ -119,5 +205,5 @@ def make_train_step(cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN,
                              accum_dtype=accum_dtype)
 
 
-__all__ = ["cross_entropy", "loss_fn", "value_and_grad", "train_step",
-           "make_train_step"]
+__all__ = ["cross_entropy", "loss_fn", "value_and_grad", "reduce_grads",
+           "check_microbatches", "train_step", "make_train_step"]

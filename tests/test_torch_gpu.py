@@ -1122,3 +1122,19 @@ def test_train_step_on_card_matches_cpu(dev, arch):
             + 2.0 ** -23 * (c.abs() + opt.lr)
         assert ((a.cpu() - c).abs() <= allowed).all(), p
     assert not ops.counters
+
+
+def test_mesh_training_parity_on_card(dev, tmp_path):
+    """4 ranks over gloo on the one card, phi3.5-moe reduced, f32,
+    mixserve 2x2 with sp and fsdp on: the first step's loss within 1e-5
+    and every gradient block within GRAD_BOUND of the unsharded step's on
+    the card, the weights after two AdamW steps within Adam's move under
+    the gradients' differences (``chip_smoke.py`` phase 7 (a))."""
+    import _torch_dist_train_ranks as D
+    from repro_torch.launch.ranks import run_ranks
+    ranks = run_ranks(D.card_parity_rank, 4, workdir=tmp_path,
+                      device="cuda", timeout_s=600)
+    for r, res in enumerate(ranks):
+        assert res["loss"] <= 1e-5, (r, res)
+        assert res["grad"] <= D.CARD_GRAD_BOUND, (r, res)
+        assert res["ratio"] <= 1.0, (r, res)

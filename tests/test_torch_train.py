@@ -334,6 +334,23 @@ def test_train_steps_match_reference(arch, micro):
     assert int(t_opt.step) == n
 
 
+def test_indivisible_microbatches_refused_by_both_packages():
+    """A batch of 3 rows in 2 microbatches: the reference's reshape
+    raises, and the port's ``train_step`` refuses it before any forward
+    (it used to drop the tail row)."""
+    rcfg, rp, tcfg, tp = train_params("smollm-360m")
+    b = batch_np(tcfg, batch=3, seq=16)[0]
+    with pytest.raises(TypeError):
+        RTS.train_step(rp, ROPT.init_opt_state(rp), to_ref(b), cfg=rcfg,
+                       remat=False, microbatches=2)
+    opt = TOPT.init_opt_state(tp)
+    with pytest.raises(ValueError, match="microbatches=2 does not divide "
+                                         "a batch of 3 rows"):
+        TTS.train_step(tp, opt, to_port(b), cfg=tcfg, remat=False,
+                       microbatches=2)
+    assert int(opt.step) == 0
+
+
 def test_loss_decreases_small_scale():
     """The port's counterpart of test_training.py's
     test_loss_decreases_100m_scale: 30 steps of the reduced smollm."""
@@ -378,7 +395,43 @@ def test_cli_refuses_without_cuda_and_on_a_mesh(monkeypatch, capsys):
     assert TCLI.main(argv) != 0
     assert "no CUDA device" in capsys.readouterr().err
     assert TCLI.main(argv + ["--device", "cpu", "--mesh", "single"]) != 0
-    assert "not ported yet" in capsys.readouterr().err
+    assert "needs a world of 256 ranks" in capsys.readouterr().err
+    assert TCLI.main(argv + ["--device", "cpu", "--mesh", "multi"]) != 0
+    assert "needs a world of 512 ranks" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("local_world,device,want", [
+    (8, "cuda", ("nccl", "cuda:5")),     # a card for each of 8 local ranks
+    (16, "cuda", ("gloo", "cuda:5")),    # 16 local ranks on 8 cards
+    (8, "cpu", ("gloo", "cpu")),
+])
+def test_mesh_cli_picks_backend_and_device_by_host(monkeypatch, local_world,
+                                                   device, want):
+    """``train --mesh`` under ``torchrun`` (rank 77 of 256, the host's
+    rank 5, 8 cards a host): the backend and device come from the host's
+    ranks (``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``), not the world's."""
+    import torch.distributed as tdist
+    from repro_torch.launch import mesh as LM
+
+    class Joined(Exception):
+        pass
+
+    seen = {}
+
+    def init_ranks(**kw):
+        kw.pop("init_method")
+        seen["layout"] = LM.rank_layout(**kw)
+        raise Joined
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setattr(tdist, "is_initialized", lambda: False)
+    monkeypatch.setattr(LM, "init_ranks", init_ranks)
+    for k, v in {"RANK": 77, "WORLD_SIZE": 256, "LOCAL_RANK": 5,
+                 "LOCAL_WORLD_SIZE": local_world}.items():
+        monkeypatch.setenv(k, str(v))
+    with pytest.raises(Joined):
+        TCLI._mesh_plan("single", device)
+    backend, dev = seen["layout"]
+    assert (backend, str(dev)) == want
 
 
 # ---------------------------------------------------------------------------
