@@ -237,6 +237,27 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                  same state (assembled from the ranks' blocks), and
                  restores to every rank's blocks bit for bit
 
+  8 entry    the entry points as a user drives them, each on its own
+             weights (no depth cut):
+             (a) ``python -m repro_torch.launch.serve`` through
+                 ``launch.serve.main``, the cluster and kernels ``auto``
+                 (h100x1, all on), f32: gemma-2b whole, 12 requests of
+                 128-256 tokens due at once, 32 new (exactly 18
+                 flash_chunk_paged launches a step); phi3.5-moe-42b
+                 reduced with the CLI's defaults (the MoE kernels exact
+                 per step); rwkv6-1.6b whole on the legacy path (no
+                 launch); steps, ms a step of the serve, TTFT, ITL, tok/s,
+                 peak memory; every kernel held to its plain version on
+                 the inputs these serves gave it (the first and a later
+                 call of each geometry);
+             (b) gemma-2b whole in bf16 exported to the HF-style flat
+                 dict and loaded back onto the card: every leaf bitwise
+                 equal; 4 prompts of 64-256 tokens, 16 new, from each
+                 tree (kernels on): the greedy streams equal; export and
+                 load seconds;
+             (c) the quickstart example (reduced deepseek-v2, kernels
+                 on) and train_small for 20 steps: its loss falls
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -5135,6 +5156,346 @@ def phase_train_mesh(torch, card_line):
           "the mesh checkpoint did not restore to each rank's blocks")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the entry points (the serve CLI, the weight loader, the examples)
+# ---------------------------------------------------------------------------
+
+# (argv, label): the CLI's whole gemma-2b (f32, the CLI's default dtype),
+# its default reduced phi3.5, and rwkv6 whole on the legacy path
+ENTRY_CLI = (
+    (["--arch", "gemma-2b", "--no-reduced", "--requests", "12", "--rate",
+      "0", "--prompt-len", "256", "--max-new", "32"], "gemma-2b whole"),
+    (["--arch", "phi3.5-moe-42b", "--rate", "0"], "phi3.5 reduced"),
+    (["--arch", "rwkv6-1.6b", "--no-reduced", "--requests", "4", "--rate",
+      "0", "--prompt-len", "32", "--max-new", "8"], "rwkv6-1.6b whole"),
+)
+ENTRY_LOAD_LENS = (64, 256, 100, 180)      # (b): gemma-2b bf16, 16 new
+ENTRY_TRAIN_STEPS = 20                      # (c): train_small
+# each kernel wrapper's inputs are kept at most this many distinct
+# geometries a run, each at its first call and at its ENTRY_LATER-th (a
+# step deep in the caches), then the kernel is held to its plain body on
+# them
+ENTRY_GEOMETRIES = 3
+ENTRY_LATER = 40
+# per wrapper: (tolerance by dtype, or None for bitwise equal)
+ENTRY_TOL = {"flash_chunk_paged": FLASH_TOL, "flash_chunk": FLASH_TOL,
+             "flash_decode": FLASH_TOL, "grouped_gemm": TOL,
+             "moe_gemm": TOL, "unpermute_tokens": UNPERMUTE_TOL,
+             "permute_tokens": None, "permute_tokens_ragged": None,
+             "topk_gate": None}
+
+
+class record_calls:
+    """Within the block, keep copies of the inputs of the first and the
+    ``ENTRY_LATER``-th call of every kernel wrapper at each of up to
+    ``ENTRY_GEOMETRIES`` geometries (the shapes, dtypes and scalar
+    arguments) in ``sink``: {wrapper: [(args, kwargs), ...]}.  The wrappers
+    count and launch as before; only those calls copy their inputs."""
+
+    def __init__(self, sink):
+        self.sink = sink
+
+    def __enter__(self):
+        ops, _ = _ops()
+        self.ops, self.saved = ops, {n: getattr(ops, n) for n in ENTRY_TOL}
+        seen: dict = {}
+
+        def key(v):
+            return (tuple(v.shape), str(v.dtype)) if hasattr(v, "shape") \
+                else v
+
+        def clone(v):
+            return v.clone() if hasattr(v, "clone") else v
+
+        def wrap(name, fn):
+            def rec(*a, **kw):
+                k = (tuple(key(v) for v in a),
+                     tuple(sorted((n, key(v)) for n, v in kw.items())))
+                got = seen.setdefault(name, {})
+                if k in got or len(got) < ENTRY_GEOMETRIES:
+                    got[k] = got.get(k, 0) + 1
+                if got.get(k) in (1, ENTRY_LATER):
+                    self.sink.setdefault(name, []).append(
+                        ([clone(v) for v in a],
+                         {n: clone(v) for n, v in kw.items()}))
+                return fn(*a, **kw)
+            return rec
+        for name, fn in self.saved.items():
+            setattr(ops, name, wrap(name, fn))
+        return self.sink
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+
+def check_recorded(torch, res, calls, label):
+    """Every recorded call (``record_calls``): the kernel against its plain
+    body on the same inputs on the card (the router gate's ids and the
+    gathers bitwise, its weights within 1e-6, the rest within the phase 2
+    tolerances)."""
+    ops, ref = _ops()
+    for name, runs in sorted(calls.items()):
+        for a, kw in runs:
+            got = getattr(ops, name)(*a, **kw)
+            want = getattr(ref, name + "_ref")(*a, **kw)
+            torch.cuda.synchronize()
+            if name == "topk_gate":
+                err = max_err(torch, got[0], want[0])
+                ok = bool(torch.equal(got[1], want[1])) and err <= 1e-6
+                tol = [1e-6, 0.0]
+            else:
+                err = max_err(torch, got, want)
+                tols = ENTRY_TOL[name]
+                tol = [0.0, 0.0] if tols is None else \
+                    list(tols[dname(got.dtype)])
+                ok = bool(torch.equal(got, want)) if tols is None \
+                    else within(torch, got, want, *tol)
+            shapes = [tuple(v.shape) for v in a if hasattr(v, "shape")]
+            res.add(name, {"label": f"{name} phase 8 {label}",
+                           "max_err": err, "tol": tol, "ok": ok,
+                           "shape": f"{shapes} {dname(a[0].dtype)}"},
+                    f"disagrees with its plain version at a phase 8 "
+                    f"({label}) geometry")
+            del got, want
+
+
+def _cli_per_step(cfg):
+    """The kernel launches of one unified step of ``cfg`` with the CLI's
+    defaults (paged KV, dropless dispatch)."""
+    per = {"flash_chunk_paged": cfg.n_layers}
+    n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.is_moe else 0
+    if n_moe:
+        per.update(topk_gate=n_moe, permute_tokens=n_moe,
+                   unpermute_tokens=n_moe, grouped_gemm=3 * n_moe)
+    return per
+
+
+def entry_cli(torch, card_line, res):
+    """(a): ``repro_torch.launch.serve.main`` on each of ENTRY_CLI, kernel
+    counters exact per step for the unified-step families, none for the
+    legacy path; the serve's inputs of every kernel geometry held to the
+    plain bodies afterwards."""
+    import repro_torch.configs as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.api import LLM
+    out = {}
+    box: dict = {}
+    orig = LLM.serve
+
+    def timed_serve(self, reqs, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched = orig(self, reqs, **kw)
+        torch.cuda.synchronize()
+        box["serve_s"] = time.perf_counter() - t0
+        return sched
+    LLM.serve = timed_serve
+    try:
+        for argv, label in ENTRY_CLI:
+            free_memory(torch)
+            torch.cuda.reset_peak_memory_stats()
+            calls: dict = {}
+            print(f"[entry] python -m repro_torch.launch.serve "
+                  f"{' '.join(argv)}")
+            ops.reset_counters()
+            t0 = time.perf_counter()
+            with record_calls(calls):
+                sched = serve.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.counters)
+            eng = sched.engine
+            cfg, spec = eng.cfg, eng.spec
+            steps, m = eng.n_forward, sched.metrics()
+            args = serve.parse_args(argv)
+            n_req, new = args.requests, args.max_new
+            mem = torch.cuda.max_memory_allocated() / 2**30
+            ser = box.pop("serve_s")
+            print(f"[entry] {label}: {cfg.name} ({cfg.n_layers} layers, "
+                  f"f32), {len(sched.finished)} requests, {steps} steps "
+                  f"({'legacy decode' if eng.legacy else 'unified'}) in "
+                  f"{ser:.2f}s of serve ({ser / max(steps, 1) * 1e3:.1f} "
+                  f"ms/step), TTFT mean {m.ttft_mean * 1e3:.0f} ms, ITL "
+                  f"mean {m.itl_mean * 1e3:.1f} ms, "
+                  f"{m.throughput_tok_s:.1f} tok/s, main() {wall:.1f}s, "
+                  f"max_memory_allocated {mem:.1f} GiB; kernels "
+                  f"{spec.kernels.describe()} <- "
+                  f"{spec.provenance.get('kernels')}; launches {launches} "
+                  f"[{card_line}]")
+            check(spec.cluster == "h100x1"
+                  and spec.kernels.describe() == "all-on"
+                  and spec.provenance.get("kernels") == "auto:device(cuda)",
+                  f"{label}: resolved {spec.cluster}, kernels "
+                  f"{spec.kernels.describe()}")
+            check(len(sched.finished) == n_req and all(
+                len(r.out_tokens) == new for r in sched.finished),
+                f"{label}: a request did not finish with {new} tokens")
+            check(all(0 <= t < cfg.vocab_size for r in sched.finished
+                      for t in r.out_tokens),
+                  f"{label}: token id outside the vocabulary")
+            if eng.legacy:
+                check(not launches and cfg.family in ("ssm", "hybrid"),
+                      f"{label}: the legacy path launched {launches}")
+            else:
+                want = expected_launches(_cli_per_step(cfg), steps)
+                check(steps > 0 and launches == want,
+                      f"{label}: launch counters {launches} != {want}")
+            want_cfg = C.get_reduced(args.arch) if args.reduced \
+                else C.get(args.arch)
+            check(cfg == want_cfg,
+                  f"{label}: served {cfg.name}, {cfg.n_layers} layers")
+            out[label] = {"launches": launches, "steps": steps,
+                          "serve_s": ser, "ms_step": ser / max(steps, 1) * 1e3,
+                          "ttft_ms": m.ttft_mean * 1e3,
+                          "itl_ms": m.itl_mean * 1e3,
+                          "tok_s": m.throughput_tok_s, "max_mem_gib": mem}
+            del sched, eng
+            free_memory(torch)
+            check_recorded(torch, res, calls, label)
+            del calls
+    finally:
+        LLM.serve = orig
+    return out
+
+
+def _paired(a, b):
+    """(leaf of a, leaf of b) at each path of two trees, which must have
+    the same keys (in any order)."""
+    if isinstance(a, dict):
+        check(sorted(a) == sorted(b), f"trees differ: {sorted(a)} vs "
+                                      f"{sorted(b)}")
+        for k in sorted(a):
+            yield from _paired(a[k], b[k])
+    elif isinstance(a, list):
+        check(len(a) == len(b), "trees differ in a list's length")
+        for x, y in zip(a, b):
+            yield from _paired(x, y)
+    else:
+        yield a, b
+
+
+def entry_weights(torch, card_line, res):
+    """(b): gemma-2b whole in bf16 on the card -> the HF-style flat dict
+    (CPU) -> ``load_llama_style`` back onto the card: every leaf bitwise
+    equal; then the same 4 prompts served from each tree, kernels on,
+    greedy streams equal."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.weights import (export_llama_style,
+                                             load_llama_style)
+    cfg = C.get("gemma-2b")
+    params = init_params(torch.Generator("cuda").manual_seed(0), cfg,
+                         torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = export_llama_style(params, cfg)
+    t_exp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_llama_style(flat, cfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+    pairs = list(_paired(params, loaded))
+    same = all(a.dtype == b.dtype and a.device == b.device
+               and torch.equal(a, b) for a, b in pairs)
+    print(f"[entry] weights: {cfg.name} whole, bf16, tied embeddings "
+          f"(vocab {cfg.vocab_size}, padded {cfg.padded_vocab}): "
+          f"{len(flat)} HF tensors, {n_bytes / 2**30:.2f} GiB; export "
+          f"{t_exp:.1f}s (card -> host), load {t_load:.1f}s (host -> card); "
+          f"{len(pairs)} leaves, all bitwise equal: {same} [{card_line}]")
+    check(same, "weights: a loaded leaf differs from the original")
+    del flat
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in ENTRY_LOAD_LENS]
+    spec = _spec(prompt_len=max(ENTRY_LOAD_LENS), max_new_tokens=16)
+    runs = []
+    calls: dict = {}
+    for tree, label in ((params, "original"), (loaded, "loaded")):
+        llm = LLM.from_spec(spec, cfg=cfg, params=tree, device="cuda",
+                            dtype=torch.bfloat16)
+        with record_calls(calls):
+            runs.append(_serve(torch, llm, prompts, 16,
+                               {"flash_chunk_paged": cfg.n_layers},
+                               card_line, f"{cfg.name} whole, {label} tree"))
+        del llm
+        free_memory(torch)
+    check(runs[0]["streams"] == runs[1]["streams"],
+          "weights: the loaded tree's streams differ from the original's")
+    print(f"[entry] weights: the {len(prompts)} greedy streams of the "
+          f"loaded tree equal the original's: True")
+    del params, loaded, pairs
+    free_memory(torch)
+    check_recorded(torch, res, calls, "gemma-2b bf16 loaded")
+    return {"export_s": t_exp, "load_s": t_load, "bytes": n_bytes,
+            "serves": runs}
+
+
+def entry_examples(torch, card_line, res):
+    """(c): the quickstart (reduced deepseek-v2, kernels on) and
+    train_small for ENTRY_TRAIN_STEPS steps; its loss must fall."""
+    from repro_torch.examples import quickstart, train_small
+    from repro_torch.kernels import ops
+    calls: dict = {}
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    with record_calls(calls):
+        llm, outs = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = dict(ops.counters)
+    check(llm.spec.kernels.describe() == "all-on"
+          and [len(o) for o in outs] == [8, 8, 8] and launches,
+          f"quickstart: kernels {llm.spec.kernels.describe()}, streams "
+          f"{[len(o) for o in outs]}, launches {launches}")
+    print(f"[entry] quickstart: {time.perf_counter() - t0:.1f}s, launches "
+          f"{launches} [{card_line}]")
+    del llm
+    free_memory(torch)
+    check_recorded(torch, res, calls, "quickstart")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = train_small.main(["--steps", str(ENTRY_TRAIN_STEPS),
+                             "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    print(f"[entry] train_small: {len(hist)} steps in {wall:.1f}s, loss "
+          f"step 0 {first:.4f} -> step {len(hist) - 1} {last:.4f}, "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+          f"[{card_line}]")
+    check(len(hist) == ENTRY_TRAIN_STEPS and math.isfinite(last)
+          and last < first, "train_small: the loss did not fall")
+    free_memory(torch)
+    return {"quickstart_launches": launches, "train_loss": [first, last]}
+
+
+def phase_entry(torch, card_line, kres):
+    """Phase 8: the entry points as a user drives them; returns the CLI
+    serves' launches (read from their runs only)."""
+    res = Results()
+    res.recs = kres
+    t0 = time.perf_counter()
+    cli = entry_cli(torch, card_line, res)
+    t1 = time.perf_counter()
+    weights = entry_weights(torch, card_line, res)
+    t2 = time.perf_counter()
+    examples = entry_examples(torch, card_line, res)
+    t3 = time.perf_counter()
+    print(f"[entry] seconds: cli {t1 - t0:.1f}, weights {t2 - t1:.1f}, "
+          f"examples {t3 - t2:.1f}")
+    launches: dict = {}
+    for s in cli.values():
+        for k, v in s["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "cli": cli, "weights": weights,
+            "examples": examples}
+
+
 def kernels_record(kres, launches):
     out = []
     for name, source, replaces in KERNELS:
@@ -5359,8 +5720,10 @@ def main() -> int:
     timed("train", phase_train, torch, card_line)
     free_memory(torch)
     timed("train_mesh", phase_train_mesh, torch, card_line)
+    free_memory(torch)
+    entry = timed("entry", phase_entry, torch, card_line, kres)
     launches: dict = {}
-    for s in serves + [dist] + [frontend[a] for a in FRONT_SERVES]:
+    for s in serves + [dist, entry] + [frontend[a] for a in FRONT_SERVES]:
         for k, v in s["launches"].items():
             launches[k] = launches.get(k, 0) + v
     rec = kernels_record(kres, launches)

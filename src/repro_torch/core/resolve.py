@@ -8,7 +8,8 @@ instead of user homework:
 
   cluster       explicit ClusterSpec / name (validated against the mesh) or
                 the H100 cluster of the mesh's size (``h100x1`` without a
-                mesh, ``h100-2x2`` for four ranks)
+                mesh, ``h100-2x2`` for four ranks, ``h100-<N>`` for N a
+                multiple of 8)
   strategy      ``analyzer.select`` on the §III-B1 grammar, mapped to a
                 ShardingPlan layout name (hybrid "mixserve" vs pure-EP
                 "dp_ep", with the expert-divisibility guard)
@@ -56,8 +57,8 @@ from typing import Union
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cost_model as cm
-from repro_torch.core.topology import (CLUSTERS, H100_2X2, H100_X1,
-                                      ClusterSpec)
+from repro_torch.core.topology import (CLUSTERS, H100_2X2, H100_NODE,
+                                      H100_X1, ClusterSpec, h100_cluster)
 
 AUTO = "auto"
 
@@ -98,16 +99,20 @@ def resolve_cluster(cluster: Union[str, ClusterSpec, None] = None, *,
                     mesh=None) -> tuple[ClusterSpec, str]:
     """(ClusterSpec, provenance).  Explicit name/spec wins, validated
     against ``mesh.size`` when a mesh is given; ``auto``/None is the H100
-    cluster of the mesh's size (``h100x1`` with no mesh, ``h100-2x2`` for
-    four ranks)."""
+    cluster of the mesh's size: ``h100x1`` with no mesh or one rank,
+    ``h100-2x2`` for four ranks, ``h100-<N>`` (``topology.h100_cluster``,
+    nodes of 8 cards) for N ranks, N a multiple of 8."""
     if cluster is None or cluster == AUTO:
         if mesh is None:
             return H100_X1, "auto:default(h100x1)"
         for spec in (H100_X1, H100_2X2):
             if spec.n_devices == mesh.size:
                 return spec, f"auto:mesh({mesh.size} ranks)"
+        if mesh.size % H100_NODE == 0:
+            return h100_cluster(mesh.size), f"auto:mesh({mesh.size} ranks)"
         raise ValueError(f"no H100 cluster of {mesh.size} devices is "
-                         "defined; pass a ClusterSpec of the mesh's size")
+                         "defined (1, 4 or a multiple of 8); pass a "
+                         "ClusterSpec of the mesh's size")
     if isinstance(cluster, str):
         if cluster not in CLUSTERS:
             raise KeyError(f"unknown cluster {cluster!r} "

@@ -150,6 +150,22 @@ CLUSTERS = {
                         TPU_V5E_MULTIPOD, H100_X1, H100_2X2)
 }
 
+H100_NODE = 8     # cards a node of the mesh-sized fallback cluster
+
+
+def h100_cluster(n_devices: int) -> ClusterSpec:
+    """``h100-<N>``: N H100s as N / 8 nodes of 8 cards, NVLink inside a
+    node and one 400 Gb/s NIC a card across nodes; the per-card figures
+    are h100x1's.  The cluster a mesh of N ranks is priced on when none
+    is named (N a multiple of 8).  Like h100-2x2 it has not been checked
+    against a measurement."""
+    if n_devices < H100_NODE or n_devices % H100_NODE:
+        raise ValueError(f"h100-<N> needs N a multiple of {H100_NODE}, "
+                         f"got {n_devices}")
+    return dataclasses.replace(H100_X1, name=f"h100-{n_devices}",
+                               n_node=n_devices // H100_NODE,
+                               n_proc=H100_NODE)
+
 
 def is_pow2(x: int) -> bool:
     return x >= 1 and (x & (x - 1)) == 0
@@ -183,6 +199,7 @@ __all__ = [
     "H100_X1",
     "H100_2X2",
     "CLUSTERS",
+    "h100_cluster",
     "is_pow2",
     "pow2_divisors",
 ]

@@ -39,6 +39,8 @@ def test_no_jax_or_reference_import(path):
 def test_serving_import_leaves_jax_unloaded():
     code = ("import sys; import repro_torch.serving.api; "
             "import repro_torch.kernels.ops, repro_torch.bridge; "
+            "import repro_torch.launch.serve, repro_torch.launch.auto, "
+            "repro_torch.serving.weights, repro_torch.examples.quickstart; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -48,10 +50,18 @@ def test_serving_import_leaves_jax_unloaded():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_entry_points_never_fall_back_to_cpu(monkeypatch):
-    """Without a card, the default device raises; only device="cpu" runs."""
+def test_entry_points_never_fall_back_to_cpu(monkeypatch, capsys):
+    """Without a card, the default device raises; only device="cpu" runs.
+    The serve CLI exits non-zero, naming ``--device cpu``, before it
+    resolves a spec or builds a model; the weight loader and the examples
+    raise."""
+    import importlib
+
+    import repro_torch.configs as TC
+    from repro_torch.launch import serve
     from repro_torch.serving.api import LLM, ServeSpec
     from repro_torch.serving.engine import resolve_device
+    from repro_torch.serving.weights import load_llama_style
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = ServeSpec(arch="smollm-360m", max_batch=1, max_len=64, chunk=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -59,6 +69,141 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+    def built(*a, **k):
+        raise AssertionError("the CLI went on without a device")
+    monkeypatch.setattr(serve.ServeSpec, "resolve", built)
+    monkeypatch.setattr(serve.LLM, "from_spec", built)
+    with pytest.raises(SystemExit) as exit_:
+        serve.main(["--arch", "smollm-360m", "--requests", "1"])
+    assert exit_.value.code not in (0, None)
+    assert "--device cpu" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_llama_style({}, TC.get_reduced("smollm-360m"))
+    for name in ("quickstart", "serve_moe", "autotune_strategy",
+                 "train_small"):
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.main([])
+
+
+def kernel_contract_faults(ops_src: str, ref_names) -> list:
+    """The torch meaning of the reference's kernel-contract rule, read from
+    the source of ``kernels/ops.py``: every public wrapper that reaches
+    ``_launch`` (directly or through module-level helpers) bumps
+    ``counters[<its name>]`` exactly once on its launch path (its body and
+    the helpers it calls that launch), each bump after a launching call in
+    its function and nowhere off a launch path, and has a plain body
+    ``<name>_ref`` in ``kernels/ref.py``.  Returns the faults found."""
+    tree = ast.parse(ops_src)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    public = next(ast.literal_eval(n.value) for n in tree.body
+                  if isinstance(n, ast.Assign)
+                  and [t.id for t in n.targets] == ["__all__"])
+
+    def calls(fn):
+        return [c for c in ast.walk(fn) if isinstance(c, ast.Call)
+                and isinstance(c.func, ast.Name) and c.func.id in funcs]
+
+    launching = {"_launch"}
+    grew = True
+    while grew:
+        grew = False
+        for name, fn in funcs.items():
+            if name not in launching and any(
+                    c.func.id in launching for c in calls(fn)):
+                launching.add(name)
+                grew = True
+
+    def bumps(fn):
+        """(key, line) of each ``counters[key] += 1`` in ``fn``."""
+        local = {t.id: n.value.value for n in ast.walk(fn)
+                 if isinstance(n, ast.Assign)
+                 and isinstance(n.value, ast.Constant)
+                 for t in n.targets if isinstance(t, ast.Name)}
+        out = []
+        for n in ast.walk(fn):
+            if isinstance(n, ast.AugAssign) \
+                    and isinstance(n.target, ast.Subscript) \
+                    and isinstance(n.target.value, ast.Name) \
+                    and n.target.value.id == "counters":
+                key = n.target.slice
+                key = key.value if isinstance(key, ast.Constant) \
+                    else local.get(getattr(key, "id", None))
+                out.append((key, n.lineno))
+        return out
+
+    faults = []
+    for name, fn in funcs.items():
+        first_launch = min((c.lineno for c in calls(fn)
+                            if c.func.id in launching), default=None)
+        for key, line in bumps(fn):
+            if first_launch is None or line < first_launch:
+                faults.append(f"{name}: counters[{key!r}] bumped off a "
+                              f"launch path (line {line})")
+            if key not in public:
+                faults.append(f"{name}: counters[{key!r}] names no public "
+                              "wrapper")
+    for name in public:
+        if name not in launching or name == "reset_counters":
+            continue
+        path, todo = set(), [name]
+        while todo:
+            f = todo.pop()
+            if f not in path:
+                path.add(f)
+                todo += [c.func.id for c in calls(funcs[f])
+                         if c.func.id in launching
+                         and c.func.id.startswith("_")]
+        n = sum(key == name for f in path for key, _ in bumps(funcs[f]))
+        if n != 1:
+            faults.append(f"{name}: counters[{name!r}] bumped {n} times on "
+                          "its launch path")
+        if f"{name}_ref" not in ref_names:
+            faults.append(f"{name}: no plain body {name}_ref in ref.py")
+    return faults
+
+
+def _ops_source():
+    src = (PORT / "kernels" / "ops.py").read_text()
+    ref = ast.parse((PORT / "kernels" / "ref.py").read_text())
+    return src, {n.name for n in ref.body if isinstance(n, ast.FunctionDef)}
+
+
+_BUMPS = [i for i, line in enumerate(_ops_source()[0].splitlines())
+          if line.strip().startswith("counters[")]
+
+
+def test_every_kernel_wrapper_keeps_its_contract():
+    src, ref_names = _ops_source()
+    assert kernel_contract_faults(src, ref_names) == []
+    # one bump a wrapper: the eight kernels' and flash_decode's
+    assert len(_BUMPS) == len(wrapper_calls()) == 9
+    # no launch path at all, and a wrapper without its plain body
+    assert kernel_contract_faults(src.replace("def _launch(", "def _go("),
+                                  ref_names)
+    assert kernel_contract_faults(src, ref_names - {"topk_gate_ref"})
+
+
+@pytest.mark.parametrize("line", _BUMPS)
+def test_kernel_contract_check_catches_a_missing_bump(line):
+    """The check fails on a copy of ops.py with one bump removed, doubled,
+    or moved ahead of its function's first launching call."""
+    import re
+    src, ref_names = _ops_source()
+    lines = src.splitlines()
+    bump = lines[line]
+    indent = bump[:len(bump) - len(bump.lstrip())]
+    removed = lines[:line] + [indent + "pass"] + lines[line + 1:]
+    assert kernel_contract_faults("\n".join(removed), ref_names)
+    doubled = lines[:line] + [bump, bump] + lines[line + 1:]
+    assert kernel_contract_faults("\n".join(doubled), ref_names)
+    call = max(i for i in range(line)
+               if re.search(r"\b(_launch|_gather|_flash_dense)\(", lines[i]))
+    at = lines[call][:len(lines[call]) - len(lines[call].lstrip())]
+    moved = (lines[:call] + [at + bump.lstrip()] + lines[call:line]
+             + lines[line + 1:])
+    assert kernel_contract_faults("\n".join(moved), ref_names)
 
 
 def test_unported_options_raise(tmp_path):
