@@ -4783,6 +4783,11 @@ TRAIN_MESH_ARCHS = ("phi3.5-moe-42b", "smollm-360m")
 TRAIN_MESH_PARITY = dict(batch=4, seq=32, cf=8.0)
 # (b) phi3.5-moe-42b at full width, 2 of 32 layers, as the CLI trains it
 TRAIN_MESH_WIDE = dict(layers=2, batch=4, seq=256, steps=3, lr=2e-3)
+# the dropless lane: (a') phi3.5 reduced with the EP exchange in 2 chunks
+# capped at a chunk's mean rows a destination (a rank's 2 x 32 tokens, 32
+# a chunk at top-2 over EP 2: 32 rows), so chunks overflow and run again;
+# (b') the wide run of (b) with an explicit dropless plan
+TRAIN_MESH_DROPLESS = dict(arch="phi3.5-moe-42b", chunks=2, cap_rows=32)
 
 
 def _mesh_aux(dp):
@@ -4814,7 +4819,9 @@ def _train_mesh_cfg(arch):
 def _train_mesh_reference(torch, path):
     """(a)'s unsharded f32 steps on the card: per config the weights, two
     batches, the loss and gradients of each step, the weights after the
-    two AdamW steps (the aux by the mesh's rule), all on the host."""
+    two AdamW steps (the aux by the mesh's rule), all on the host; for
+    (a') the first step's loss and gradients with dropless dispatch."""
+    from repro_torch.core.partitioner import make_plan
     from repro_torch.models.model import init_params
     from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                                 init_opt_state)
@@ -4837,6 +4844,13 @@ def _train_mesh_reference(torch, path):
             rec = {"weights": tree_map(lambda t: t.cpu(), w0),
                    "batches": [{k: v.cpu() for k, v in b.items()}
                                for b in batches], "loss": [], "grads": []}
+            if arch == TRAIN_MESH_DROPLESS["arch"]:    # (a')
+                (loss, _), g = value_and_grad(
+                    tree_map(lambda t: t.clone(), w0), batches[0], cfg,
+                    make_plan("mixserve", None, dispatch="dropless"),
+                    remat=False)
+                rec["dropless"] = {"loss": float(loss), "grads": tree_map(
+                    lambda t: t.cpu(), g)}
             for b in batches:
                 (loss, _), g = value_and_grad(params, b, cfg, remat=False)
                 rec["loss"].append(float(loss))
@@ -4943,19 +4957,64 @@ def _train_mesh_parity_rank(torch, mesh, ref, work):
     return out
 
 
-def _train_mesh_wide_rank(torch, mesh):
+def _train_mesh_dropless_rank(torch, mesh, ref):
+    """(a') on this rank: the first mesh step of an explicit dropless plan
+    (mixserve, sp and fsdp on, remat; the exchange in chunks at a tight
+    cap) from (a)'s phi3.5 weights: its loss and gradient blocks against
+    the unsharded dropless step's, and the exchange's chunks and
+    overflow reruns in that step."""
+    from repro_torch.core.cost_model import EpOverlap
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.models import moe as M
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import flatten_with_paths
+    td = TRAIN_MESH_DROPLESS
+    arch = td["arch"]
+    cfg = _train_mesh_cfg(arch)
+    r = ref[arch]
+    plan = make_plan("mixserve", mesh, fsdp=True, dispatch="dropless",
+                     ep_overlap=EpOverlap(chunks=td["chunks"],
+                                          cap_rows=td["cap_rows"]))
+    params = _block_tree(torch, plan, cfg, r["weights"], "cuda")
+    b = {k: v.cuda() for k, v in r["batches"][0].items()}
+    M.exchange_counts.clear()
+    (loss, _), g = value_and_grad(params, b, cfg, plan)
+    exchange = dict(M.exchange_counts)
+    want = _block_tree(torch, plan, cfg, r["dropless"]["grads"])
+    worst, worst_at = 0.0, None
+    for (p, a), (_, w), (_, whole) in zip(
+            flatten_with_paths(g), flatten_with_paths(want),
+            flatten_with_paths(r["dropless"]["grads"])):
+        e = float((a.cpu() - w).abs().max()) \
+            / max(float(whole.abs().max()), 1e-30)
+        if e > worst:
+            worst, worst_at = e, "/".join(map(str, p))
+    want_loss = r["dropless"]["loss"]
+    loss_err = abs(float(loss) - want_loss) / abs(want_loss)
+    return {"loss_err": loss_err, "worst": worst, "worst_at": worst_at,
+            "exchange": exchange,
+            "ok": loss_err <= TRAIN_LOSS_BOUND.get(arch, 1e-5)
+            and worst <= TRAIN_GRAD_BOUND[arch]
+            and exchange.get("overflow", 0) > 0}
+
+
+def _train_mesh_wide_rank(torch, mesh, dispatch="auto"):
     """(b) on this rank: phi3.5-moe-42b at full width, 2 layers, through
     ``launch.train.train_loop`` as the CLI trains (mixserve, sp on, bf16,
-    remat): ms a step, peak memory, the collectives a step."""
+    remat; "auto" dispatch trains on capacity buffers, (b') passes
+    "dropless"): ms a step, peak memory, the collectives a step and the
+    dropless exchange's chunks and overflow reruns."""
     from repro_torch.core import collectives as C
     from repro_torch.core.partitioner import make_plan
     from repro_torch.launch.train import train_loop
+    from repro_torch.models import moe as M
     from repro_torch.models.model import count_params
     tw = TRAIN_MESH_WIDE
     cfg = _cut("phi3.5-moe-42b", tw["layers"])
-    plan = make_plan("mixserve", mesh)
+    plan = make_plan("mixserve", mesh, dispatch=dispatch)
     torch.cuda.reset_peak_memory_stats()
     C.reset_counters()
+    M.exchange_counts.clear()
     # host seconds inside collectives (a gloo call waits for the kernels
     # that make its input), and inside the after-backward gradient sums,
     # timed here only: the port's module keeps no clock
@@ -4990,7 +5049,8 @@ def _train_mesh_wide_rank(torch, mesh):
             "peak": torch.cuda.max_memory_allocated(),
             "collectives": coll, "n_local": n_local,
             "n_params": count_params(cfg),
-            "capacity": _capacity_rows(cfg, tw, plan)}
+            "capacity": _capacity_rows(cfg, tw, plan),
+            "exchange": dict(M.exchange_counts)}
 
 
 def _capacity_rows(cfg, tw, plan):
@@ -5014,12 +5074,17 @@ def train_mesh_rank(rank, world, workdir):
     ref = torch.load(work / "train_ref.pt", weights_only=False)
     before = dict(ops.counters)
     parity = _train_mesh_parity_rank(torch, mesh, ref, work)
+    dropless = _train_mesh_dropless_rank(torch, mesh, ref)
     del ref
     free_memory(torch)
     wide = _train_mesh_wide_rank(torch, mesh)
     free_memory(torch)
+    wide_dropless = _train_mesh_wide_rank(torch, mesh, "dropless")
+    free_memory(torch)
     return {"rank": rank, "backend": mesh.backend, "parity": parity,
-            "wide": wide, "kernels_moved": dict(ops.counters) != before}
+            "dropless": dropless, "wide": wide,
+            "wide_dropless": wide_dropless,
+            "kernels_moved": dict(ops.counters) != before}
 
 
 def _train_mesh_whole_file(torch, work):
@@ -5069,7 +5134,9 @@ def phase_train_mesh(torch, card_line):
     on the one card (NCCL, one rank a card, where there are 4): (a) f32
     parity of mesh steps against the unsharded ones, (b) phi3.5-moe-42b
     at full width as the CLI trains it, (c) the mesh checkpoint against
-    the single-device file; no kernel counter moves."""
+    the single-device file; the dropless lane: (a') f32 parity of an
+    explicit dropless plan whose chunked exchange overflows its cap and
+    reruns, (b') (b) with that plan; no kernel counter moves."""
     from repro_torch.launch.mesh import pick_backend
     from repro_torch.launch.ranks import RankFailed, run_ranks
     work = ROOT / "build" / "train_mesh"
@@ -5109,6 +5176,26 @@ def phase_train_mesh(torch, card_line):
         check(all(c["ok"] for c in per),
               f"training on a mesh, {arch}: the mesh step strays from the "
               f"unsharded one")
+    # (a')
+    td = TRAIN_MESH_DROPLESS
+    per = [r["dropless"] for r in ranks]
+    w = max(per, key=lambda c: c["worst"])
+    print(f"[train-mesh] (a') {td['arch']} reduced, f32, dropless, mixserve "
+          f"2x2 fused, sp and fsdp on, remat, batch "
+          f"{TRAIN_MESH_PARITY['batch']} x {TRAIN_MESH_PARITY['seq']}, the "
+          f"EP exchange in {td['chunks']} chunks capped at {td['cap_rows']} "
+          f"rows a destination: loss rel err "
+          f"{max(c['loss_err'] for c in per):.2e} (bound "
+          f"{TRAIN_LOSS_BOUND.get(td['arch'], 1e-5):.0e}); worst gradient "
+          f"block {w['worst_at']} {w['worst']:.3e} of the leaf's largest "
+          f"(bound {TRAIN_GRAD_BOUND[td['arch']]:.1e}) against the "
+          f"unsharded dropless step; exchange chunks "
+          f"{[c['exchange'].get('chunks', 0) for c in per]}, overflow "
+          f"reruns {[c['exchange'].get('overflow', 0) for c in per]} a rank "
+          f"in the differentiated step [{card_line}]")
+    check(all(c["ok"] for c in per),
+          "training a dropless plan on a mesh: the mesh step strays from "
+          "the unsharded one, or no chunk overflowed its cap")
     # (b)
     wd = [r["wide"] for r in ranks]
     tw = TRAIN_MESH_WIDE
@@ -5140,6 +5227,43 @@ def phase_train_mesh(torch, card_line):
               f"training on a mesh, rank {r}: losses {x['losses']}")
         check(x["losses"] == w0["losses"],
               f"training on a mesh: rank {r}'s losses differ from rank 0's")
+    # (b')
+    wl = [r["wide_dropless"] for r in ranks]
+    print(f"[train-mesh] (b') the same with dispatch=\"dropless\": "
+          f"phi3.5-moe-42b {tw['layers']} of 32 layers at full width, "
+          f"mixserve 2x2 fused, sp on, bf16, remat, batch {tw['batch']} x "
+          f"{tw['seq']}, the EP exchange monolithic, {tw['steps']} steps "
+          f"[{label}]")
+    for r, (x, c) in enumerate(zip(wl, wd)):
+        ms, cms = (sum(v[1:] or v) / len(v[1:] or v)
+                   for v in (x["ms"], c["ms"]))
+        fwd, bwd, cfwd, cbwd = (
+            sum(v for k, v in y["collectives"].items()
+                if k.endswith("/backward") == back) / tw["steps"]
+            for y in (x, c) for back in (False, True))
+        ex = {k: v / tw["steps"] for k, v in x["exchange"].items()}
+        print(f"[train-mesh] (b') rank {r}: {ms:.1f} ms a step (wall, "
+              f"steps 2-{tw['steps']}; first {x['ms'][0]:.1f}), "
+              f"{tw['batch'] * tw['seq'] / (ms / 1e3):.0f} tokens/s, peak "
+              f"{x['peak'] / 2**30:.2f} GiB, collectives a step {fwd:g} "
+              f"forward + {bwd:g} backward, exchange chunks "
+              f"{ex.get('chunks', 0):g} and overflow reruns "
+              f"{ex.get('overflow', 0):g} a step; capacity lane (b): "
+              f"{cms:.1f} ms, {tw['batch'] * tw['seq'] / (cms / 1e3):.0f} "
+              f"tokens/s, {c['peak'] / 2**30:.2f} GiB, {cfwd:g} + {cbwd:g} "
+              f"collectives; losses {[round(v, 4) for v in x['losses']]} "
+              f"[{card_line}]")
+        coll = {k: round(v / tw["steps"], 2)
+                for k, v in x["collectives"].items()}
+        print(f"[train-mesh] (b') rank {r}: collectives a step by kind/axes"
+              f"[/backward]: {json.dumps(coll)}")
+        check(all(math.isfinite(v) for v in x["losses"])
+              and x["losses"][-1] < x["losses"][0],
+              f"training a dropless plan on a mesh, rank {r}: losses "
+              f"{x['losses']}")
+        check(x["losses"] == wl[0]["losses"],
+              f"training a dropless plan on a mesh: rank {r}'s losses "
+              f"differ from rank 0's")
     check(not any(r["kernels_moved"] for r in ranks),
           "training on a mesh moved a kernel counter")
     # (c)

@@ -20,8 +20,11 @@ from repro_torch.models.model import layer_plan, model_spec
 
 
 def _tensor(a, device, dtype):
-    return torch.from_numpy(np.array(a, np.float32)).to(device=device,
-                                                        dtype=dtype)
+    # through float32 (which holds a bfloat16 leaf exactly); a float64 leaf,
+    # such as a float64 gradient, keeps its precision
+    a = np.asarray(a)
+    wide = np.float64 if a.dtype == np.float64 else np.float32
+    return torch.from_numpy(np.array(a, wide)).to(device=device, dtype=dtype)
 
 
 def _cut(a, keep, path, spec):

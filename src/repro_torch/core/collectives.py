@@ -40,9 +40,15 @@ its transpose: all_gather <-> psum_scatter along the same dim, all_to_all
 fixes.  A backward's collective counts under ``(kind, axes, "backward")``;
 with grad off nothing runs but the forward, so a serving step's census is
 unchanged.  pmax (and the int32 count exchanges of ``models.moe``) carry
-no gradient; an ``async_op=True`` call on a tensor that requires grad
-raises (the dropless EP exchange: training on a mesh runs the capacity
-dispatch, and an explicit dropless plan raises, ROADMAP A9c).
+no gradient.  An ``async_op=True`` all_to_all or all_gather of a tensor
+that requires grad is issued exactly as with grad off (the dropless EP
+exchange keeps its schedule); its ``Pending.wait()`` hands back the
+received buffer as the output of the send tensor (``_Received``), whose
+backward is the same transpose, run synchronously when the engine reaches
+it.  A received buffer that never enters the loss (the dropless body's
+overflowed first attempt) gets no backward on any rank.  Every rank builds
+the same graph, so the engine runs the backward's collectives in one order
+on every rank.
 
 The replicated-value rule (Megatron's conjugate pair).  The port runs
 SPMD with no replication tracking, so every value a group of ranks holds
@@ -59,7 +65,7 @@ product sees only its block.  The conversions, and where they stand:
                590, model.py:360, 446; ``w_in``, layers.py:674; RWKV6
                time-mix and the RG-LRU, ssm.py:137, 258; the channel-mix
                its ``xk`` alone, ssm.py:199), the MoE entry ``x_loc``
-               (moe.py:769), the LM head's ``x`` (model.py:777), the
+               (moe.py:776), the LM head's ``x`` (model.py:777), the
                whisper encoder's and its cross-attention's inputs
                (model.py:467, 604, 609).  With the stream cut along seq
                the same entries are all_gathers, whose psum_scatter
@@ -67,17 +73,17 @@ product sees only its block.  The conversions, and where they stand:
   psum         ``grad="whole"`` (the default): a sum every rank uses
                alike passes the gradient to each summand as it is:
                ``reduce_out`` (partitioner.py:341-351), the embedding's
-               (model.py:553), the MoE's TP sums (moe.py:520, 462).
+               (model.py:553), the MoE's TP sums (moe.py:462, 520, 601, 683).
                ``grad="sum"`` where each rank uses the sum on its block
                only: RWKV6's ``ln_x`` (ssm.py:118).
   all_gather   ``grad="sum"`` (the default) where column-parallel
                products consume the result (the entries above, the fused
-               MoE's widening, moe.py:503); ``grad="whole"`` where every
+               MoE's widening, moe.py:503, 644); ``grad="whole"`` where every
                rank uses it alike: the logits over TP and over the batch
                axes, whose backward takes the rank's block and does not
                sum it (model.py:574, 577: every rank computes the same
                whole-batch loss), the MoE's epilogue gathers (moe.py:458,
-               528).
+               527, 605, 734).
   scatter      this rank's block of a value held WHOLE, backward an
                all_gather: ``cut_seq`` (partitioner.py:353-366) after the
                embedding (model.py:727), after replicated heads and at
@@ -85,7 +91,7 @@ product sees only its block.  The conversions, and where they stand:
                where the value is held in SHARES (ssm.py:202).
   share        identity, backward the whole gradient on group rank 0 and
                zero elsewhere: the router's weights where the combine
-               runs on the whole width (moe.py:490), so they join the
+               runs on the whole width (moe.py:490, 589), so they join the
                router input's shares.
   pmean        the router aux on a mesh is the mean of every rank's
                (moe.py:441); its gradient follows that definition, 1/n
@@ -229,6 +235,17 @@ def _block(x, mesh, axes, axis):
 # module docstring's convention
 # ---------------------------------------------------------------------------
 
+def _a2a_transpose(g, mesh, axes):
+    # entry i went to group rank i: its gradient comes back from there
+    return _a2a(g, mesh, axes, backward=True)
+
+
+def _ag_transpose(g, mesh, axes, axis, grad):
+    if grad == "whole":               # every rank holds the whole gradient
+        return _block(g, mesh, axes, axis)
+    return _rs(g, mesh, axes, axis, backward=True)   # shares: sum, cut
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -237,8 +254,7 @@ class _AllToAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # entry i went to group rank i: its gradient comes back from there
-        return _a2a(g, ctx.mesh, ctx.axes, backward=True), None, None
+        return _a2a_transpose(g, ctx.mesh, ctx.axes), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -249,11 +265,30 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.grad == "whole":       # every rank holds the whole gradient
-            dx = _block(g, ctx.mesh, ctx.axes, ctx.axis)
-        else:                          # each rank holds a share: sum, cut
-            dx = _rs(g, ctx.mesh, ctx.axes, ctx.axis, backward=True)
-        return dx, None, None, None, None
+        return _ag_transpose(g, ctx.mesh, ctx.axes, ctx.axis, ctx.grad), \
+            None, None, None, None
+
+
+class _Received(torch.autograd.Function):
+    """The buffer an issued collective filled, as the output of its send
+    tensor ``x``; the backward runs ``transpose`` of the gradient at
+    once."""
+
+    @staticmethod
+    def forward(ctx, x, buf, transpose):
+        ctx.transpose = transpose
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.transpose(g), None, None
+
+
+def _issued(x, issue, transpose) -> Pending:
+    """Issue ``issue(x.detach())`` (a ``Pending``) as with grad off; its
+    ``wait()`` attaches the received buffer to ``x``'s graph."""
+    pend = issue(x.detach())
+    return Pending(None, lambda: _Received.apply(x, pend.wait(), transpose))
 
 
 class _PsumScatter(torch.autograd.Function):
@@ -327,14 +362,6 @@ def _tracked(x) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def _no_async_grad(x, name, async_op):
-    if async_op and _tracked(x):
-        raise NotImplementedError(
-            f"{name}(async_op=True) on a tensor that requires grad: an "
-            "issued collective has no backward (the dropless EP exchange; "
-            "training on a mesh runs the capacity dispatch, ROADMAP A9c)")
-
-
 _GRADS = ("sum", "whole")
 
 
@@ -355,9 +382,11 @@ def all_to_all(x, mesh, axes, *, async_op: bool = False):
     if x.shape[0] != n:
         raise ValueError(f"all_to_all over {axes}: dim 0 is {x.shape[0]}, "
                          f"the group has {n} ranks")
-    _no_async_grad(x, "all_to_all", async_op)
-    if async_op or not _tracked(x):
+    if not _tracked(x):
         return _a2a(x, mesh, axes, async_op)
+    if async_op:
+        return _issued(x, lambda d: _a2a(d, mesh, axes, True),
+                       lambda g: _a2a_transpose(g, mesh, axes))
     return _AllToAll.apply(x, mesh, axes)
 
 
@@ -370,10 +399,13 @@ def all_gather(x, mesh, axes, *, axis: int, async_op: bool = False,
     where every rank uses the result identically) takes this rank's block,
     no collective."""
     _check_grad(grad)
-    _no_async_grad(x, "all_gather", async_op)
-    if async_op or not _tracked(x):
+    if not _tracked(x):
         return _ag(x, mesh, axes, axis, async_op)
-    return _AllGather.apply(x, mesh, axes, axis % x.dim(), grad)
+    axis = axis % x.dim()
+    if async_op:
+        return _issued(x, lambda d: _ag(d, mesh, axes, axis, True),
+                       lambda g: _ag_transpose(g, mesh, axes, axis, grad))
+    return _AllGather.apply(x, mesh, axes, axis, grad)
 
 
 def psum_scatter(x, mesh, axes, *, scatter_dimension: int):

@@ -53,14 +53,16 @@ def grouped_gemm_ref(x, w, group_offsets):
     """Dropless segment GEMM.  x (N, H) sorted by expert, w (E, H, D),
     group_offsets (E+1,) prefix sum -> (N, D) in x's dtype: rows
     ``[offsets[e], offsets[e+1])`` use ``w[e]``, accumulated in float32.
-    Rows at/after ``offsets[-1]`` are exact zeros."""
+    Rows at/after ``offsets[-1]`` are exact zeros.  An empty segment still
+    runs its 0-row product, so that under autograd the output joins the
+    graph of ``x`` and ``w`` whatever the routing: every rank of a mesh
+    then builds the same backward, collectives included."""
     n = x.shape[0]
     out = torch.zeros(n, w.shape[-1], dtype=x.dtype, device=x.device)
     off = [int(o) for o in group_offsets.tolist()]
     for e in range(w.shape[0]):
         lo, hi = off[e], min(off[e + 1], n)
-        if hi > lo:
-            out[lo:hi] = (x[lo:hi].float() @ w[e].float()).to(x.dtype)
+        out[lo:hi] = (x[lo:hi].float() @ w[e].float()).to(x.dtype)
     return out
 
 

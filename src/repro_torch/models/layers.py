@@ -90,7 +90,7 @@ def activate(x_gate, x_up, kind: str):
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None):
-    ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    ar = torch.arange(0, head_dim, 2, device=device).float()
     return 1.0 / (theta ** (ar / head_dim))
 
 

@@ -565,7 +565,14 @@ def _moe_shard_dropless_fn(p, x, *, cfg: ModelConfig, mesh, tp_axes,
       destination) segment of the collective group overflows S (a pmax over
       the EP and TP axes, so every rank takes the same host branch) the
       chunk runs again at the worst-case extent, so the result equals the
-      monolithic schedule's bit for bit."""
+      monolithic schedule's bit for bit.
+
+    Under autograd the schedule and the collectives are the same.  Each
+    branch holds ``core.collectives``' replicated-value rule as
+    ``_moe_shard_fn`` does; an issued A2A joins the graph when it is
+    waited on.  An overflowed chunk's rerun replaces its first attempt,
+    which never enters the loss, so no rank runs that attempt's backward
+    (the branch is rank-uniform)."""
     h = x.shape[-1]
     tp, ep = C.axis_size(mesh, tp_axes), C.axis_size(mesh, ep_axes)
     e_global = cfg.n_experts
@@ -577,6 +584,9 @@ def _moe_shard_dropless_fn(p, x, *, cfg: ModelConfig, mesh, tp_axes,
                              use_kernel=policy.topk_gate)
     fused = comm_algo in ("fused", "sync") and tp > 1 and ep > 1 \
         and not token_sliced
+    if tp > 1 and not fused and not token_sliced:
+        # the combine runs on the whole width, as in _moe_shard_fn
+        w = C.share(w, mesh, tp_axes)
     fin = dict(cfg=cfg, mesh=mesh, mesh_axes=mesh_axes, tp_axes=tp_axes,
                token_sliced=token_sliced, with_stats=with_stats)
     dev = x.device
@@ -592,7 +602,8 @@ def _moe_shard_dropless_fn(p, x, *, cfg: ModelConfig, mesh, tp_axes,
         out_tok = combine_rows(ys, dl.inv.reshape(t, k), w.reshape(t, k),
                                use_kernel=policy.fused_permute)
         if token_sliced and tp > 1:
-            out_tok = C.all_gather(out_tok, mesh, tp_axes, axis=0)[:t_real]
+            out_tok = C.all_gather(out_tok, mesh, tp_axes, axis=0,
+                                   grad="whole")[:t_real]
         out_tok = _shared_epilogue(out_tok, p, tok_full, tok, cfg, mesh,
                                    tp_axes, tp, token_sliced, False)
         return _finish(out_tok, x, aux, idx, **fin)
@@ -720,7 +731,8 @@ def _moe_shard_dropless_fn(p, x, *, cfg: ModelConfig, mesh, tp_axes,
         outs.append(out_c)
     out_tok = outs[0] if n_chunks == 1 else torch.cat(outs)
     if token_sliced and tp > 1:     # undo the token slice, drop its pad
-        out_tok = C.all_gather(out_tok, mesh, tp_axes, axis=0)[:t_real]
+        out_tok = C.all_gather(out_tok, mesh, tp_axes, axis=0,
+                               grad="whole")[:t_real]
     out_tok = _shared_epilogue(out_tok, p, tok_full, tok, cfg, mesh,
                                tp_axes, tp, token_sliced, fused)
     return _finish(out_tok, x, aux, idx, **fin)
@@ -761,11 +773,6 @@ def moe_rank(p, x, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
               comm_algo="unfused" if token_sliced else plan.comm_algo,
               token_sliced=token_sliced, mesh_axes=mesh.axis_names,
               policy=plan.kernels, with_stats=with_stats)
-    if mode == "dropless" and torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "the dropless MoE on a mesh has no backward (its EP exchange is "
-            "issued asynchronously; ROADMAP A9c): train with "
-            "dispatch 'capacity' or 'auto'")
     x_loc = plan.gather_seq(x, seq_sharded).contiguous()
     if mode == "dropless":
         r = _moe_shard_dropless_fn(p, x_loc, ep_overlap=plan.ep_overlap,

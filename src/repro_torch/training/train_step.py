@@ -57,7 +57,8 @@ def loss_fn(params, batch, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN,
 
     Training pins the MoE capacity dispatch, as the reference does: a plan
     whose ``dispatch_mode`` is "auto" (dropless when serving) trains on the
-    fixed (E, C, h) buffers; an explicit "dropless" is honoured."""
+    fixed (E, C, h) buffers; an explicit "dropless" is honoured, on a mesh
+    too."""
     if plan.dispatch_mode == "auto":
         plan = dataclasses.replace(plan, dispatch_mode="capacity")
     out = forward(params, cfg, plan, tokens=batch["tokens"],

@@ -17,8 +17,9 @@ each config's); it gets back what each rank measured:
 * the FSDP storage blocks, the collective census of a training step, a
   checkpoint of a mesh state against the single-device file, the
   collectives' backwards against finite differences of the global
-  objective, and the guards (dropless and kernels under autograd, the
-  microbatch rule on a rank's rows).
+  objective (the issued all_to_all and all_gather too), and the guards
+  (kernels under autograd, the microbatch rule on a rank's rows) beside
+  an explicit dropless plan, which trains.
 """
 
 import contextlib
@@ -191,43 +192,50 @@ _SINGLE: dict = {}
 
 def _steps(params, cfg, plan, bs, micro, first):
     """Two steps on ``bs``: the first through ``value_and_grad`` when
-    ``first`` (its loss, aux and gradients kept) and the update, the
-    second ``train_step`` (microbatches accumulated in float64, as every
-    other sum of these runs).  ``plan`` None: one device."""
+    ``first`` (its loss, aux, gradients and the dropless exchange's counts
+    kept) and the update, the second ``train_step`` (microbatches
+    accumulated in float64, as every other sum of these runs).  ``plan``
+    with no mesh: one device (no remat)."""
+    from repro_torch.models import moe as M
     from repro_torch.training import optimizer as O
     from repro_torch.training import train_step as TS
     opt_cfg = O.AdamWConfig(**OPT)
     opt = O.init_opt_state(params)
-    kw = {} if plan is None else {"plan": plan}
+    mesh_plan = plan if plan.enabled else None
     out, metrics = {}, []
     for i, b in enumerate(bs):
+        M.exchange_counts.clear()
         if i == 0 and first:
-            (loss, parts), g = TS.value_and_grad(params, b, cfg,
-                                                 remat=plan is not None,
-                                                 **kw)
+            (loss, parts), g = TS.value_and_grad(params, b, cfg, plan,
+                                                 remat=plan.enabled)
             out.update(loss=loss, aux=parts["aux"], grads=g)
-            params, opt, m = _update(opt_cfg, g, opt, params, plan, cfg,
-                                     loss)
+            params, opt, m = _update(opt_cfg, g, opt, params, mesh_plan,
+                                     cfg, loss)
         else:
             params, opt, m = TS.train_step(
-                params, opt, b, cfg=cfg, opt_cfg=opt_cfg,
-                remat=plan is not None, microbatches=micro,
-                accum_dtype=torch.float64, **kw)
+                params, opt, b, cfg=cfg, plan=plan, opt_cfg=opt_cfg,
+                remat=plan.enabled, microbatches=micro,
+                accum_dtype=torch.float64)
+        out.setdefault("exchange", dict(M.exchange_counts))
         metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
     out.update(params=params, metrics=metrics)
     return out
 
 
 def _single(arch, cfg, plan, weights, bs, micro):
-    """The single-device run a mesh case is held to, shared by the cases
-    with the same aux groups and microbatches (``mesh_aux``)."""
+    """The single-device run a mesh case is held to (the plan's dispatch
+    mode on one device), shared by the cases with the same aux groups,
+    dispatch and microbatches (``mesh_aux``)."""
     from repro_torch.bridge import from_reference
+    from repro_torch.core.partitioner import make_plan
     from repro_torch.training import optimizer as O
-    key = (arch, plan.dp, plan.tp if plan.token_sliced else 1, micro)
+    key = (arch, plan.dp, plan.tp if plan.token_sliced else 1, micro,
+           plan.dispatch_mode)
     if key not in _SINGLE:
         whole = from_reference(weights[arch], cfg, dtype=torch.float64)
+        one = make_plan("mixserve", None, dispatch=plan.dispatch_mode)
         with mesh_aux(plan):
-            res = _steps(whole, cfg, None, bs, micro, micro == 1)
+            res = _steps(whole, cfg, one, bs, micro, micro == 1)
         if micro == 1:
             res["gnorm"] = float(O.global_norm(res["grads"]))
         _SINGLE[key] = res
@@ -235,12 +243,18 @@ def _single(arch, cfg, plan, weights, bs, micro):
 
 
 def f64_case(case, weights, meshes):
+    arch, m, lay, sp, fs, micro = case
+    return f64_run(arch, plan_for(meshes[m], lay, sp, fs), micro, weights)
+
+
+def f64_run(arch, plan, micro, weights):
+    """Two float64 steps of ``arch`` under the mesh ``plan`` against the
+    same steps on one device: each measure's largest relative error, and
+    the exchange counts of the mesh's first step."""
     from repro_torch.bridge import from_reference
     from repro_torch.training import optimizer as O
     from repro_torch.training.tree import store_specs
-    arch, m, lay, sp, fs, micro = case
     cfg = cfg_for(arch)
-    plan = plan_for(meshes[m], lay, sp, fs)
     shape = F64_BATCH if micro == 1 else MB_BATCH
     bs = batches(cfg, arch, shape, 2, torch.float64)
     with float_is_f64():
@@ -252,7 +266,8 @@ def f64_case(case, weights, meshes):
                           for k in a}
                          for a, b in zip(mesh["metrics"], single["metrics"])],
                "params": tree_err(mesh["params"], single["params"], plan,
-                                  cfg)}
+                                  cfg),
+               "exchange": mesh["exchange"]}
         if micro == 1:
             ls = float(single["loss"])
             out["loss"] = abs(float(mesh["loss"]) - ls) / abs(ls)
@@ -470,6 +485,14 @@ def gradchecks(mesh):
     cases = {   # name: (op, input, objective, whole_out, assemble)
         "all_to_all": (lambda x: C.all_to_all(x, mesh, axes), mine,
                        share_term, False, "blocks"),
+        # issued (the dropless EP exchange): the received buffer joins the
+        # graph at wait()
+        "all_to_all_issued": (lambda x: C.all_to_all(
+            x, mesh, axes, async_op=True).wait(), mine, share_term, False,
+            "blocks"),
+        "all_gather_issued": (lambda x: C.all_gather(
+            x, mesh, axes, axis=1, async_op=True).wait(), mine, share_term,
+            False, "blocks"),
         "all_gather_sum": (lambda x: C.all_gather(x, mesh, axes, axis=1),
                            mine, share_term, False, "blocks"),
         "all_gather_whole": (lambda x: C.all_gather(
@@ -500,9 +523,10 @@ def gradchecks(mesh):
 
 
 def guards(weights, meshes):
-    """What training on a mesh refuses: explicit dropless under autograd
-    (ROADMAP A9c), kernels under autograd, microbatches that do not
-    divide a rank's rows, a batch the batch axes do not divide."""
+    """What training on a mesh refuses: kernels under autograd,
+    microbatches that do not divide a rank's rows, a batch the batch axes
+    do not divide; and the loss of an explicit dropless plan, which
+    trains."""
     from repro_torch.bridge import from_reference
     from repro_torch.kernels.policy import KernelPolicy
     from repro_torch.training import optimizer as O
@@ -520,8 +544,9 @@ def guards(weights, meshes):
         except Exception as e:              # noqa: BLE001 (its message)
             return f"{type(e).__name__}: {e}"
         return None
-    out["dropless"] = raised(lambda: TS.value_and_grad(
-        local, b, cfg, dataclasses.replace(plan, dispatch_mode="dropless")))
+    out["dropless"] = float(TS.value_and_grad(
+        local, b, cfg, dataclasses.replace(plan, dispatch_mode="dropless"))
+        [0][0])
     kplan = dataclasses.replace(plan, kernels=KernelPolicy(
         flash_chunk=True, flash_decode=True, moe_gemm=True,
         fused_permute=True, topk_gate=True))

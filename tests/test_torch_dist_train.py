@@ -28,10 +28,12 @@ the parametrised tests below assert one case each:
 * a mesh state's checkpoint is the single-device file byte for byte, and
   restores to each rank's blocks;
 * each collective's backward against finite differences of the global
-  objective it stands in for;
-* the guards: explicit dropless and kernels under autograd raise, and so
-  do microbatches that do not divide a rank's rows; ``train_loop`` runs
-  on the mesh.
+  objective it stands in for, an issued (``async_op``) all_to_all's and
+  all_gather's too;
+* the guards: kernels under autograd raise, and so do microbatches that
+  do not divide a rank's rows; an explicit dropless plan trains (its
+  cases: ``tests/test_torch_dist_train_dropless.py``); ``train_loop``
+  runs on the mesh.
 """
 
 import concurrent.futures
@@ -262,7 +264,8 @@ def test_microbatches_reduce_gradients_once(dist):
             == 2 * one[("all_to_all", ("data",))] > 0
 
 
-@pytest.mark.parametrize("op", ["all_to_all", "all_gather_sum",
+@pytest.mark.parametrize("op", ["all_to_all", "all_to_all_issued",
+                                "all_gather_issued", "all_gather_sum",
                                 "all_gather_whole", "psum_scatter",
                                 "psum_whole", "psum_sum", "pmean", "copy_in",
                                 "scatter", "share"])
@@ -287,8 +290,7 @@ def test_mesh_checkpoint_is_single_device_file(dist):
 def test_training_guards(dist):
     for res in dist["ranks"]:
         g = res["guards"]
-        assert g["dropless"] and "NotImplementedError" in g["dropless"] \
-            and "A9c" in g["dropless"], g["dropless"]
+        assert np.isfinite(g["dropless"]), g["dropless"]
         assert g["kernels"] and "no backward" in g["kernels"], g["kernels"]
         assert g["micro_rows"] and "2 rows a batch rank" in g["micro_rows"]
         assert g["batch_rows"] and "does not split" in g["batch_rows"]
