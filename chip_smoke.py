@@ -257,6 +257,27 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                  load seconds;
              (c) the quickstart example (reduced deepseek-v2, kernels
                  on) and train_small for 20 steps: its loss falls
+  9 dryrun   the dry run (``launch/dryrun.py``: one rank's step on the meta
+             device) held against the card, its own step functions run
+             once for real and once on meta:
+             (a) phi3.5-moe-42b, 8 of 32 layers at full width, bf16, one
+                 card: one prefill chunk (4 x 1024 into a 4 x 4096 dense
+                 cache) and one decode step, kernels on and then off: the
+                 predicted argument bytes equal the real tensors' exactly,
+                 the predicted FLOPs equal FlopCounterMode's on the real
+                 step plus the kernels' own counts, and the predicted
+                 peak of the step's allocations is within ``dry_bound``
+                 of torch.cuda.max_memory_allocated() less what was
+                 allocated before the step;
+             (b) 4 ranks on phase 5's 2x2 mixserve mesh over gloo, phi3.5
+                 8 layers, bf16, kernels on: each rank's dry run of one
+                 decode step gives the real step's collective calls and
+                 bytes by (kind, axes) exactly, and its argument bytes;
+             (c) on the host, in a subprocess beside (a) and (b):
+                 phi3.5-moe-42b and deepseek-v2-236b whole, decode_32k
+                 and prefill_32k, on the 16x16 and 2x16x16 meshes: GiB a
+                 rank, FLOPs, collective bytes by kind; every one fits the
+                 card
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -268,6 +289,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -5620,6 +5642,269 @@ def phase_entry(torch, card_line, kres):
             "examples": examples}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the dry run against the card
+# ---------------------------------------------------------------------------
+
+DRY_LAYERS = 8                        # phi3.5's depth on one card (phase 4)
+DRY_PREFILL = (4, 1024, 4096)         # slots, chunk rows, cache rows
+DRY_DECODE_LENS = (1024, 700, 333, 4000)
+DRY_MESH = dict(batch=4, max_len=1024, lens=(100, 200, 300, 400))
+DRY_PRODUCTION = [(a, s, m) for a in ("phi3.5-moe-42b", "deepseek-v2-236b")
+                  for s in ("decode_32k", "prefill_32k")
+                  for m in ("single", "multi")]
+CUBLAS_WORKSPACE = 32 << 20  # Hopper's default CUBLAS_WORKSPACE_CONFIG :4096:8
+KERNEL_WRAPPERS = ("flash_chunk", "flash_decode", "flash_chunk_paged",
+                   "topk_gate", "moe_gemm", "grouped_gemm", "permute_tokens",
+                   "permute_tokens_ragged", "unpermute_tokens")
+
+
+def dry_bound(at_peak: dict) -> int:
+    """How far the card's peak may stand from the dry run's: 512 bytes a
+    storage live at the predicted peak (the allocator rounds each request
+    up to 512), 1 MiB more a large one (a cached large block is handed out
+    unsplit when at most 1 MiB would remain), and one cuBLAS workspace (a
+    GEMM path the warm-up did not take)."""
+    return 512 * at_peak["live"] + (1 << 20) * at_peak["large"] \
+        + CUBLAS_WORKSPACE
+
+
+def _price_kernels(torch):
+    """Wrap every kernel wrapper so that a call on the card also prices
+    itself, on meta copies of its inputs, in ``ops.meta_flops``; returns
+    the undo."""
+    from repro_torch.kernels import ops
+    saved = {n: getattr(ops, n) for n in KERNEL_WRAPPERS}
+
+    def meta(x):
+        return x.to("meta") if torch.is_tensor(x) else x
+
+    def wrap(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            fn(*map(meta, a), **{n: meta(v) for n, v in k.items()})
+            return out
+        return call
+    for n, fn in saved.items():
+        setattr(ops, n, wrap(fn))
+    return lambda: [setattr(ops, n, fn) for n, fn in saved.items()]
+
+
+def _dry_production_start():
+    """(c) in a subprocess on the host: one JSON record a line."""
+    code = ("import json\n"
+            "from repro_torch.launch import dryrun\n"
+            f"for a, s, m in {DRY_PRODUCTION!r}:\n"
+            "    rec = dryrun.run_one(a, s, m, 'mixserve')\n"
+            "    print(json.dumps(rec), flush=True)\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            env={**os.environ,
+                                 "PYTHONPATH": str(ROOT / "src"),
+                                 "CUDA_VISIBLE_DEVICES": ""},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _dry_compare(torch, label, step, real_args, meta_args):
+    """One step predicted on meta, then run on the card: (a)'s checks."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    pred = dryrun.measure(step, meta_args)
+    args = real_args()
+    step(*args)                       # warm-up: kernels, cuBLAS handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    undo = _price_kernels(torch)
+    ops.reset_counters()
+    try:
+        with FlopCounterMode(display=False) as fc:
+            step(*args)
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    kernels = sum(ops.meta_flops.values())
+    real = {"argument_bytes": dryrun.argument_bytes(args),
+            "flops": fc.get_total_flops() + kernels, "peak": peak}
+    want = {"argument_bytes": pred["memory"]["argument_bytes"],
+            "flops": int(pred["costs"]["flops"]),
+            "peak": pred["memory"]["temp_bytes"]}
+    bound = dry_bound(pred["storages_at_peak"])
+    print(f"[dryrun] (a) {label}: arguments predicted "
+          f"{want['argument_bytes']} real {real['argument_bytes']}; FLOPs "
+          f"predicted {want['flops']:.6e} real {real['flops']:.6e} "
+          f"(kernels {kernels:.6e}); peak of the step's allocations "
+          f"predicted {want['peak']} measured {peak} (diff "
+          f"{peak - want['peak']}, bound {bound}: {pred['storages_at_peak']}"
+          f" storages live, large); bytes accessed "
+          f"{pred['costs']['bytes_accessed']:.4e}; meta trace "
+          f"{pred['trace_s']}s")
+    check(real["argument_bytes"] == want["argument_bytes"],
+          f"dry run {label}: argument bytes {want['argument_bytes']} "
+          f"predicted, {real['argument_bytes']} real")
+    check(real["flops"] == want["flops"],
+          f"dry run {label}: {want['flops']} FLOPs predicted, "
+          f"{real['flops']} counted")
+    check(abs(peak - want["peak"]) <= bound,
+          f"dry run {label}: peak {want['peak']} predicted, {peak} "
+          f"measured, bound {bound}")
+    return {"label": label, "predicted": want, "real": real, "bound": bound}
+
+
+def _dry_single(torch, card_line):
+    """(a): phi3.5 8 layers, bf16, NULL_PLAN with kernels on, then off."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.partitioner import NULL_PLAN
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import cache_specs, params_and_specs
+    from repro_torch.models.model import init_cache, init_params
+    cfg = _cut("phi3.5-moe-42b", DRY_LAYERS)
+    b, rows, max_len = DRY_PREFILL
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(gen, cfg, torch.bfloat16, "cuda")
+    tok = torch.Generator().manual_seed(1)
+    tokens = {"prefill": torch.randint(0, cfg.vocab_size, (b, rows),
+                                       generator=tok, dtype=torch.int32),
+              "decode": torch.randint(0, cfg.vocab_size, (b, 1),
+                                      generator=tok, dtype=torch.int32)}
+    out = []
+    for kernels in ("on", "off"):
+        plan = dataclasses.replace(NULL_PLAN,
+                                   kernels=KernelPolicy.parse(kernels))
+        meta_params, _ = params_and_specs(cfg, plan)
+        for kind in ("prefill", "decode"):
+            step = dryrun.make_step(cfg, InputShape(kind, rows, b, kind),
+                                    plan, prefill_chunks=1)
+            decode = kind == "decode"
+
+            def real_args(kind=kind, decode=decode):
+                cache = init_cache(cfg, b, max_len, torch.bfloat16, "cuda")
+                if decode:
+                    cache["length"] = torch.tensor(
+                        DRY_DECODE_LENS, dtype=torch.int32, device="cuda")
+                    return params, tokens[kind].cuda(), cache
+                return params, {"tokens": tokens[kind].cuda()}, cache
+            cache = cache_specs(cfg, b, max_len, plan, vector_lengths=decode)
+            toks = torch.empty(tuple(tokens[kind].shape), dtype=torch.int32,
+                               device="meta")
+            meta_args = (meta_params, toks if decode else {"tokens": toks},
+                         cache)
+            out.append(_dry_compare(
+                torch, f"{cfg.name} {kind} {b} x "
+                       f"{1 if decode else rows} on a {b} x {max_len} cache,"
+                       f" kernels {kernels} [{card_line}]",
+                step, real_args, meta_args))
+            free_memory(torch)
+    return out
+
+
+def dry_mesh_rank(rank, world):
+    """(b): one rank's real decode step, then its dry run (own process)."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import collectives as C
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.launch.specs import cache_specs, params_and_specs
+    from repro_torch.models.model import init_cache, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(*DIST_MESH)
+    cfg = _cut("phi3.5-moe-42b", DRY_LAYERS)
+    b, max_len = DRY_MESH["batch"], DRY_MESH["max_len"]
+    shape = InputShape("decode", max_len, b, "decode")
+    plan = dryrun.plan_for(cfg, shape, mesh, "mixserve")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(gen, cfg, torch.bfloat16, "cuda", plan)
+    cache = init_cache(cfg, b, max_len, torch.bfloat16, "cuda", plan)
+    cache["length"] = torch.tensor(DRY_MESH["lens"], dtype=torch.int32,
+                                   device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (b, 1),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).cuda()
+    step = dryrun.make_step(cfg, shape, plan)
+    C.reset_counters()
+    step(params, tokens, cache)
+    torch.cuda.synchronize()
+    real = {"calls": dict(C.counters), "bytes": dict(C.byte_counters),
+            "argument_bytes": dryrun.argument_bytes((params, tokens, cache))}
+    layout = Mesh(mesh.axis_names, DIST_MESH, rank)      # no process group
+    plan = dryrun.plan_for(cfg, shape, layout, "mixserve")
+    meta_args = (params_and_specs(cfg, plan)[0],
+                 torch.empty(b, 1, dtype=torch.int32, device="meta"),
+                 cache_specs(cfg, b, max_len, plan))
+    m = dryrun.measure(dryrun.make_step(cfg, shape, plan), meta_args, layout)
+    meta = {"calls": dict(C.counters), "bytes": dict(C.byte_counters),
+            "argument_bytes": m["memory"]["argument_bytes"]}
+    return {"rank": rank, "real": real, "meta": meta,
+            "total": m["costs"]["collectives"]["bytes"]["total"]}
+
+
+def _dry_mesh(torch, card_line):
+    from repro_torch.launch.ranks import RankFailed, run_ranks
+    work = ROOT / "build" / "dryrun_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        ranks = run_ranks(dry_mesh_rank, 4, workdir=work, device="cuda",
+                          timeout_s=600)
+    except RankFailed as e:
+        raise SmokeError(f"dry run (b): {e}") from e
+    for r in ranks:
+        same = r["real"] == r["meta"]
+        print(f"[dryrun] (b) rank {r['rank']} decode, phi3.5 "
+              f"{DRY_LAYERS} layers, mixserve {DIST_MESH}: calls and bytes "
+              f"by (kind, axes) equal {same}; "
+              f"{sum(r['real']['calls'].values())} calls, "
+              f"{r['total']} bytes on the wire, arguments "
+              f"{r['real']['argument_bytes']} bytes [{card_line}]")
+        check(same, f"dry run (b) rank {r['rank']}: real {r['real']} "
+                    f"meta {r['meta']}")
+    return ranks
+
+
+def _dry_production_finish(proc):
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"dry run (c) failed: {err[-2000:]}")
+    recs = [json.loads(line) for line in out.splitlines() if line.strip()]
+    check(len(recs) == len(DRY_PRODUCTION), f"dry run (c): {len(recs)} "
+          f"records of {len(DRY_PRODUCTION)}")
+    for r in recs:
+        c = r["costs"]
+        print(f"[dryrun] (c) {r['arch']} {r['shape']} {r['mesh']} "
+              f"({r['n_devices']} ranks, rank 0): "
+              f"{r['peak_bytes'] / 2 ** 30:.2f} GiB a rank (arguments "
+              f"{r['memory']['argument_bytes'] / 2 ** 30:.2f}, step "
+              f"{r['memory']['temp_bytes'] / 2 ** 30:.2f}), fits "
+              f"{r['fits']}; {c['flops']:.4e} FLOPs; collective bytes "
+              f"{json.dumps(c['collectives']['bytes'])}; traced in "
+              f"{r['trace_s']}s (host)")
+        check(r["status"] == "ok" and r["fits"],
+              f"dry run (c) {r['arch']} {r['shape']} {r['mesh']}: {r}")
+    return recs
+
+
+def phase_dryrun(torch, card_line):
+    """Phase 9: (c) starts on the host first, (a) and (b) use the card."""
+    proc = _dry_production_start()
+    try:
+        single = _dry_single(torch, card_line)
+        free_memory(torch)
+        mesh = _dry_mesh(torch, card_line)
+        prod = _dry_production_finish(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"single": single, "mesh": mesh, "production": prod}
+
+
 def kernels_record(kres, launches):
     out = []
     for name, source, replaces in KERNELS:
@@ -5846,6 +6131,10 @@ def main() -> int:
     timed("train_mesh", phase_train_mesh, torch, card_line)
     free_memory(torch)
     entry = timed("entry", phase_entry, torch, card_line, kres)
+    free_memory(torch)
+    # the dry run's checks launch kernels only to compare with its
+    # prediction: no launches here
+    timed("dryrun", phase_dryrun, torch, card_line)
     launches: dict = {}
     for s in serves + [dist, entry] + [frontend[a] for a in FRONT_SERVES]:
         for k, v in s["launches"].items():

@@ -29,6 +29,22 @@ Every call counts one in ``counters[(kind, axes)]`` (kind ``all_to_all``,
 size 1 too, as the reference's traced program holds it; only a group of
 more than one rank communicates.  A collective that fails raises.
 
+A call whose group has more than one rank also adds its result's bytes
+(elements x item size) to ``byte_counters`` under the same key: the bytes
+that reach this rank over the wire, as the reference's
+``launch/hlo_analysis.py`` sums the result shapes of the post-SPMD
+program's collectives.  The port issues every collective itself, so this
+count takes the place of that HLO parse: there is no program text to
+read and no loop trip count to recover.  Both counters run on every
+device, so a dry run and a real run of one step can be compared;
+``reset_counters()`` clears both.
+
+The dry run (``launch/dryrun.py``).  An input on the meta device is
+counted exactly as above and returns a meta result of the collective's
+shape: no process group is asked for (a ``launch.mesh.Mesh`` built with
+``connect=False`` has none) and nothing is exchanged.  A CPU or CUDA
+input on a mesh without process groups still raises.
+
 Tensors go to the backend as they are: NCCL with one card per rank,
 gloo for ranks that share a card or run on the CPU (gloo takes CUDA tensors
 for all four ops and moves them through host memory itself).
@@ -120,6 +136,7 @@ import torch
 import torch.distributed as dist
 
 counters: collections.Counter = collections.Counter()
+byte_counters: collections.Counter = collections.Counter()
 
 # newer torch renames the dim-0 gather / reduce-scatter (same arguments)
 _gather_dim0 = getattr(dist, "all_gather_single",
@@ -132,6 +149,7 @@ BACKWARD = "backward"
 
 def reset_counters() -> None:
     counters.clear()
+    byte_counters.clear()
 
 
 def axis_size(mesh, axes) -> int:
@@ -161,14 +179,22 @@ def _issue(kind: str, mesh, axes, inp: torch.Tensor, out_shape, run,
     """Count the call, then run ``run(out, inp, group, async_op)`` on the
     group of ``axes``; ``post`` maps the raw output to the result.  A
     one-rank group returns ``post`` of ``inp`` reshaped, with no exchange.
-    A backward's call counts under ``(kind, axes, "backward")``."""
+    A backward's call counts under ``(kind, axes, "backward")``; a group
+    of more than one rank adds the result's bytes to ``byte_counters``.
+    A meta input returns ``post`` of a meta result, with no group."""
     axes = mesh.axes(axes)
-    counters[(kind, axes, BACKWARD) if backward else (kind, axes)] += 1
+    key = (kind, axes, BACKWARD) if backward else (kind, axes)
+    counters[key] += 1
     if mesh.axis_size(axes) == 1:
         res = post(inp.reshape(out_shape))
         return Pending(None, lambda: res) if async_op else res
     out = torch.empty(out_shape, dtype=inp.dtype, device=inp.device)
-    work = run(out, inp.contiguous(), mesh.group(axes), async_op)
+    byte_counters[key] += out.numel() * out.element_size()
+    inp = inp.contiguous()
+    if out.device.type == "meta":
+        res = post(out)
+        return Pending(None, lambda: res) if async_op else res
+    work = run(out, inp, mesh.group(axes), async_op)
     pend = Pending(work if async_op else None, lambda: post(out))
     return pend if async_op else pend.wait()
 
@@ -482,4 +508,5 @@ def share(x, mesh, axes):
 
 __all__ = ["all_to_all", "all_gather", "psum", "psum_scatter", "pmax",
            "pmean", "psum_grads", "copy_in", "scatter", "share", "axis_index",
-           "axis_size", "counters", "reset_counters", "Pending", "BACKWARD"]
+           "axis_size", "counters", "byte_counters", "reset_counters",
+           "Pending", "BACKWARD"]

@@ -6,12 +6,20 @@ Every wrapper validates device, dtype, shape and contiguity, then:
   and the kernels-on CPU path run there);
 * a CUDA tensor launches the kernel from ``build.load()`` on PyTorch's
   current stream, or raises — there is no fallback;
+* a meta tensor (the dry run, ``launch/dryrun.py``) makes the same checks
+  and allocates on the meta device exactly the outputs and scratch the
+  CUDA branch allocates; it launches nothing and counts no launch, but
+  adds the kernel's operation count to ``meta_flops[name]`` and the bytes
+  it moves to ``meta_bytes[name]`` (the work behind PERF.md's bound
+  column, taken from the shapes: attention over every key the buffers
+  hold, the grouped GEMM over every row of its buffer, the combine over
+  every slot);
 * an input that requires grad, under grad mode, raises on either device:
   the kernels have no backward (``_check_inputs``).
 
 ``counters[name]`` counts kernel launches (CUDA only), one per launch and
-nowhere else; ``reset_counters()`` zeroes them.  A run can read them to show
-that its path went through the kernels.
+nowhere else; ``reset_counters()`` zeroes them (and the meta counters).  A
+run can read them to show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -23,12 +31,30 @@ import torch
 from repro_torch.kernels import build, ref
 
 counters: collections.Counter = collections.Counter()
+meta_flops: collections.Counter = collections.Counter()
+meta_bytes: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh codes
+_DEVICES = ("cpu", "cuda", "meta")
 
 
 def reset_counters() -> None:
     counters.clear()
+    meta_flops.clear()
+    meta_bytes.clear()
+
+
+def _priced(name: str, flops: int, nbytes: int, out):
+    """The meta device's stand-in for a launch: the kernel's operations
+    and bytes go to ``meta_flops`` / ``meta_bytes``; ``out`` (its meta
+    outputs) is returned as the launch's would be."""
+    meta_flops[name] += int(flops)
+    meta_bytes[name] += int(nbytes)
+    return out
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -39,7 +65,7 @@ def _check(cond: bool, msg: str) -> None:
 def _check_inputs(name: str, floats: tuple, ints: tuple = (),
                   others: tuple = ()) -> torch.device:
     """The checks every wrapper makes of its tensors, in one pass: all on
-    one device, CPU or CUDA; ``floats`` of one dtype the kernels take;
+    one device, CPU, CUDA or meta; ``floats`` of one dtype the kernels take;
     ``ints`` int32; ``floats`` and ``ints`` contiguous (``others`` are held
     to the device alone).  Returns the device; raises ``ValueError`` for
     the first failure in that order, its message built only then.
@@ -57,7 +83,7 @@ def _check_inputs(name: str, floats: tuple, ints: tuple = (),
             f"(KernelPolicy.off())")
     dev = floats[0].device
     dt = floats[0].dtype
-    ok = dev.type in ("cpu", "cuda") and dt in _DTYPES
+    ok = dev.type in _DEVICES and dt in _DTYPES
     for t in floats:
         ok = ok and t.device == dev and t.dtype == dt and t.is_contiguous()
     for t in ints:
@@ -71,7 +97,7 @@ def _check_inputs(name: str, floats: tuple, ints: tuple = (),
     _check(all(t.device == dev for t in ts),
            "all tensors must be on one device, got "
            + ", ".join(str(t.device) for t in ts))
-    _check(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
+    _check(dev.type in _DEVICES, f"unsupported device {dev}")
     _check(dt in _DTYPES, f"{name}: dtype must be float32 or bfloat16, "
                           f"got {dt}")
     _check(all(t.dtype == dt for t in floats),
@@ -142,8 +168,11 @@ def flash_plan(b: int, sq: int, nq: int, nkv: int, hd: int,
 
 def _aligned(t):
     """t, or a copy of it whose data starts on 16 bytes (the kernels'
-    16-byte copies); torch's allocations always do."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    16-byte copies); torch's allocations always do (on the meta device,
+    which has no addresses, the view's offset into its storage decides)."""
+    at = t.storage_offset() * t.element_size() if t.device.type == "meta" \
+        else t.data_ptr()
+    return t if at % 16 == 0 else t.clone()
 
 
 def _flash_scratch(q, nq, nkv, hd, hdv) -> tuple:
@@ -162,13 +191,25 @@ def _flash_scratch(q, nq, nkv, hd, hdv) -> tuple:
     return rows, n_split, buf.data_ptr(), buf.data_ptr() + 4 * n_o, buf
 
 
-def _flash_dense(q, k, v, q_offset, q_len, kv_len, nkv, hd, hdv, scale):
-    """Launch the dense kernel on checked CUDA inputs."""
+def _attn_ops(q, n_keys: int, hd: int, hdv: int) -> int:
+    """Attention's operations with every one of ``n_keys`` keys a slot
+    visible to every query row: 2 (hd + hdv) a (row, head, key)."""
+    b, sq, nq = q.shape[:3]
+    return 2 * b * sq * nq * n_keys * (hd + hdv)
+
+
+def _flash_dense(q, k, v, q_offset, q_len, kv_len, nkv, hd, hdv, scale,
+                 name="flash_chunk"):
+    """Launch the dense kernel on checked CUDA inputs (on meta inputs,
+    price it under ``name``)."""
     b, sq, nq, _ = q.shape
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty(b, sq, nq, hdv, dtype=q.dtype, device=q.device)
     rows, n_split, part_o, part_ml, _keep = _flash_scratch(q, nq, nkv, hd,
                                                            hdv)
+    if q.device.type == "meta":
+        return _priced(name, _attn_ops(q, k.shape[1], hd, hdv),
+                       _nbytes(q, k, v, q_offset, q_len, kv_len, out), out)
     _launch(build.load().rt_flash_chunk, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), q_offset.data_ptr(), q_len.data_ptr(),
             kv_len.data_ptr(), out.data_ptr(), part_o, part_ml, b, sq, nq,
@@ -216,7 +257,9 @@ def flash_decode(q, k, v, lengths, *, scale=None):
     scale = float(hd ** -0.5 if scale is None else scale)
     out = _flash_dense(q[:, None], k, v, (lengths - 1).clamp_min(0),
                        lengths.clamp_max(1), lengths, nkv, hd, hdv,
-                       scale)[:, 0]
+                       scale, name)[:, 0]
+    if dev.type == "meta":
+        return out
     counters["flash_decode"] += 1
     return out
 
@@ -245,6 +288,12 @@ def flash_chunk_paged(q, k_pages, v_pages, block_tables, q_offset, q_len,
     out = torch.empty(b, sq, nq, hdv, dtype=q.dtype, device=dev)
     rows, n_split, part_o, part_ml, _keep = _flash_scratch(q, nq, nkv, hd,
                                                            hdv)
+    if dev.type == "meta":     # every key the block tables address
+        keys = block_tables.shape[1] * page
+        kv_bytes = b * keys * nkv * (hd + hdv) * q.element_size()
+        return _priced(name, _attn_ops(q, keys, hd, hdv),
+                       _nbytes(q, block_tables, q_offset, q_len, kv_len, out)
+                       + kv_bytes, out)
     _launch(build.load().rt_flash_chunk_paged, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             q_offset.data_ptr(), q_len.data_ptr(), kv_len.data_ptr(),
@@ -289,6 +338,8 @@ def topk_gate(logits, k: int, *, renorm: bool = True):
     # views that split it (chip_smoke.py's [host] router line)
     w = torch.empty(t, k, dtype=torch.float32, device=dev)
     idx = torch.empty(t, k, dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        return _priced(name, 5 * t * e, _nbytes(logits, w, idx), (w, idx))
     _launch(build.load().rt_topk_gate, logits.data_ptr(), w.data_ptr(),
             idx.data_ptr(), t, e, k, int(bool(renorm)),
             _DTYPES[logits.dtype], *topk_plan(t, e), _stream())
@@ -377,6 +428,8 @@ def moe_gemm(x, w):
         carry = torch.empty(ctas * 16 * mt * moe_gemm_bn(mt),
                             dtype=torch.float32, device=dev)
         flags = _moe_flags(dev)
+    if dev.type == "meta":
+        return _priced(name, 2 * e * c * h * d, _nbytes(x, w, out), out)
     _launch(build.load().rt_moe_gemm, x.data_ptr(), w.data_ptr(),
             out.data_ptr(), None if carry is None else carry.data_ptr(),
             None if flags is None else flags.data_ptr(), e, c, h, d, ctas,
@@ -414,6 +467,9 @@ def grouped_gemm(x, w, group_offsets):
     if dev.type == "cpu":
         return ref.grouped_gemm_ref(x, w, group_offsets)
     out = torch.empty(n, d, dtype=x.dtype, device=dev)
+    if dev.type == "meta":     # every row of the buffer, routed or not
+        return _priced(name, 2 * n * h * d,
+                       _nbytes(x, w, group_offsets, out), out)
     _launch(build.load().rt_grouped_gemm, x.data_ptr(), w.data_ptr(),
             group_offsets.data_ptr(), out.data_ptr(), n, h, d, e,
             grouped_gemm_visits(n, e), _DTYPES[x.dtype], _stream())
@@ -440,13 +496,18 @@ def permute_plan(n: int, row_bytes: int,
             -(-(row_bytes // unit) // PERMUTE_CHUNK), unit)
 
 
-def _gather(x, src_tok, total=None, seg_stride=0):
+def _gather(x, src_tok, total=None, seg_stride=0, name="permute_tokens"):
     """Launch a gather kernel (the ragged one where ``total`` is given) on
-    checked CUDA inputs."""
+    checked CUDA inputs (on meta inputs, price it under ``name``: the
+    rows it reads and writes)."""
     x = _aligned(x)
     t, h = x.shape
     n = src_tok.shape[0]
     out = x.new_empty(n, h)     # x's dtype and device: no keywords to parse
+    if x.device.type == "meta":
+        extra = () if total is None else (total,)
+        return _priced(name, 0, 2 * _nbytes(out) + _nbytes(src_tok, *extra),
+                       out)
     es = x.element_size()
     gx, gy, _ = permute_plan(n, h * es, es)
     lib = build.load()
@@ -469,6 +530,8 @@ def permute_tokens(x, src_tok):
     if dev.type == "cpu":
         return ref.permute_tokens_ref(x, src_tok)
     out = _gather(x, src_tok)
+    if dev.type == "meta":
+        return out
     counters["permute_tokens"] += 1
     return out
 
@@ -497,7 +560,9 @@ def permute_tokens_ragged(x, src_tok, total, *, seg_stride=None):
                                              seg_stride=seg_stride)
     if n == 0:
         return torch.empty(0, x.shape[1], dtype=x.dtype, device=dev)
-    out = _gather(x, src_tok, total, seg_stride)
+    out = _gather(x, src_tok, total, seg_stride, name)
+    if dev.type == "meta":
+        return out
     counters[name] += 1
     return out
 
@@ -553,6 +618,10 @@ def unpermute_tokens(buf, src_slot, weights):
     _check(m > 0 or t == 0, f"{name}: empty buf with {t} tokens to combine")
     buf = _aligned(buf)
     out = torch.empty(t, h, dtype=buf.dtype, device=dev)
+    if dev.type == "meta":     # every slot's row, weighted and summed
+        return _priced(name, 2 * t * k * h,
+                       (t * k + t) * h * buf.element_size()
+                       + _nbytes(src_slot, weights), out)
     es = buf.element_size()
     gx, gy, rows, _ = unpermute_plan(t, k, h * es, es)
     _launch(build.load().rt_unpermute_tokens, buf.data_ptr(),

@@ -56,7 +56,14 @@ def grouped_gemm_ref(x, w, group_offsets):
     Rows at/after ``offsets[-1]`` are exact zeros.  An empty segment still
     runs its 0-row product, so that under autograd the output joins the
     graph of ``x`` and ``w`` whatever the routing: every rank of a mesh
-    then builds the same backward, collectives included."""
+    then builds the same backward, collectives included.
+
+    On the meta device (the dry run) the offsets are values it cannot
+    read: one (N, H) @ (H, D) product gives the result's shape and the
+    2·N·H·D operations at which XLA prices the reference's ``ragged_dot``
+    (every row of the buffer, routed or not), under autograd too."""
+    if x.device.type == "meta":
+        return (x.float() @ w[0].float()).to(x.dtype)
     n = x.shape[0]
     out = torch.zeros(n, w.shape[-1], dtype=x.dtype, device=x.device)
     off = [int(o) for o in group_offsets.tolist()]

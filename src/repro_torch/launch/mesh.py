@@ -208,6 +208,15 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(names, shape, dist.get_rank(), connect=True)
 
 
+def production_layout(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """The production mesh's layout seen from ``rank``, with no process
+    group (``connect=False``): what the dry run (``launch/dryrun.py``)
+    plans and prices on without the 256 or 512 ranks."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16), rank)
+    return Mesh(("data", "model"), (16, 16), rank)
+
+
 def make_host_mesh(data: int = 2, model: int = 2, pod: int = 0) -> Mesh:
     """The mesh ``(data, model)``, or ``(pod, data, model)`` when ``pod``,
     over the initialised process group; this process is its rank."""
@@ -218,5 +227,6 @@ def make_host_mesh(data: int = 2, model: int = 2, pod: int = 0) -> Mesh:
                 connect=True)
 
 
-__all__ = ["Mesh", "make_host_mesh", "make_production_mesh", "init_ranks",
+__all__ = ["Mesh", "make_host_mesh", "make_production_mesh",
+           "production_layout", "init_ranks",
            "pick_backend", "rank_device", "rank_layout", "torchrun_ranks"]

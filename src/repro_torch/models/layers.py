@@ -286,19 +286,31 @@ def write_cache(buf, new, idx, valid_len=None):
                    unified step's ragged tail), and rows past ``S`` are
                    dropped, so an idle slot never touches its buffer; with
                    s == 1 and no ``valid_len``, the one-row decode write
+
+    A 0-d tensor offset and the one-row decode write read no value on the
+    host (so they run on the meta device, as the dry run's prefill and
+    decode do): the slice is an ``index_copy_`` at the clamped rows, and a
+    decode slot whose row lies outside the buffer writes its own old row
+    back to the one cell it addresses (every slot a distinct cell).
     """
     b, skv = buf.shape[:2]
     s = new.shape[1]
     new = new.to(buf.dtype)
-    if not torch.is_tensor(idx) or idx.dim() == 0:
+    if not torch.is_tensor(idx):
         start = min(max(int(idx), 0), skv - s)
         buf[:, start:start + s] = new
         return buf
+    if idx.dim() == 0:
+        rows = idx.long().clamp(0, skv - s) \
+            + torch.arange(s, device=buf.device)
+        return buf.index_copy_(1, rows, new)
     if s == 1 and valid_len is None:        # classic decode: one row a slot
         rows = idx.long()
         ok = (rows >= 0) & (rows < skv)
         bi = torch.arange(b, device=buf.device)
-        buf.index_put_((bi[ok], rows[ok]), new[:, 0][ok])
+        rows = rows.clamp(0, skv - 1)
+        ok = ok.reshape((b,) + (1,) * (new.dim() - 2))
+        buf[bi, rows] = torch.where(ok, new[:, 0], buf[bi, rows])
         return buf
     r = torch.arange(s, device=buf.device)[None]
     rows = idx.long()[:, None] + r                               # (b, s)

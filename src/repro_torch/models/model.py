@@ -558,18 +558,27 @@ def embed_tokens(table, tokens, cfg: ModelConfig,
     return x
 
 
-def lm_head(x, head, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN):
+def lm_head(x, head, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
+            gather: bool = True):
     """Logits (b, s, padded_vocab) of this rank's rows x (b, s, h).  With
     TP ``head`` is this rank's vocab block; its padding columns are masked
     at their global index, and the blocks are gathered along vocab over
     the TP axes and along batch over the batch axes, so every rank
-    returns every row's logits."""
+    returns every row's logits.  ``gather=False`` returns the rank's
+    block itself, its rows and vocab columns (the vocab-parallel loss of
+    ``training.train_step`` reads it)."""
     logits = x @ head
     v0 = _vocab_start(plan, head.shape[1])
     if cfg.padded_vocab != cfg.vocab_size:   # mask padding columns
         logits[..., max(0, cfg.vocab_size - v0):] = L.NEG_INF
-    # every rank computes the loss on the whole logits: its gradient of
-    # them is whole, and each block's is its own
+    return gather_logits(logits, plan) if gather else logits
+
+
+def gather_logits(logits, plan: ShardingPlan = NULL_PLAN):
+    """This rank's block of the logits (its rows, its vocab columns)
+    gathered whole: along vocab over the TP axes, along batch over the
+    batch axes.  Every rank uses the whole logits alike, so its gradient
+    of them is whole, and each block's is its own."""
     if plan.tp > 1:
         logits = C.all_gather(logits, plan.mesh, plan.tp_axes, axis=-1,
                               grad="whole")
@@ -647,7 +656,7 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
             tokens=None, embeds=None, frames=None, positions=None,
             cache=None, q_lens=None, last_only: bool = False,
             logit_rows=None, expert_stats: bool = False,
-            remat: bool = False) -> Output:
+            remat: bool = False, local_logits: bool = False) -> Output:
     """The forward pass, in the reference's modes.
 
     tokens  (b, s_text) int  — None for a pure-embedding input
@@ -693,6 +702,10 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
                           ``jax.checkpoint`` of its scanned layer body); the
                           recompute's outputs are discarded, so nothing the
                           forward returns is counted twice
+    local_logits          on a mesh, return this rank's block of the
+                          logits (its batch rows, its vocab columns) instead
+                          of gathering them whole on every rank
+                          (``lm_head(gather=False)``)
     """
     if q_lens is not None and cache is None:
         raise ValueError("q_lens (unified mixed step) requires a cache")
@@ -776,7 +789,7 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN, *,
     if not seq_sharded:
         x = plan.copy_in(x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = lm_head(x, head, cfg, plan)
+    logits = lm_head(x, head, cfg, plan, gather=not local_logits)
     if cache is not None:
         length.add_(s if q_lens is None else q_lens)
     return Output(logits=logits, cache=cache, aux=aux_total,
@@ -787,4 +800,5 @@ __all__ = ["Group", "layer_plan", "model_spec", "sublayer_spec",
            "group_spec", "xattn_spec", "enc_layer_spec", "encode_audio",
            "init_params", "count_params", "init_cache",
            "init_paged_cache", "apply_sublayer", "embed_tokens", "lm_head",
+           "gather_logits",
            "forward", "Output"]

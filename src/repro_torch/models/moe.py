@@ -248,12 +248,23 @@ class DroplessInfo:
     weights: torch.Tensor  # (T*k,) routing weights per slot
 
 
+def expert_counts(idx, n_experts: int):
+    """(E,) int32 slots routed to each expert, from expert ids ``idx`` of
+    any shape: a scatter-add of ones over zeros, the integers
+    ``torch.bincount`` gives, and it runs on the meta device too (bincount
+    has no meta kernel)."""
+    flat = idx.reshape(-1).long()
+    counts = torch.zeros(n_experts, dtype=torch.int32, device=idx.device)
+    return counts.scatter_add_(0, flat, torch.ones(flat.shape,
+                                                   dtype=torch.int32,
+                                                   device=idx.device))
+
+
 def make_dropless(idx, weights, n_experts: int) -> DroplessInfo:
     flat_e = idx.reshape(-1)
     n = flat_e.shape[0]
     order = torch.sort(flat_e, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(flat_e.long(), minlength=n_experts) \
-        .to(torch.int32)
+    counts = expert_counts(flat_e, n_experts)
     offsets = torch.cat([torch.zeros(1, dtype=torch.int32,
                                      device=idx.device),
                          torch.cumsum(counts, 0).to(torch.int32)])
@@ -370,9 +381,7 @@ def moe_local(p, x, cfg: ModelConfig,
         out_buf = expert_ffn(p, buf, cfg, use_kernel=policy.moe_gemm)
         out = gather_from_buffers(out_buf, d, t,
                                   use_kernel=policy.fused_permute)
-        counts = torch.bincount(idx.reshape(-1).long(),
-                                minlength=cfg.n_experts).to(torch.int32) \
-            if with_stats else None
+        counts = expert_counts(idx, cfg.n_experts) if with_stats else None
     if cfg.n_shared_experts:
         out = out + shared_expert_ffn(p, tok, cfg)
     out = out.reshape(b, s, h).to(x.dtype)
@@ -401,8 +410,7 @@ def _routed_counts_stat(idx, e_global: int, mesh, mesh_axes: tuple,
     """(E,) int32 global routed-slot counts, replicated.  Tokens are
     sharded over the non-TP mesh axes (and over TP too when token-sliced);
     sum those partials, keep the TP replication."""
-    c = torch.bincount(idx.reshape(-1).long(), minlength=e_global) \
-        .to(torch.int32)
+    c = expert_counts(idx, e_global)
     cnt_axes = [a for a in mesh_axes if a not in tp_axes]
     if token_sliced:
         cnt_axes += [a for a in tp_axes if a not in cnt_axes]
@@ -810,6 +818,7 @@ __all__ = ["moe_spec", "moe_block", "moe_rank", "moe_local", "route_topk",
            "make_dispatch", "scatter_to_buffers", "gather_from_buffers",
            "expert_ffn", "capacity_for", "positions_in_expert",
            "DispatchInfo", "dispatch_src_tok", "dispatch_src_slot",
-           "resolve_dispatch", "DroplessInfo", "make_dropless", "gather_rows",
-           "combine_rows", "grouped_ffn", "shared_expert_ffn",
+           "resolve_dispatch", "DroplessInfo", "make_dropless",
+           "expert_counts", "gather_rows", "combine_rows", "grouped_ffn",
+           "shared_expert_ffn",
            "exchange_counts"]

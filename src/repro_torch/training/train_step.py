@@ -8,10 +8,12 @@ with kernels on raises at the first kernel the forward reaches
 instead of keeping its activations (``forward(remat=)``).
 
 On a mesh (``plan.enabled``) every rank is handed the whole batch; the
-forward takes the rank's rows (``plan.rows``) and gathers the logits back,
-so every rank computes the same loss: the whole batch's mean
-cross-entropy plus the coefficient times the mesh's router aux (the mean
-of every rank's, ``models.moe``).  Each rank's gradients are those of its
+forward takes the rank's rows (``plan.rows``) and returns its block of the
+logits (its rows, its vocab columns), and the loss is vocab-parallel
+(``sharded_cross_entropy``), so every rank computes the same loss, the
+whole batch's mean cross-entropy, plus the coefficient times the mesh's
+router aux (the mean of every rank's, ``models.moe``), and no rank holds
+the whole logits.  Each rank's gradients are those of its
 stored blocks after ``core.collectives``' reductions, the same blocks of
 the single-device step's.  The batch axes must divide the batch, and
 ``microbatches`` the rank's rows: microbatch i holds the batch's i-th
@@ -51,6 +53,46 @@ def cross_entropy(logits, labels, mask=None):
     return nll.mean()
 
 
+def sharded_cross_entropy(logits, labels, plan: ShardingPlan, mask=None):
+    """``cross_entropy`` of the whole batch from this rank's block of the
+    logits: ``logits`` (b_loc, s, v_loc) its rows (``plan.rows``) and
+    vocab columns, ``labels`` (and ``mask``) of the whole batch.  The
+    log-sum-exp and the gold logit are summed over the TP axes (each
+    rank's block against the max over them, which carries no gradient),
+    the negative log likelihood over the batch axes; every rank gets the
+    same loss and, through the sums' ``grad="whole"`` backward, the
+    gradient of its own block.  float32 throughout."""
+    mesh, b = plan.mesh, labels.shape[0]
+    rows = plan.rows(b)
+    labels = labels[rows]
+    logits = logits.float()
+    v_loc = logits.shape[-1]
+    top = logits.amax(-1, keepdim=True).detach()
+    v0 = 0
+    if plan.tp > 1:
+        top = C.pmax(top, mesh, plan.tp_axes)
+        v0 = C.axis_index(mesh, plan.tp_axes) * v_loc
+    sumexp = torch.exp(logits - top).sum(-1)
+    onehot = labels[..., None] == torch.arange(v0, v0 + v_loc,
+                                               device=logits.device)
+    gold = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    if plan.tp > 1:
+        sumexp = C.psum(sumexp, mesh, plan.tp_axes)
+        gold = C.psum(gold, mesh, plan.tp_axes)
+    nll = top[..., 0] + torch.log(sumexp) - gold
+    if mask is not None:
+        mask = mask[rows]
+        num, den = (nll * mask).sum(), mask.sum()
+    else:
+        num = nll.sum()
+        den = torch.tensor(float(b * nll.shape[1]), device=nll.device)
+    if plan.batch_sharded(b):
+        num = C.psum(num, mesh, plan.dp_axes)
+        if mask is not None:
+            den = C.psum(den, mesh, plan.dp_axes)
+    return num / torch.clamp(den, min=1.0)
+
+
 def loss_fn(params, batch, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN,
             *, remat: bool = True):
     """batch: {tokens, labels[, mask, embeds, frames]} -> (loss, {ce, aux}).
@@ -63,8 +105,13 @@ def loss_fn(params, batch, cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN,
         plan = dataclasses.replace(plan, dispatch_mode="capacity")
     out = forward(params, cfg, plan, tokens=batch["tokens"],
                   embeds=batch.get("embeds"), frames=batch.get("frames"),
-                  remat=remat)
-    ce = cross_entropy(out.logits, batch["labels"], batch.get("mask"))
+                  remat=remat, local_logits=plan.enabled)
+    if plan.enabled:
+        ce = sharded_cross_entropy(
+            out.logits, batch["labels"],
+            plan.for_batch(batch["labels"].shape[0]), batch.get("mask"))
+    else:
+        ce = cross_entropy(out.logits, batch["labels"], batch.get("mask"))
     loss = ce + cfg.router_aux_coef * out.aux
     return loss, {"ce": ce, "aux": out.aux}
 
@@ -206,5 +253,6 @@ def make_train_step(cfg: ModelConfig, plan: ShardingPlan = NULL_PLAN,
                              accum_dtype=accum_dtype)
 
 
-__all__ = ["cross_entropy", "loss_fn", "value_and_grad", "reduce_grads",
-           "check_microbatches", "train_step", "make_train_step"]
+__all__ = ["cross_entropy", "sharded_cross_entropy", "loss_fn",
+           "value_and_grad", "reduce_grads", "check_microbatches",
+           "train_step", "make_train_step"]

@@ -344,13 +344,13 @@ def fsdp_blocks(weights, meshes):
 
 
 def census(weights, meshes):
-    """The collectives of a phi3.5 forward with grad off, of one
-    ``value_and_grad`` (no remat) on the same plan (mixserve 2x2, sp and
-    fsdp on), and of a ``train_step`` whole and in two microbatches with
-    fsdp off (the replicated leaves' gradients summed over "data")."""
+    """The collectives of a phi3.5 ``loss_fn`` (its forward and the
+    vocab-parallel loss) with grad off, of one ``value_and_grad`` (no
+    remat) on the same plan (mixserve 2x2, sp and fsdp on), and of a
+    ``train_step`` whole and in two microbatches with fsdp off (the
+    replicated leaves' gradients summed over "data")."""
     from repro_torch.bridge import from_reference
     from repro_torch.core import collectives as C
-    from repro_torch.models.model import forward
     from repro_torch.training import optimizer as O
     from repro_torch.training import train_step as TS
     arch = "phi3.5-moe-42b"
@@ -362,7 +362,7 @@ def census(weights, meshes):
     b = batches(cfg, arch, F64_BATCH)[0]
     C.reset_counters()
     with torch.no_grad():
-        forward(local, cfg, plan, tokens=b["tokens"])
+        TS.loss_fn(local, b, cfg, plan, remat=False)
     off = dict(C.counters)
     C.reset_counters()
     TS.value_and_grad(local, b, cfg, plan, remat=False)

@@ -361,3 +361,88 @@ def test_every_kernel_wrapper_refuses_autograd_on_the_cpu(monkeypatch):
         assert ran and not (out[0] if isinstance(out, tuple)
                             else out).requires_grad, name
         ran.clear()
+
+
+def test_unconnected_mesh_refuses_a_real_collective():
+    """The dry run's meta branch is taken for a meta input only: a CPU
+    tensor on a mesh with no process group still raises, counted first."""
+    from repro_torch.core import collectives as C
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(("data", "model"), (2, 2), 0)
+    C.reset_counters()
+    with pytest.raises(RuntimeError, match="no process group"):
+        C.psum(torch.ones(3), mesh, "model")
+    out = C.all_gather(torch.ones(3, 2, device="meta"), mesh, "model",
+                       axis=0)
+    assert out.device.type == "meta" and out.shape == (6, 2)
+    assert C.byte_counters[("all_gather", ("model",))] == 6 * 2 * 4
+    C.reset_counters()
+    assert not C.counters and not C.byte_counters
+
+
+def test_every_kernel_wrapper_on_meta_launches_nothing(monkeypatch):
+    """A meta tensor through every wrapper: outputs of the CUDA branch's
+    shapes and dtypes on the meta device, no launch, no launch counted
+    and the library never loaded; the compute kernels price their work."""
+    from repro_torch.kernels import build, ops
+
+    def no_build():
+        raise AssertionError("a meta call reached the kernel library")
+    monkeypatch.setattr(build, "load", no_build)
+    ops.reset_counters()
+    cpu = {n: call(False) for n, call in wrapper_calls().items()}
+    for name, call in wrapper_calls("meta").items():
+        out = call(False)
+        for got, want in zip(*(o if isinstance(o, tuple) else (o,)
+                               for o in (out, cpu[name]))):
+            assert got.device.type == "meta", name
+            assert (got.shape, got.dtype) == (want.shape, want.dtype), name
+        assert ops.meta_bytes[name] > 0, name
+        assert (ops.meta_flops[name] > 0) \
+            == (not name.startswith("permute")), name
+    assert not ops.counters
+    ops.reset_counters()
+    assert not ops.meta_flops and not ops.meta_bytes
+
+
+def test_plain_grouped_gemm_on_meta_reads_no_offset():
+    """The offsets are values the meta device does not hold: the plain
+    body prices every row of its buffer (2 N H D) without reading them."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import ref
+    x = torch.empty(37, 16, device="meta")
+    w = torch.empty(5, 16, 8, device="meta")
+    offsets = torch.empty(6, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="meta"):
+        offsets.tolist()
+    with FlopCounterMode(display=False) as fc:
+        out = ref.grouped_gemm_ref(x, w, offsets)
+    assert out.device.type == "meta" and out.shape == (37, 8)
+    assert fc.get_total_flops() == 2 * 37 * 16 * 8
+
+
+def test_reading_a_meta_routing_value_raises():
+    """A plan whose exchange is count-bounded reads its overflow flag to
+    the host: on the meta device that raises, and nothing guesses it."""
+    import repro_torch.configs as RC
+    from repro_torch.core.cost_model import EpOverlap
+    from repro_torch.core.partitioner import make_plan
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import _sliced
+    from repro_torch.models import moe as M
+    cfg = RC.get_reduced("phi3.5-moe-42b")
+    plan = make_plan("mixserve", Mesh(("data", "model"), (2, 2), 0),
+                     dispatch="dropless",
+                     ep_overlap=EpOverlap(chunks=2, cap_rows=4))
+    keep = plan.keep_hook(cfg)
+    p = {k: torch.empty(_sliced(d.shape, keep(None, d)), device="meta")
+         for k, d in M.moe_spec(cfg).items()}
+    x = torch.empty(2, 8, cfg.d_model, device="meta")
+    with torch.no_grad(), pytest.raises(RuntimeError, match="meta"):
+        M.moe_rank(p, x, cfg, plan)
+    # the monolithic exchange reads no value
+    plan = make_plan("mixserve", plan.mesh, dispatch="dropless")
+    with torch.no_grad():
+        out, _aux = M.moe_rank(p, x, cfg, plan)
+    assert out.device.type == "meta" and out.shape == x.shape
