@@ -278,6 +278,39 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                  and prefill_32k, on the 16x16 and 2x16x16 meshes: GiB a
                  rank, FLOPs, collective bytes by kind; every one fits the
                  card
+ 10 autotune the launch-plan cache (``kernels/autotune.py``), its file a
+             temp file outside the checkout; phases 0-9 run with
+             REPRO_TORCH_AUTOTUNE_CACHE="" (set at the top of ``main``),
+             so no file on the host changes the plans they check:
+             (a) bf16, full width: ``autotune.tune`` over every valid plan
+                 of attention on the page pool, the router gate and the
+                 combine at phase 2's phi3.5 step (and at (c)'s step),
+                 phase 2's phi3.5 capacity GEMM (w_out), deepseek-v2's
+                 gate and dense attention; each candidate held to the
+                 plain version at phase 2's tolerance, the gate's and the
+                 combine's bit for bit across candidates; a plan the
+                 kernel refuses raises before any launch; each candidate's
+                 ms (CUDA events, the median of 20) beside the analytic
+                 plan's, the fastest registered;
+             (b) a registered attention plan whose n_split is not
+                 flash_plan's, at gemma-2b's step: paged == dense bitwise;
+             (c) a fresh process on that file, after kv_page {page: 32}
+                 and resolver {batch_cap: 4, itl_slack_pct: 25} were
+                 registered: the resolved spec's provenance reads
+                 autotune:measured for the page, the batch cap and the
+                 ITL slack; phi3.5-moe-42b at full width, 2 of 32 layers,
+                 bf16, 4 prompts of 64-256 tokens, 8 new, through
+                 LLM.from_spec: launches exact per step, the plans it
+                 read the tuned ones; the same serve on the same knobs
+                 with no registered plan: the first differing token of
+                 each stream;
+             (d) one all-decode step of (c)'s serve (the engine's
+                 device-side body) under ``trace_contract.sync_issues``:
+                 every synchronizing line is one lint rule R2 flags under
+                 an audited ``disable=R2``;
+             (e) host microseconds a call of the four wrappers that look
+                 a plan up, at tiny shapes: with the cache hit, with the
+                 analytic plan recomputed per call, and the lookup alone
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5905,6 +5938,453 @@ def phase_dryrun(torch, card_line):
     return {"single": single, "mesh": mesh, "production": prod}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: autotune
+# ---------------------------------------------------------------------------
+
+AT_ARCH, AT_LAYERS = "phi3.5-moe-42b", 2     # (c): the fresh process's serve
+AT_LENS = (64, 256, 100, 180)                 # its 4 prompts
+AT_NEW = 8
+AT_PAGE, AT_CAP, AT_SLACK = 32, 4, 25         # (c)'s registered resolver tier
+AT_FLASH = [{"rows": r, "n_split": s} for r in (64, 128)
+            for s in (1, 2, 4, 8, 16)]
+AT_ITERS = 20
+
+
+def at_spec():
+    """(c)'s serve: the batch cap, the chunk (ITL slack) and the page left
+    to the resolver, which reads them from the registrations."""
+    from repro_torch.serving.api import ServeSpec
+    return ServeSpec(arch=AT_ARCH, kernels="auto", reduced=False, seed=0,
+                     prompt_len=max(AT_LENS), max_new_tokens=AT_NEW)
+
+
+def _at_cands(default, extra, bad):
+    """The candidates of a sweep: the analytic plan first, then ``extra``
+    (no repeats), then one the kernel refuses."""
+    out = [default] + [c for c in extra if c != default]
+    return out + [bad]
+
+
+def _at_sweep(torch, label, op, fn, args, cands, plain, tol, bitwise):
+    """Hold every valid candidate's output to ``plain`` within ``tol`` and,
+    with ``bitwise``, to the analytic plan's bit for bit; then time them
+    all through ``autotune.tune`` (CUDA events, the median of AT_ITERS),
+    which registers the fastest.  A refused candidate must raise
+    ``ValueError`` before any launch.  Returns the sweep's record."""
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import ops
+    key = AT.key_shape(op, args)
+    out_of = lambda o: o if isinstance(o, tuple) else (o,)
+    outs = []
+    for c in cands:
+        n0 = sum(ops.counters.values())
+        try:
+            AT.check_plan(op, key, args[0].dtype, c)
+        except ValueError:
+            try:
+                fn(*args, **c)
+            except ValueError:
+                check(sum(ops.counters.values()) == n0,
+                      f"{label}: refused plan {c} launched")
+                outs.append(None)
+                continue
+            raise SmokeError(f"{label}: the wrapper launched {c}, which "
+                             "check_plan refuses")
+        outs.append(fn(*args, **c))
+    torch.cuda.synchronize()
+    ok_tol, same = [], []
+    first = out_of(outs[0])
+    for o in outs:
+        if o is None:
+            continue
+        o = out_of(o)
+        ok_tol.append(all(within(torch, a, b, *tol)
+                          for a, b in zip(o, out_of(plain))))
+        same.append(all(torch.equal(a, b) for a, b in zip(o, first)))
+    timings = []
+    best = AT.tune(op, fn, cands, *args, iters=AT_ITERS, timings=timings)
+    rec = {"label": label, "key": list(key), "default": cands[0],
+           "winner": best, "within_tol": all(ok_tol),
+           "bitwise_across": all(same),
+           "candidates": [{"plan": p, "ms": ms, "within_tol": t,
+                           "bitwise_to_default": s}
+                          for (p, ms), t, s in zip(
+                              [x for x in timings if x[1] is not None],
+                              ok_tol, same)]
+           + [{"plan": p, "ms": None, "refused": True}
+              for p, ms in timings if ms is None]}
+    d_ms = timings[0][1]
+    print(f"[autotune] {label} key {tuple(key)}: analytic {cands[0]} "
+          f"{d_ms:.4f} ms | "
+          + " | ".join(f"{p} {ms:.4f} ms" if ms is not None
+                       else f"{p} refused" for p, ms in timings[1:])
+          + f" | winner {best}; within tol {rec['within_tol']}, bitwise "
+          f"across candidates {rec['bitwise_across']}")
+    check(rec["within_tol"], f"{label}: a candidate plan disagrees with "
+                             "the plain version")
+    check(not bitwise or rec["bitwise_across"],
+          f"{label}: candidate plans give different bits")
+    check(AT.lookup(op, key, args[0].dtype) == best,
+          f"{label}: the winner was not registered under the wrapper's key")
+    return rec
+
+
+def _at_attention(torch, rng, label, b, sq, nq, nkv, hd, hdv, max_len,
+                  paged, dev):
+    """Attention at a serve's step: a prefill chunk mid-cache, a decode at
+    the cache's end, a prompt's first rows, an idle slot (as phase 2)."""
+    q_off = ([max(0, max_len // 2 - sq), max_len - 1, 0, 0] + [0] * b)[:b]
+    q_len = ([sq, 1, min(37, sq), 0] + [0] * b)[:b]
+    kv_len = [o + n for o, n in zip(q_off, q_len)]
+    ops, ref = _ops()
+    if paged:
+        page = 16
+        args = _paged_case(torch, rng, b=b, sq=sq, nq=nq, nkv=nkv, hd=hd,
+                           hdv=hdv, page=page, nb=max_len // page,
+                           n_pages=b * (max_len // page), q_off=q_off,
+                           q_len=q_len, kv_len=kv_len,
+                           dtype=torch.bfloat16, dev=dev)
+        fn, plain_fn = ops.flash_chunk_paged, ref.flash_chunk_paged_ref
+    else:
+        args = _dense_case(torch, rng, b=b, sq=sq, nq=nq, nkv=nkv, hd=hd,
+                           hdv=hdv, skv=max_len, q_off=q_off, q_len=q_len,
+                           kv_len=kv_len, dtype=torch.bfloat16, dev=dev)
+        fn, plain_fn = ops.flash_chunk, ref.flash_chunk_ref
+    default = dict(zip(("rows", "n_split"),
+                       ops.flash_plan(b, sq, nq, nkv, hd, hdv)))
+    cands = _at_cands(default, [c for c in AT_FLASH
+                                if c["rows"] == 64 or hd <= 256],
+                      {"rows": 64, "n_split": ops.FLASH_MAX_SPLIT + 1})
+    plain = plain_fn(*args)
+    rec = _at_sweep(torch, label, "flash", fn, args, cands, plain,
+                    FLASH_TOL["bfloat16"], False)
+    # the open question: do the bits move with rows at one n_split?
+    by_split = {}
+    for c in cands[:-1]:
+        by_split.setdefault(c["n_split"], []).append(fn(*args, **c))
+    rec["rows_change_bits"] = any(not torch.equal(v[0], x)
+                                  for v in by_split.values() for x in v[1:])
+    print(f"[autotune] {label}: rows changes the bits at one n_split: "
+          f"{rec['rows_change_bits']}")
+    return rec
+
+
+def _at_tune(torch, card_line, shapes, phi, ds):
+    """(a): the sweeps at each (label, B, chunk, max_len) step of
+    ``shapes`` (attention on the page pool, the router gate, the combine)
+    plus phase 2's phi3.5 capacity GEMM (``phi``'s C) and deepseek's gate
+    and dense attention at its serve's step (``ds``)."""
+    import numpy as np
+    ops, ref = _ops()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    recs = []
+    for label, b, sq, max_len in shapes:
+        recs.append(_at_attention(torch, rng, f"{label} attention paged", b,
+                                  sq, 32, 8, 128, 128, max_len, True, dev))
+        t = b * sq
+        lg = torch.from_numpy(rng.standard_normal((t, 16), np.float32)) \
+            .to(dev, torch.bfloat16)
+        default = {"warps": ops.topk_plan(t, 16)[1]}
+        recs.append(_at_sweep(
+            torch, f"{label} router gate", "topk_gate", ops.topk_gate,
+            (lg, 2), _at_cands(default, [{"warps": w} for w in (1, 2, 4, 8)],
+                               {"warps": 3}),
+            ref.topk_gate_ref(lg, 2), (1e-6, 0.0), True))
+        buf = torch.from_numpy(rng.standard_normal((t * 2, 4096),
+                                                   np.float32)) \
+            .to(dev, torch.bfloat16)
+        slot = _i32(torch, rng.permutation(t * 2).reshape(t, 2), dev)
+        w = torch.from_numpy(rng.random((t, 2), np.float32)).to(dev)
+        es = 2
+        default = {"rows": ops.unpermute_plan(t, 2, 4096 * es, es)[2]}
+        recs.append(_at_sweep(
+            torch, f"{label} combine", "unpermute_tokens",
+            ops.unpermute_tokens, (buf, slot, w),
+            _at_cands(default, [{"rows": 1}, {"rows": 2}], {"rows": 3}),
+            ref.unpermute_tokens_ref(buf, slot, w),
+            UNPERMUTE_TOL["bfloat16"], True))
+    # phase 2's phi3.5 capacity GEMM (w_out: the widest H) and deepseek's
+    e, c, h, d = 16, phi["C"], 6400, 4096
+    x = torch.from_numpy(rng.standard_normal((e, c, h), np.float32)) \
+        .to(dev, torch.bfloat16)
+    wt = (0.02 * torch.randn(e, h, d, device=dev)).to(torch.bfloat16)
+    ctas, units, _, _ = ops.moe_gemm_plan(e, c, h, d)
+    recs.append(_at_sweep(
+        torch, "phi3.5 capacity w_out", "moe_gemm", ops.moe_gemm, (x, wt),
+        _at_cands({"ctas": ctas}, [{"ctas": n} for n in (
+            ops.SMS // 2, ops.SMS // 4, ops.SMS - 4) if n <= units],
+            {"ctas": min(ops.SMS, units) + 1}),
+        ref.moe_gemm_ref(x, wt), TOL["bfloat16"], False))
+    del x, wt
+    t = ds["max_batch"] * ds["chunk"]
+    lg = torch.from_numpy(rng.standard_normal((t, 160), np.float32)) \
+        .to(dev, torch.bfloat16)
+    recs.append(_at_sweep(
+        torch, "deepseek router gate", "topk_gate", ops.topk_gate, (lg, 6),
+        _at_cands({"warps": ops.topk_plan(t, 160)[1]},
+                  [{"warps": w} for w in (1, 2, 4, 8)], {"warps": 16}),
+        ref.topk_gate_ref(lg, 6), (1e-6, 0.0), True))
+    recs.append(_at_attention(torch, rng, "deepseek attention dense",
+                              ds["max_batch"], ds["chunk"], 128, 128, 192,
+                              128, ds["max_len"], False, dev))
+    gemm = recs[-3]
+    print(f"[autotune] moe_gemm: ctas changes the bits: "
+          f"{not gemm['bitwise_across']} (docstring: the same bits on "
+          f"every call) [{card_line}]")
+    return recs
+
+
+def _at_dense_paged(torch, gm):
+    """(b): a registered attention plan whose n_split is not flash_plan's,
+    at gemma-2b's step (phase 2's case): paged == dense bit for bit, both
+    within tolerance of the plain version."""
+    import numpy as np
+    from repro_torch.kernels import autotune as AT
+    ops, ref = _ops()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    b, sq, s = gm["max_batch"], gm["chunk"], gm["max_len"]
+    nq, nkv, hd = 8, 1, 256
+    rows, n0 = ops.flash_plan(b, sq, nq, nkv, hd, hd)
+    n1 = n0 * 2 if n0 * 2 <= ops.FLASH_MAX_SPLIT else max(1, n0 // 2)
+    q_off = ([1024 - sq, 1000, 0, 0] + [0] * b)[:b]
+    q_len = ([sq, 1, 37, 0] + [0] * b)[:b]
+    kv_len = [o + n for o, n in zip(q_off, q_len)]
+    q, k, v, off, ql, kl = _dense_case(
+        torch, rng, b=b, sq=sq, nq=nq, nkv=nkv, hd=hd, hdv=hd, skv=s,
+        q_off=q_off, q_len=q_len, kv_len=kv_len, dtype=torch.bfloat16,
+        dev=dev)
+    nb = s // 16
+    bt = torch.randperm(b * nb, device=dev).reshape(b, nb).to(torch.int32)
+    kp = torch.empty(b * nb, 16, nkv, hd, dtype=torch.bfloat16, device=dev)
+    vp = torch.empty_like(kp)
+    kp[bt.long()] = k.reshape(b, nb, 16, nkv, hd)
+    vp[bt.long()] = v.reshape(b, nb, 16, nkv, hd)
+    before = ops.flash_chunk(q, k, v, off, ql, kl)
+    AT.register("flash", (b, sq, nq, nkv, hd, hd), torch.bfloat16,
+                {"rows": rows, "n_split": n1})
+    dense = ops.flash_chunk(q, k, v, off, ql, kl)
+    paged = ops.flash_chunk_paged(q, kp, vp, bt, off, ql, kl)
+    want = ref.flash_chunk_ref(q, k, v, off, ql, kl)
+    torch.cuda.synchronize()
+    rec = {"geometry": [b, sq, nq, nkv, hd, hd], "analytic_n_split": n0,
+           "registered_n_split": n1,
+           "paged_equals_dense": torch.equal(dense, paged),
+           "within_tol": within(torch, dense, want, *FLASH_TOL["bfloat16"]),
+           "max_err": max_err(torch, dense, want),
+           "bits_moved": not torch.equal(dense, before)}
+    print(f"[autotune] (b) gemma-2b step {tuple(rec['geometry'])} under a "
+          f"registered n_split {n1} (analytic {n0}): {json.dumps(rec)}")
+    check(rec["paged_equals_dense"] and rec["within_tol"],
+          "(b): paged != dense, or off the plain version, under a "
+          "registered n_split")
+    return rec
+
+
+def _at_host(torch):
+    """(e): host microseconds a call of the four wrappers that gained a
+    lookup, at tiny shapes (the host's path, not the kernel, sets the
+    pace): with the cache hit, and with the plan recomputed per call from
+    the analytic ``*_plan`` function (the work the wrappers did before the
+    cache), three times each, alternated, the least kept; and the lookup
+    alone."""
+    from repro_torch.kernels import autotune as AT
+    ops, _ = _ops()
+    dev = torch.device("cuda")
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    i32 = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)
+    q, kp = torch.randn(1, 1, 8, 128, **bf), torch.randn(4, 16, 1, 128, **bf)
+    bt, one = i32(1, 4), torch.ones(1, dtype=torch.int32, device=dev)
+    lg = torch.randn(8, 16, **bf)
+    x, w = torch.randn(2, 16, 64, **bf), torch.randn(2, 64, 128, **bf)
+    buf, slot = torch.randn(16, 128, **bf), i32(8, 2)
+    cw = torch.ones(8, 2, device=dev)
+    calls = {
+        "flash_chunk_paged": (lambda: ops.flash_chunk_paged(
+            q, kp, kp, bt, one - 1, one, one),
+            ("flash", (1, 1, 8, 1, 128, 128))),
+        "topk_gate": (lambda: ops.topk_gate(lg, 2), ("topk_gate", (8, 16))),
+        "moe_gemm": (lambda: ops.moe_gemm(x, w),
+                     ("moe_gemm", (2, 16, 64, 128))),
+        "unpermute_tokens": (lambda: ops.unpermute_tokens(buf, slot, cw),
+                             ("unpermute_tokens", (8, 2, 128))),
+    }
+    real = AT.plan_for
+
+    def analytic(op, shape, dtype):
+        return AT.default_plan(op, shape, AT.dtype_name(dtype))
+    out = {}
+    for name, (fn, (op, key)) in calls.items():
+        after, before = [], []
+        for _ in range(3):                  # alternated; the least of each
+            after.append(host_us(torch, fn))
+            ops.autotune.plan_for = analytic
+            try:
+                before.append(host_us(torch, fn))
+            finally:
+                ops.autotune.plan_for = real
+        after, before = min(after), min(before)
+        t0 = time.perf_counter()
+        for _ in range(100_000):
+            real(op, key, torch.bfloat16)
+        lookup = (time.perf_counter() - t0) * 10
+        out[name] = {"cache_hit_us": after, "analytic_per_call_us": before,
+                     "lookup_us": lookup}
+    print(f"[autotune] (e) host us a call: {json.dumps(out)}")
+    return out
+
+
+def autotune_child():
+    """(c) and (d), in a fresh process on the file (a) wrote: the resolved
+    spec's provenance, a serve of phi3.5 (2 of 32 layers, full width,
+    bf16, kernels on) through ``LLM.from_spec``, its launches, the plans
+    it read, one decode step under ``trace_contract.sync_issues``, and the
+    same serve on the same knobs with no registered plans.  Prints one
+    JSON line last."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.analysis import trace_contract as TCt
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.serving.api import LLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _cut(AT_ARCH, AT_LAYERS)
+    res = at_spec().resolve(cfg, device="cuda")
+    prov = {k: res.provenance[k] for k in ("chunk", "max_batch", "kv")}
+    print(f"[autotune] (c) resolved from {AT.cache_path()}: {prov}")
+    check(f"page {AT_PAGE} from autotune:measured" in prov["kv"]
+          and "[autotune:measured]" in prov["max_batch"]
+          and "[autotune:measured]" in prov["chunk"]
+          and res.kv.page_size == AT_PAGE and res.max_batch <= AT_CAP,
+          f"(c): the resolver did not read the registrations: {prov}")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in AT_LENS]
+    llm = _load(torch, res, cfg, "")
+    eng = llm.engine
+    b, sq = eng.max_batch, eng.chunk
+    keys = {"flash": (b, sq, 32, 8, 128, 128), "topk_gate": (b * sq, 16),
+            "unpermute_tokens": (b * sq, 2, 4096)}
+    # (d): the first all-decode step's device-side body under the sync
+    # debug mode
+    probe = {"armed": False, "issues": None}
+    impl, step = eng._unified_impl, eng.unified_step
+
+    def unified_step(q_lens):
+        q = np.asarray(q_lens)
+        probe["armed"] = probe["issues"] is None and q.any() \
+            and q.max() <= 1
+        return step(q_lens)
+
+    def unified_impl(*args):
+        if not probe["armed"]:
+            return impl(*args)
+        probe["armed"] = False
+        box = []
+        probe["stacks"] = TCt.sync_stacks(lambda *a: box.append(impl(*a)),
+                                          *args)
+        probe["issues"] = [site for site, _ in probe["stacks"]]
+        return box[0]
+    eng.unified_step, eng._unified_impl = unified_step, unified_impl
+    per_step = {"flash_chunk_paged": AT_LAYERS, "topk_gate": AT_LAYERS,
+                "permute_tokens": AT_LAYERS, "unpermute_tokens": AT_LAYERS,
+                "grouped_gemm": 3 * AT_LAYERS}
+    # the process's first serve: its ms a step hold the warm-up and the
+    # step under the sync debug mode, so they are no speed comparison
+    tuned = _serve(torch, llm, prompts, AT_NEW, per_step, "",
+                   f"{cfg.name} on the tuned plans (first serve, one step "
+                   f"under the sync debug mode)")
+    read = {op: AT.lookup(op, key, torch.bfloat16)
+            for op, key in keys.items()}
+    cached = {op: AT.cache_info().get(AT.cache_key(op, key, "bfloat16"))
+              for op, key in keys.items()}
+    print(f"[autotune] (c) plans the serve read: {json.dumps(cached)}; "
+          f"registrations {json.dumps(read)}")
+    check(all(read[op] is not None and read[op] == cached[op]
+              for op in keys),
+          f"(c): the serve did not run the tuned plans: {cached} / {read}")
+    issues = probe["issues"]
+    check(issues is not None, "(d): no all-decode step was probed")
+    bad = TCt.unaudited(issues)
+    print(f"[autotune] (d) syncs in one decode step's device-side body: "
+          f"{len(issues)} {sorted(set(issues))}; not audited by R2: {bad}")
+    for site, stack in probe["stacks"]:
+        if site in bad:
+            print(f"[autotune] (d) unaudited sync at {site}: {stack}")
+    check(not bad, f"(d): synchronizing lines R2 does not flag with an "
+                   f"audited disable: {bad}")
+    # the same serve, the same knobs, no registered plans
+    eng.unified_step, eng._unified_impl = step, impl
+    os.environ[AT.ENV] = ""
+    AT.clear_cache()
+    plain = LLM.from_spec(llm.spec, cfg=cfg, params=eng.params,
+                          device="cuda", dtype=torch.bfloat16)
+    analytic = _serve(torch, plain, prompts, AT_NEW, per_step, "",
+                      f"{cfg.name} on the analytic plans")
+    first = [next((j for j, (a, c) in enumerate(zip(x, y)) if a != c), None)
+             for x, y in zip(tuned["streams"], analytic["streams"])]
+    print(f"[autotune] (c) streams tuned vs analytic plans: first differing "
+          f"token per stream {first}")
+    print(json.dumps({"autotune_child": {
+        "provenance": prov, "max_batch": b, "chunk": sq,
+        "page": res.kv.page_size, "read": read,
+        "steps": tuned["steps"], "launches": tuned["launches"],
+        "ms_step": tuned["wall_s"] / tuned["steps"] * 1e3,
+        "syncs": issues, "first_differing_token": first}}))
+
+
+def phase_autotune(torch, card_line, phi, ds, gm):
+    """Phase 10: (a) tune sweeps into a temp file, (b) dense == paged under
+    a registered split, (c) + (d) a fresh process serving on that file,
+    (e) the wrappers' host cost.  The process's own hermetic setting (an
+    empty REPRO_TORCH_AUTOTUNE_CACHE) is restored at the end."""
+    import tempfile
+    from repro_torch.core import resolve as R
+    from repro_torch.kernels import autotune as AT
+    tmp = tempfile.mkdtemp(prefix="repro_torch_autotune_")
+    path = os.path.join(tmp, "autotune.json")
+    os.environ[AT.ENV] = path
+    AT.clear_cache()
+    try:
+        cfg = _cut(AT_ARCH, AT_LAYERS)
+        max_len = at_spec().resolve(cfg, device="cuda").max_len
+        AT.register("kv_page", R.kv_page_key(cfg, max_len), "bfloat16",
+                    {"page": AT_PAGE})
+        AT.register("resolver", R.resolver_key(), "host",
+                    {"batch_cap": AT_CAP, "itl_slack_pct": AT_SLACK})
+        served = at_spec().resolve(cfg, device="cuda")
+        shapes = [("phi3.5 step", phi["max_batch"], phi["chunk"],
+                   phi["max_len"])]
+        if (served.max_batch, served.chunk) != (phi["max_batch"],
+                                                phi["chunk"]):
+            shapes.append(("(c) serve step", served.max_batch, served.chunk,
+                           served.max_len))
+        sweeps = _at_tune(torch, card_line, shapes, phi, ds)
+        dense_paged = _at_dense_paged(torch, gm)
+        host = _at_host(torch)
+        free_memory(torch)
+        print(f"[autotune] {path}: {len(json.load(open(path))['entries'])} "
+              f"registrations; a fresh process serves on it")
+        code = ("import sys; sys.path[:0] = [{!r}]; import chip_smoke; "
+                "chip_smoke.autotune_child()").format(str(ROOT))
+        child = subprocess.run([sys.executable, "-c", code],
+                               env=dict(os.environ), cwd=str(ROOT),
+                               capture_output=True, text=True, timeout=600)
+        lines = child.stdout.splitlines()
+        for line in lines[:-1] if child.returncode == 0 else lines:
+            print(f"  | {line}")
+        check(child.returncode == 0,
+              f"(c): the fresh process failed: {child.stderr[-3000:]}")
+        got = json.loads(child.stdout.splitlines()[-1])["autotune_child"]
+    finally:
+        os.environ[AT.ENV] = ""
+        AT.clear_cache()
+    return {"sweeps": sweeps, "dense_paged": dense_paged, "host": host,
+            "child": got}
+
+
 def kernels_record(kres, launches):
     out = []
     for name, source, replaces in KERNELS:
@@ -6046,6 +6526,10 @@ def main() -> int:
               "from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # no file on this host may change the plans phases 2-9 check (paged
+    # == dense bitwise, the dry run's predicted scratch): no autotune
+    # registration is read or written but phase 10's, in a temp file
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = ""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6135,6 +6619,8 @@ def main() -> int:
     # the dry run's checks launch kernels only to compare with its
     # prediction: no launches here
     timed("dryrun", phase_dryrun, torch, card_line)
+    free_memory(torch)
+    timed("autotune", phase_autotune, torch, card_line, phi, ds, gm)
     launches: dict = {}
     for s in serves + [dist, entry] + [frontend[a] for a in FRONT_SERVES]:
         for k, v in s["launches"].items():

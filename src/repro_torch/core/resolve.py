@@ -42,8 +42,12 @@ instead of user homework:
                 engine's measured acceptance EMA gates it at runtime
 
 The ``AUTO_BATCH_CAP`` / ``ITL_SLACK`` / ``KV_PAGE_SIZE`` constants are
-the analytic defaults, reported with ``default(...)`` provenance.  The port
-has no autotune cache yet, so nothing here reads or writes a file.
+only analytic defaults (``autotune:default(...)`` provenance):
+``resolved_batch_cap`` / ``resolved_itl_slack`` consult the per-host
+"resolver" entry of the port's autotune cache (``kernels.autotune``) first,
+and ``auto_kv`` the "kv_page" entry of the length envelope, so a measured
+registration on this host overrides them with ``autotune:measured``
+provenance.  Nothing here writes the cache.
 
 Everything here is deterministic: same (spec, model, cluster) in, same
 resolved knobs out.  No serving imports — ``serving.api`` composes these
@@ -59,6 +63,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cost_model as cm
 from repro_torch.core.topology import (CLUSTERS, H100_2X2, H100_NODE,
                                       H100_X1, ClusterSpec, h100_cluster)
+from repro_torch.kernels import autotune
 
 AUTO = "auto"
 
@@ -80,19 +85,33 @@ _SHED_POLICIES = ("reject-newest", "deadline-first")
 
 
 # ---------------------------------------------------------------------------
-# Resolver constants (analytic defaults; the port has no autotune cache)
+# Measured resolver constants (the "resolver" autotune entry)
 # ---------------------------------------------------------------------------
 
+def resolver_key() -> tuple:
+    """Autotune cache-key shape for the per-host "resolver" entry.  A
+    calibration and these lookups must build the same key; the cache file
+    is already per host, so the key is empty."""
+    return ()
+
+
 def resolved_batch_cap() -> tuple[int, str]:
-    """(engine-slot sanity cap, provenance): the ``AUTO_BATCH_CAP``
-    analytic default."""
-    return AUTO_BATCH_CAP, f"default({AUTO_BATCH_CAP})"
+    """(engine-slot sanity cap, provenance): the measured "resolver"
+    autotune entry if a calibration registered one on this host, else the
+    ``AUTO_BATCH_CAP`` analytic default."""
+    tuned = autotune.lookup("resolver", resolver_key(), "host")
+    if tuned and int(tuned.get("batch_cap", 0)) > 0:
+        return int(tuned["batch_cap"]), "autotune:measured"
+    return AUTO_BATCH_CAP, f"autotune:default({AUTO_BATCH_CAP})"
 
 
 def resolved_itl_slack() -> tuple[float, str]:
-    """(auto-chunk ITL-inflation bound, provenance): the ``ITL_SLACK``
-    analytic default."""
-    return ITL_SLACK, f"default({ITL_SLACK:.0%})"
+    """(auto-chunk ITL-inflation bound, provenance): the measured entry
+    first (an integer percentage), else the ``ITL_SLACK`` default."""
+    tuned = autotune.lookup("resolver", resolver_key(), "host")
+    if tuned and int(tuned.get("itl_slack_pct", 0)) > 0:
+        return int(tuned["itl_slack_pct"]) / 100.0, "autotune:measured"
+    return ITL_SLACK, f"autotune:default({ITL_SLACK:.0%})"
 
 
 def resolve_cluster(cluster: Union[str, ClusterSpec, None] = None, *,
@@ -279,8 +298,18 @@ def auto_max_len(l_in: int, l_out: int, front: int = 0,
 
 # paged KV: tokens per fixed-size cache page (the block-table granule).
 # Must divide max_len; auto_kv degrades to the largest power-of-two divisor.
+# The constant is only the analytic floor: auto_kv first consults the
+# shape-keyed "kv_page" autotune entry (kernels.autotune).
 KV_PAGE_SIZE = 16
 _KV_BACKENDS = ("dense", "paged")
+
+
+def kv_page_key(cfg: ModelConfig, max_len: int) -> tuple:
+    """Autotune cache-key shape for the "kv_page" op: (length envelope,
+    per-layer KV row elements).  ``auto_kv`` and a calibration must build
+    the same key or the tuned page never reaches the resolver."""
+    per_tok = kv_bytes_per_token(cfg, 1) // max(cfg.n_layers, 1)
+    return (int(max_len), int(per_tok))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -350,13 +379,19 @@ def auto_kv(cfg: ModelConfig, *, max_batch: int, max_len: int, l_in: int,
                 "auto:family(legacy blocking path keeps the dense cache)")
     if backend == "dense":
         return KVConfig(backend="dense"), "explicit"
-    # page size: explicit > analytic constant — then degraded to divide
+    # page size: explicit > measured autotune entry > analytic constant —
+    # then degraded to divide
     # max_len (block tables address max_len//page rows, so a non-dividing
     # page would orphan the tail)
     if page_size:
         ps, ps_src = page_size, "explicit"
     else:
-        ps, ps_src = KV_PAGE_SIZE, f"default({KV_PAGE_SIZE})"
+        tuned = autotune.lookup("kv_page", kv_page_key(cfg, max_len),
+                                "bfloat16")
+        if tuned and int(tuned.get("page", 0)) > 0:
+            ps, ps_src = int(tuned["page"]), "autotune:measured"
+        else:
+            ps, ps_src = KV_PAGE_SIZE, f"autotune:default({KV_PAGE_SIZE})"
     while ps > 1 and max_len % ps:
         ps //= 2
     dense_pages = max_batch * (max_len // ps)
@@ -581,4 +616,4 @@ __all__ = ["AUTO", "ITL_SLACK", "CHUNK_CANDIDATES", "AUTO_BATCH_CAP",
            "resolve_cluster", "plan_name_for", "auto_max_batch",
            "token_times", "auto_chunk", "auto_token_budget", "auto_overload",
            "auto_max_len", "resolved_batch_cap",
-           "resolved_itl_slack"]
+           "resolved_itl_slack", "kv_page_key", "resolver_key"]

@@ -20,6 +20,16 @@ Every wrapper validates device, dtype, shape and contiguity, then:
 ``counters[name]`` counts kernel launches (CUDA only), one per launch and
 nowhere else; ``reset_counters()`` zeroes them (and the meta counters).  A
 run can read them to show that its path went through the kernels.
+
+Launch plans.  A wrapper with a runtime launch knob (attention's ``rows``
+and ``n_split``, the router gate's ``warps``, the capacity GEMM's ``ctas``,
+the combine's ``rows``) takes it from ``autotune.plan_for`` on its CUDA
+and meta branches: a registered (measured) plan for its key, else the
+analytic ``*_plan`` function's, one plan per key per process.  The caller
+can pin a knob with the keyword of that name (``autotune.tune`` does);
+a pinned plan is checked on every device, and one the kernel would refuse
+raises ``ValueError`` before any launch.  The grouped GEMM and the two
+gathers have no runtime knob (``autotune``'s docstring says why).
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ import collections
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import autotune, build, ref
 
 counters: collections.Counter = collections.Counter()
 meta_flops: collections.Counter = collections.Counter()
@@ -175,14 +185,33 @@ def _aligned(t):
     return t if at % 16 == 0 else t.clone()
 
 
-def _flash_scratch(q, nq, nkv, hd, hdv) -> tuple:
+def _flash_pins(q, k, v, rows, n_split) -> None:
+    """Check a pinned attention plan (either knob given) on any device:
+    the f32 body takes none; the bf16 one a plan ``autotune.check_plan``
+    accepts, the unpinned knob taken from the key's plan."""
+    if rows is None and n_split is None:
+        return
+    if q.dtype == torch.float32:
+        raise ValueError("flash: the float32 body takes no plan")
+    key = autotune.key_shape("flash", (q, k, v))
+    plan = autotune.plan_for("flash", key, q.dtype)
+    autotune.check_plan("flash", key, q.dtype, {
+        "rows": plan["rows"] if rows is None else rows,
+        "n_split": plan["n_split"] if n_split is None else n_split})
+
+
+def _flash_scratch(q, nq, nkv, hd, hdv, rows=None, n_split=None) -> tuple:
     """The launch plan and f32 split scratch of one attention call:
     (rows, n_split, part_o pointer, part_ml pointer, keep-alive), both
-    parts in one allocation."""
+    parts in one allocation.  The plan is the key's (``autotune``) with a
+    knob the caller pinned (checked before, ``_flash_pins``) in its
+    place."""
     b, sq = q.shape[:2]
     if q.dtype == torch.float32:          # the FMA body takes no plan
         return 0, 1, None, None, None
-    rows, n_split = flash_plan(b, sq, nq, nkv, hd, hdv)
+    plan = autotune.plan_for("flash", (b, sq, nq, nkv, hd, hdv), q.dtype)
+    rows = plan["rows"] if rows is None else rows
+    n_split = plan["n_split"] if n_split is None else n_split
     if n_split == 1:
         return rows, 1, None, None, None
     n_o = n_split * b * sq * nq * hdv
@@ -199,14 +228,14 @@ def _attn_ops(q, n_keys: int, hd: int, hdv: int) -> int:
 
 
 def _flash_dense(q, k, v, q_offset, q_len, kv_len, nkv, hd, hdv, scale,
-                 name="flash_chunk"):
+                 name="flash_chunk", rows=None, n_split=None):
     """Launch the dense kernel on checked CUDA inputs (on meta inputs,
     price it under ``name``)."""
     b, sq, nq, _ = q.shape
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty(b, sq, nq, hdv, dtype=q.dtype, device=q.device)
-    rows, n_split, part_o, part_ml, _keep = _flash_scratch(q, nq, nkv, hd,
-                                                           hdv)
+    rows, n_split, part_o, part_ml, _keep = _flash_scratch(
+        q, nq, nkv, hd, hdv, rows, n_split)
     if q.device.type == "meta":
         return _priced(name, _attn_ops(q, k.shape[1], hd, hdv),
                        _nbytes(q, k, v, q_offset, q_len, kv_len, out), out)
@@ -219,25 +248,27 @@ def _flash_dense(q, k, v, q_offset, q_len, kv_len, nkv, hd, hdv, scale,
     return out
 
 
-def flash_chunk(q, k, v, q_offset, q_len, kv_len, *, scale=None):
+def flash_chunk(q, k, v, q_offset, q_len, kv_len, *, scale=None, rows=None,
+                n_split=None):
     """Ragged causal attention on a dense cache.  q (B, sq, nq, hd);
     k (B, S, nkv, hd); v (B, S, nkv, hdv); q_offset / q_len / kv_len (B,)
-    int32 -> (B, sq, nq, hdv) in q's dtype.  Contract:
-    ``ref.flash_chunk_ref``."""
+    int32 -> (B, sq, nq, hdv) in q's dtype.  ``rows`` / ``n_split`` pin the
+    bf16 body's plan (``flash_plan``).  Contract: ``ref.flash_chunk_ref``."""
     name = "flash_chunk"
     lengths = (q_offset, q_len, kv_len)
     dev = _check_inputs(name, (q, k, v), lengths)
     nkv, hd, hdv = _check_attention(name, q, k, v, lengths)
     b = q.shape[0]
     _check(k.shape[0] == b, f"{name}: K/V batch {k.shape[0]} != q batch {b}")
+    _flash_pins(q, k, v, rows, n_split)
     scale = float(hd ** -0.5 if scale is None else scale)
     if dev.type == "cpu":
         return ref.flash_chunk_ref(q, k, v, q_offset, q_len, kv_len, scale)
     return _flash_dense(q, k, v, q_offset, q_len, kv_len, nkv, hd, hdv,
-                        scale)
+                        scale, rows=rows, n_split=n_split)
 
 
-def flash_decode(q, k, v, lengths, *, scale=None):
+def flash_decode(q, k, v, lengths, *, scale=None, rows=None, n_split=None):
     """Single-token decode attention.  q (B, nq, hd); k (B, S, nkv, hd);
     v (B, S, nkv, hdv); lengths (B,) int32 -> (B, nq, hdv).
 
@@ -245,19 +276,21 @@ def flash_decode(q, k, v, lengths, *, scale=None):
     invariant (``q_offset = lengths - 1``, ``q_len = min(lengths, 1)``), so
     a slot with ``lengths == 0`` gives an exact-zero row.  ``counters``
     counts these calls under ``flash_decode`` beside the ``flash_chunk``
-    launch each makes.  Contract: ``ref.flash_decode_ref``."""
+    launch each makes; it reads and pins the plan of ``flash_chunk`` at sq
+    1.  Contract: ``ref.flash_decode_ref``."""
     name = "flash_decode"
     dev = _check_inputs(name, (q, k, v), (lengths,))
     _check(q.dim() == 3, f"{name}: q must be (B, nq, hd)")
     nkv, hd, hdv = _check_attention(name, q[:, None], k, v, (lengths,))
     _check(k.shape[0] == q.shape[0],
            f"{name}: K/V batch {k.shape[0]} != q batch {q.shape[0]}")
+    _flash_pins(q, k, v, rows, n_split)
     if dev.type == "cpu":
         return ref.flash_decode_ref(q, k, v, lengths, scale)
     scale = float(hd ** -0.5 if scale is None else scale)
     out = _flash_dense(q[:, None], k, v, (lengths - 1).clamp_min(0),
                        lengths.clamp_max(1), lengths, nkv, hd, hdv,
-                       scale, name)[:, 0]
+                       scale, name, rows, n_split)[:, 0]
     if dev.type == "meta":
         return out
     counters["flash_decode"] += 1
@@ -265,12 +298,13 @@ def flash_decode(q, k, v, lengths, *, scale=None):
 
 
 def flash_chunk_paged(q, k_pages, v_pages, block_tables, q_offset, q_len,
-                      kv_len, *, scale=None):
+                      kv_len, *, scale=None, rows=None, n_split=None):
     """Paged ragged causal attention.  q (B, sq, nq, hd); k_pages
     (P, page, nkv, hd); v_pages (P, page, nkv, hdv); block_tables
     (B, max_blocks) int32 (-1 = unallocated); q_offset / q_len / kv_len
-    (B,) int32 -> (B, sq, nq, hdv) in q's dtype.  Contract:
-    ``ref.flash_chunk_paged_ref``."""
+    (B,) int32 -> (B, sq, nq, hdv) in q's dtype.  It reads and pins the
+    plan of ``flash_chunk`` at the same geometry, so the two stay bitwise
+    equal.  Contract: ``ref.flash_chunk_paged_ref``."""
     name = "flash_chunk_paged"
     lengths = (q_offset, q_len, kv_len)
     dev = _check_inputs(name, (q, k_pages, v_pages),
@@ -280,14 +314,15 @@ def flash_chunk_paged(q, k_pages, v_pages, block_tables, q_offset, q_len,
     n_pages, page = k_pages.shape[:2]
     _check(block_tables.dim() == 2 and block_tables.shape[0] == b,
            f"{name}: block_tables (B, nb) expected")
+    _flash_pins(q, k_pages, v_pages, rows, n_split)
     scale = float(hd ** -0.5 if scale is None else scale)
     if dev.type == "cpu":
         return ref.flash_chunk_paged_ref(q, k_pages, v_pages, block_tables,
                                          q_offset, q_len, kv_len, scale)
     q, k_pages, v_pages = _aligned(q), _aligned(k_pages), _aligned(v_pages)
     out = torch.empty(b, sq, nq, hdv, dtype=q.dtype, device=dev)
-    rows, n_split, part_o, part_ml, _keep = _flash_scratch(q, nq, nkv, hd,
-                                                           hdv)
+    rows, n_split, part_o, part_ml, _keep = _flash_scratch(
+        q, nq, nkv, hd, hdv, rows, n_split)
     if dev.type == "meta":     # every key the block tables address
         keys = block_tables.shape[1] * page
         kv_bytes = b * keys * nkv * (hd + hdv) * q.element_size()
@@ -322,27 +357,33 @@ def topk_plan(t: int, e: int) -> tuple[int, int, int]:
     return 16 if e <= 16 else 32, wpc, -(-t // wpc)
 
 
-def topk_gate(logits, k: int, *, renorm: bool = True):
+def topk_gate(logits, k: int, *, renorm: bool = True, warps=None):
     """logits (T, E) -> (weights (T, k) f32, idx (T, k) int32): softmax,
-    top-k with ties to the lowest id, optional renorm.  Contract:
-    ``ref.topk_gate_ref``."""
+    top-k with ties to the lowest id, optional renorm.  ``warps`` pins the
+    warps per CTA (``topk_plan``).  Contract: ``ref.topk_gate_ref``."""
     name = "topk_gate"
     dev = _check_inputs(name, (logits,))
     _check(logits.dim() == 2, f"{name}: logits must be (T, E)")
     t, e = logits.shape
     _check(1 <= e <= 256 and 1 <= k <= min(e, 32),
            f"{name}: need E <= 256 and 1 <= k <= min(E, 32), got E={e} k={k}")
+    if warps is not None:
+        warps = autotune.check_plan(name, (t, e), logits.dtype,
+                                    {"warps": warps})["warps"]
     if dev.type == "cpu":
         return ref.topk_gate_ref(logits, k, renorm)
     # two allocations: one (2, T, k) buffer costs more host time in the
     # views that split it (chip_smoke.py's [host] router line)
     w = torch.empty(t, k, dtype=torch.float32, device=dev)
     idx = torch.empty(t, k, dtype=torch.int32, device=dev)
+    if warps is None:
+        warps = autotune.plan_for(name, (t, e), logits.dtype)["warps"]
     if dev.type == "meta":
         return _priced(name, 5 * t * e, _nbytes(logits, w, idx), (w, idx))
     _launch(build.load().rt_topk_gate, logits.data_ptr(), w.data_ptr(),
             idx.data_ptr(), t, e, k, int(bool(renorm)),
-            _DTYPES[logits.dtype], *topk_plan(t, e), _stream())
+            _DTYPES[logits.dtype], 16 if e <= 16 else 32, warps,
+            -(-t // warps), _stream())
     counters[name] += 1
     return w, idx
 
@@ -403,13 +444,14 @@ def _moe_flags(dev) -> torch.Tensor:
     return buf
 
 
-def moe_gemm(x, w):
+def moe_gemm(x, w, *, ctas=None):
     """Capacity-mode batched expert GEMM.  x (E, C, H) @ w (E, H, D) ->
     (E, C, D) in x's dtype, float32 accumulation; an all-zero row of x gives
     an exact-zero row.  bf16 runs on ``moe_gemm_plan``'s grid, the split
     tiles' f32 running sums carried between CTAs through scratch: every
     output is summed in one pass in H order, the same bits on every call.
-    Contract: ``ref.moe_gemm_ref``."""
+    ``ctas`` pins the grid (``moe_gemm_plan``'s first entry).  Contract:
+    ``ref.moe_gemm_ref``."""
     name = "moe_gemm"
     dev = _check_inputs(name, (x, w))
     _check(x.dim() == 3 and w.dim() == 3 and x.shape[0] == w.shape[0]
@@ -419,10 +461,15 @@ def moe_gemm(x, w):
     e, c, h = x.shape
     d = w.shape[2]
     _check(e <= 65535, f"{name}: at most 65535 experts, got {e}")
+    if ctas is not None:
+        ctas = autotune.check_plan(name, (e, c, h, d), x.dtype,
+                                   {"ctas": ctas})["ctas"]
     if dev.type == "cpu":
         return ref.moe_gemm_ref(x, w)
     out = torch.empty(e, c, d, dtype=x.dtype, device=dev)
-    ctas, units, _, mt = moe_gemm_plan(e, c, h, d)
+    _, units, _, mt = moe_gemm_plan(e, c, h, d)
+    if ctas is None:
+        ctas = autotune.plan_for(name, (e, c, h, d), x.dtype)["ctas"]
     carry = flags = None
     if x.dtype == torch.bfloat16 and units:
         carry = torch.empty(ctas * 16 * mt * moe_gemm_bn(mt),
@@ -579,30 +626,32 @@ def unpermute_rows_max(k: int) -> int:
     return 2 if k <= 2 else 1
 
 
-def unpermute_plan(t: int, k: int, row_bytes: int,
-                   elem_bytes: int) -> tuple[int, int, int, int]:
+def unpermute_plan(t: int, k: int, row_bytes: int, elem_bytes: int,
+                   rows: int = 0) -> tuple[int, int, int, int]:
     """(grid_x, grid_y, rows, unit bytes) of the combine into t rows of
     ``row_bytes`` from k slots each.  A unit is 16 bytes where the row is
     a multiple of 16, else one element.  A CTA covers ``UNPERMUTE_LANES``
     x ``rows`` rows by ``UNPERMUTE_CHUNK`` units: row tiles on grid x,
-    column chunks on grid y (at most 65535).  ``rows`` per thread is the
-    most the slot group allows, halved while the grid holds fewer than
-    two CTAs per SM.  The kernel refuses a grid that does not cover the
-    rows and units."""
+    column chunks on grid y (at most 65535).  ``rows`` per thread, unless
+    given, is the most the slot group allows, halved while the grid holds
+    fewer than two CTAs per SM.  The kernel refuses a grid that does not
+    cover the rows and units."""
     unit = 16 if row_bytes % 16 == 0 else elem_bytes
     gy = -(-(row_bytes // unit) // UNPERMUTE_CHUNK)
-    rows = unpermute_rows_max(k)
-    while rows > 1 and -(-t // (UNPERMUTE_LANES * rows)) * gy \
-            < 2 * SMS:
-        rows //= 2
+    if not rows:
+        rows = unpermute_rows_max(k)
+        while rows > 1 and -(-t // (UNPERMUTE_LANES * rows)) * gy \
+                < 2 * SMS:
+            rows //= 2
     return -(-t // (UNPERMUTE_LANES * rows)), gy, rows, unit
 
 
-def unpermute_tokens(buf, src_slot, weights):
+def unpermute_tokens(buf, src_slot, weights, *, rows=None):
     """buf (M, h), src_slot (T, k) int32, weights (T, k) -> (T, h) in buf's
     dtype: each token's k expert rows weighted and summed in float32, in
     slot order; ``src_slot < 0`` adds row 0 times 0.  The weights are cast
-    to float32 here, as the reference wrapper does.  Contract:
+    to float32 here, as the reference wrapper does.  ``rows`` pins the rows
+    a thread takes (``unpermute_plan``).  Contract:
     ``ref.unpermute_tokens_ref``."""
     name = "unpermute_tokens"
     dev = _check_inputs(name, (buf,), (src_slot,), (weights,))
@@ -611,19 +660,24 @@ def unpermute_tokens(buf, src_slot, weights):
     _check(buf.dim() == 2 and src_slot.dim() == 2
            and weights.shape == src_slot.shape,
            f"{name}: need buf (M, h), src_slot and weights (T, k)")
-    if dev.type == "cpu":
-        return ref.unpermute_tokens_ref(buf, src_slot, weights)
     m, h = buf.shape
     t, k = src_slot.shape
+    if rows is not None:
+        rows = autotune.check_plan(name, (t, k, h), buf.dtype,
+                                   {"rows": rows})["rows"]
+    if dev.type == "cpu":
+        return ref.unpermute_tokens_ref(buf, src_slot, weights)
     _check(m > 0 or t == 0, f"{name}: empty buf with {t} tokens to combine")
     buf = _aligned(buf)
     out = torch.empty(t, h, dtype=buf.dtype, device=dev)
+    if rows is None:
+        rows = autotune.plan_for(name, (t, k, h), buf.dtype)["rows"]
     if dev.type == "meta":     # every slot's row, weighted and summed
         return _priced(name, 2 * t * k * h,
                        (t * k + t) * h * buf.element_size()
                        + _nbytes(src_slot, weights), out)
     es = buf.element_size()
-    gx, gy, rows, _ = unpermute_plan(t, k, h * es, es)
+    gx, gy, _, _ = unpermute_plan(t, k, h * es, es, rows)
     _launch(build.load().rt_unpermute_tokens, buf.data_ptr(),
             src_slot.data_ptr(), weights.data_ptr(), out.data_ptr(), t, k, h,
             m, _DTYPES[buf.dtype], gx, gy, rows, _stream())

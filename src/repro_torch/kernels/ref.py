@@ -66,7 +66,9 @@ def grouped_gemm_ref(x, w, group_offsets):
         return (x.float() @ w[0].float()).to(x.dtype)
     n = x.shape[0]
     out = torch.zeros(n, w.shape[-1], dtype=x.dtype, device=x.device)
-    off = [int(o) for o in group_offsets.tolist()]
+    # the plain body's segment bounds, read once (the card's kernels-on path
+    # runs grouped_gemm instead)
+    off = [int(o) for o in group_offsets.tolist()]  # repro-lint: disable=R2
     for e in range(w.shape[0]):
         lo, hi = off[e], min(off[e + 1], n)
         out[lo:hi] = (x[lo:hi].float() @ w[e].float()).to(x.dtype)

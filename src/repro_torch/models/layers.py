@@ -318,6 +318,9 @@ def write_cache(buf, new, idx, valid_len=None):
     if valid_len is not None:
         ok = ok & (r < valid_len.long()[:, None])
     bi = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    # the masked write skips idle slots' rows: its boolean reads are
+    # nonzeros, a host sync a layer a step (ROADMAP B, the host)
+    # repro-lint: disable=R2
     buf.index_put_((bi[ok], rows[ok]), new[ok])
     return buf
 
@@ -345,6 +348,10 @@ def write_cache_paged(pool, new, idx, block_table, valid_len):
     page = torch.gather(block_table.long(), 1, blk)              # (b, s)
     ok = (page >= 0) & (torch.arange(s, device=new.device)[None]
                         < valid_len[:, None].long())
+    # the masked write skips rows past valid_len and unallocated pages:
+    # its boolean reads are nonzeros, a host sync a layer a step (ROADMAP
+    # B, the host)
+    # repro-lint: disable=R2
     pool.index_put_((page[ok], (pos % ps)[ok]), new[ok].to(pool.dtype))
     return pool
 

@@ -729,7 +729,9 @@ def _moe_shard_dropless_fn(p, x, *, cfg: ModelConfig, mesh, tp_axes,
         out_c = combine_phase(expert_phase(widen(recv.wait()), counts, cap),
                               dl, w_c, cap)
         exchange_counts["chunks"] += 1
-        if ovf is not None and int(ovf.wait()) > cap:
+        # the overflow rerun's branch: a pmax over the EP and TP ranks, so
+        # every rank reads the same value and takes the same branch
+        if ovf is not None and int(ovf.wait()) > cap:  # repro-lint: disable=R2
             # rare: redo dispatch -> FFN -> combine at the worst-case
             # extent (the counts need no second exchange)
             exchange_counts["overflow"] += 1

@@ -59,12 +59,9 @@ ARGVS = [
 # batches, and with them the f32 sums, are the same in every run
 RUN = ["--requests", "4", "--max-new", "4", "--rate", "0",
        "--cluster", "h20x16"]
-# the provenance rows that differ by design: the kernel policy follows the
-# port's device where the reference reads its JAX backend (kernels), and
-# the port prints ``default(...)`` where the reference reads its autotune
-# cache, here empty (chunk, max_batch, kv)
-PROVENANCE = (("auto:backend(", "auto:device("),
-              ("autotune:default(", "default("))
+# the provenance row that differs by design: the kernel policy follows the
+# port's device where the reference reads its JAX backend (kernels)
+PROVENANCE = (("auto:backend(", "auto:device("),)
 
 
 def _argv(extra):
@@ -81,10 +78,15 @@ def _fields(spec) -> dict:
 
 @pytest.fixture
 def hermetic_autotune(monkeypatch):
-    """The reference's resolver on its analytic defaults (no cache)."""
+    """Both resolvers on their analytic defaults (empty caches)."""
     from repro.kernels import autotune
+    from repro_torch.kernels import autotune as t_autotune
     monkeypatch.setattr(autotune, "_CACHE", {})
     monkeypatch.setattr(autotune, "_persist_loaded", True)
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", "")
+    monkeypatch.setattr(t_autotune, "_CACHE", {})
+    monkeypatch.setattr(t_autotune, "_ANALYTIC", set())
+    monkeypatch.setattr(t_autotune, "_persist_loaded", True)
 
 
 @pytest.mark.parametrize("extra", ARGVS, ids=lambda a: " ".join(a) or "-")

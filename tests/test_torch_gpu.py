@@ -1138,3 +1138,80 @@ def test_mesh_training_parity_on_card(dev, tmp_path):
         assert res["loss"] <= 1e-5, (r, res)
         assert res["grad"] <= D.CARD_GRAD_BOUND, (r, res)
         assert res["ratio"] <= 1.0, (r, res)
+
+
+# ---------------------------------------------------------------------------
+# launch plans: pinned by keyword, registered in the autotune cache
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def plans(monkeypatch):
+    """The autotune cache empty and not persisted for one test."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", "")
+    monkeypatch.setattr(autotune, "_CACHE", {})
+    monkeypatch.setattr(autotune, "_ANALYTIC", set())
+    monkeypatch.setattr(autotune, "_persist_loaded", True)
+    return autotune
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
+def test_every_attention_plan_keeps_paged_equal_to_dense(dev, plans, case):
+    """Each plan the bf16 body takes (rows 64 / 128, n_split 1-16): within
+    tolerance of the plain version, paged == dense bit for bit, and a
+    registered plan is the one the unpinned call launches."""
+    _, b, sq, nq, nkv, hd, hdv = case
+    q, k, v, q_off, q_len, kv_len = _dense_case(dev, torch.bfloat16, b, sq,
+                                                nq, nkv, hd, hdv, skv=48)
+    kp, vp, bt = _to_pages(k, v, 16)
+    want = ref.flash_chunk_ref(q, k, v, q_off, q_len, kv_len)
+    for rows in (64, 128) if hd <= 256 else (64,):
+        for n_split in (1, 2, 3, 8, 16):
+            pin = dict(rows=rows, n_split=n_split)
+            dense = ops.flash_chunk(q, k, v, q_off, q_len, kv_len, **pin)
+            paged = ops.flash_chunk_paged(q, kp, vp, bt, q_off, q_len,
+                                          kv_len, **pin)
+            torch.testing.assert_close(dense.float(), want.float(),
+                                       atol=5e-3, rtol=1.6e-2)
+            assert torch.equal(dense, paged), pin
+    n0 = ops.flash_plan(b, sq, nq, nkv, hd, hdv)[1]
+    pin = dict(rows=64, n_split=3 if n0 != 3 else 2)     # not the analytic
+    plans.register("flash", (b, sq, nq, nkv, hd, hdv), torch.bfloat16, pin)
+    assert torch.equal(ops.flash_chunk(q, k, v, q_off, q_len, kv_len),
+                       ops.flash_chunk(q, k, v, q_off, q_len, kv_len, **pin))
+    assert torch.equal(ops.flash_chunk_paged(q, kp, vp, bt, q_off, q_len,
+                                             kv_len),
+                       ops.flash_chunk(q, k, v, q_off, q_len, kv_len, **pin))
+
+
+def test_gate_combine_and_capacity_gemm_bits_do_not_move_with_the_plan(
+        dev, plans):
+    """The router gate's warps, the combine's rows and the capacity GEMM's
+    grid change no bit of their outputs; a refused plan raises before a
+    launch."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    lg = torch.randn(300, 160, generator=g).to(dev, torch.bfloat16)
+    outs = [ops.topk_gate(lg, 6, warps=w) for w in (1, 2, 4, 8)]
+    assert all(torch.equal(a, b) for o in outs[1:]
+               for a, b in zip(o, outs[0]))
+    buf = torch.randn(600, 2048, generator=g).to(dev, torch.bfloat16)
+    slot = torch.randperm(600, generator=g).reshape(300, 2).to(
+        dev, torch.int32)
+    w = torch.rand(300, 2, generator=g).to(dev)
+    assert torch.equal(ops.unpermute_tokens(buf, slot, w, rows=1),
+                       ops.unpermute_tokens(buf, slot, w, rows=2))
+    x = torch.randn(8, 40, 1024, generator=g).to(dev, torch.bfloat16)
+    wt = (0.02 * torch.randn(8, 1024, 768, generator=g)).to(dev,
+                                                           torch.bfloat16)
+    units = ops.moe_gemm_plan(8, 40, 1024, 768)[1]
+    ref_out = ops.moe_gemm(x, wt, ctas=min(ops.SMS, units))
+    for ctas in (1, 7, 64, min(ops.SMS, units) - 1):
+        assert torch.equal(ops.moe_gemm(x, wt, ctas=ctas), ref_out), ctas
+    ops.reset_counters()
+    for bad in (lambda: ops.topk_gate(lg, 6, warps=3),
+                lambda: ops.unpermute_tokens(buf, slot, w, rows=3),
+                lambda: ops.moe_gemm(x, wt, ctas=units + 1)):
+        with pytest.raises(ValueError):
+            bad()
+    torch.cuda.synchronize()
+    assert not ops.counters

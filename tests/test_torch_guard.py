@@ -11,6 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _kernel_calls import wrapper_calls  # noqa: E402
+from repro_torch.analysis.rules.r4_kernel_contract import (  # noqa: E402
+    kernel_contract_faults)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -85,83 +87,6 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, capsys):
         mod = importlib.import_module(f"repro_torch.examples.{name}")
         with pytest.raises(RuntimeError, match="device='cpu'"):
             mod.main([])
-
-
-def kernel_contract_faults(ops_src: str, ref_names) -> list:
-    """The torch meaning of the reference's kernel-contract rule, read from
-    the source of ``kernels/ops.py``: every public wrapper that reaches
-    ``_launch`` (directly or through module-level helpers) bumps
-    ``counters[<its name>]`` exactly once on its launch path (its body and
-    the helpers it calls that launch), each bump after a launching call in
-    its function and nowhere off a launch path, and has a plain body
-    ``<name>_ref`` in ``kernels/ref.py``.  Returns the faults found."""
-    tree = ast.parse(ops_src)
-    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
-    public = next(ast.literal_eval(n.value) for n in tree.body
-                  if isinstance(n, ast.Assign)
-                  and [t.id for t in n.targets] == ["__all__"])
-
-    def calls(fn):
-        return [c for c in ast.walk(fn) if isinstance(c, ast.Call)
-                and isinstance(c.func, ast.Name) and c.func.id in funcs]
-
-    launching = {"_launch"}
-    grew = True
-    while grew:
-        grew = False
-        for name, fn in funcs.items():
-            if name not in launching and any(
-                    c.func.id in launching for c in calls(fn)):
-                launching.add(name)
-                grew = True
-
-    def bumps(fn):
-        """(key, line) of each ``counters[key] += 1`` in ``fn``."""
-        local = {t.id: n.value.value for n in ast.walk(fn)
-                 if isinstance(n, ast.Assign)
-                 and isinstance(n.value, ast.Constant)
-                 for t in n.targets if isinstance(t, ast.Name)}
-        out = []
-        for n in ast.walk(fn):
-            if isinstance(n, ast.AugAssign) \
-                    and isinstance(n.target, ast.Subscript) \
-                    and isinstance(n.target.value, ast.Name) \
-                    and n.target.value.id == "counters":
-                key = n.target.slice
-                key = key.value if isinstance(key, ast.Constant) \
-                    else local.get(getattr(key, "id", None))
-                out.append((key, n.lineno))
-        return out
-
-    faults = []
-    for name, fn in funcs.items():
-        first_launch = min((c.lineno for c in calls(fn)
-                            if c.func.id in launching), default=None)
-        for key, line in bumps(fn):
-            if first_launch is None or line < first_launch:
-                faults.append(f"{name}: counters[{key!r}] bumped off a "
-                              f"launch path (line {line})")
-            if key not in public:
-                faults.append(f"{name}: counters[{key!r}] names no public "
-                              "wrapper")
-    for name in public:
-        if name not in launching or name == "reset_counters":
-            continue
-        path, todo = set(), [name]
-        while todo:
-            f = todo.pop()
-            if f not in path:
-                path.add(f)
-                todo += [c.func.id for c in calls(funcs[f])
-                         if c.func.id in launching
-                         and c.func.id.startswith("_")]
-        n = sum(key == name for f in path for key, _ in bumps(funcs[f]))
-        if n != 1:
-            faults.append(f"{name}: counters[{name!r}] bumped {n} times on "
-                          "its launch path")
-        if f"{name}_ref" not in ref_names:
-            faults.append(f"{name}: no plain body {name}_ref in ref.py")
-    return faults
 
 
 def _ops_source():

@@ -131,8 +131,13 @@ def test_resolve_equals_reference_on_every_knob(name, cluster, monkeypatch):
     kv="dense" and kv="paged" resolve as the reference does, and "auto"
     stays paged for the unified families."""
     from repro.kernels import autotune
+    from repro_torch.kernels import autotune as t_autotune
     monkeypatch.setattr(autotune, "_CACHE", {})          # analytic defaults
     monkeypatch.setattr(autotune, "_persist_loaded", True)
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", "")
+    monkeypatch.setattr(t_autotune, "_CACHE", {})
+    monkeypatch.setattr(t_autotune, "_ANALYTIC", set())
+    monkeypatch.setattr(t_autotune, "_persist_loaded", True)
     t_cl = TT.CLUSTERS[cluster]
     r_cl = RT.CLUSTERS.get(cluster) or RT.ClusterSpec(
         **dataclasses.asdict(t_cl))
