@@ -304,10 +304,14 @@ beside it.  Phases, each printing its own lines; any failure ends the run:
                  read the tuned ones; the same serve on the same knobs
                  with no registered plan: the first differing token of
                  each stream;
-             (d) one all-decode step of (c)'s serve (the engine's
-                 device-side body) under ``trace_contract.sync_issues``:
-                 every synchronizing line is one lint rule R2 flags under
-                 an audited ``disable=R2``;
+             (d) the engine's device-side body of one step under
+                 ``trace_contract.sync_stacks``, no sync at all (audited
+                 or not) in each: (c)'s serve's first all-decode step and
+                 its first mixed step (a slot's prefill chunk beside
+                 another's decode row); the same phi3.5 serve on
+                 kv="dense"; deepseek-v2-236b (MLA, 2 of 60 layers, bf16,
+                 kernels on) paged and on kv="dense", an all-decode step
+                 each; each probe's sync count and sites printed;
              (e) host microseconds a call of the four wrappers that look
                  a plan up, at tiny shapes: with the cache hit, with the
                  analytic plan recomputed per call, and the lookup alone
@@ -5943,6 +5947,7 @@ def phase_dryrun(torch, card_line):
 # ---------------------------------------------------------------------------
 
 AT_ARCH, AT_LAYERS = "phi3.5-moe-42b", 2     # (c): the fresh process's serve
+AT_MLA = "deepseek-v2-236b"                   # (d)'s MLA serves, AT_LAYERS
 AT_LENS = (64, 256, 100, 180)                 # its 4 prompts
 AT_NEW = 8
 AT_PAGE, AT_CAP, AT_SLACK = 32, 4, 25         # (c)'s registered resolver tier
@@ -6240,13 +6245,13 @@ def autotune_child():
     """(c) and (d), in a fresh process on the file (a) wrote: the resolved
     spec's provenance, a serve of phi3.5 (2 of 32 layers, full width,
     bf16, kernels on) through ``LLM.from_spec``, its launches, the plans
-    it read, one decode step under ``trace_contract.sync_issues``, and the
-    same serve on the same knobs with no registered plans.  Prints one
-    JSON line last."""
+    it read, its first decode and mixed steps under
+    ``trace_contract.sync_stacks``, and the same serve on the same knobs
+    with no registered plans; then (d)'s other probes
+    (``_sync_probe_serves``).  Prints one JSON line last."""
     import numpy as np
     sys.path.insert(0, str(ROOT / "src"))
     import torch
-    from repro_torch.analysis import trace_contract as TCt
     from repro_torch.kernels import autotune as AT
     from repro_torch.serving.api import LLM
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6267,35 +6272,21 @@ def autotune_child():
     b, sq = eng.max_batch, eng.chunk
     keys = {"flash": (b, sq, 32, 8, 128, 128), "topk_gate": (b * sq, 16),
             "unpermute_tokens": (b * sq, 2, 4096)}
-    # (d): the first all-decode step's device-side body under the sync
-    # debug mode
-    probe = {"armed": False, "issues": None}
-    impl, step = eng._unified_impl, eng.unified_step
-
-    def unified_step(q_lens):
-        q = np.asarray(q_lens)
-        probe["armed"] = probe["issues"] is None and q.any() \
-            and q.max() <= 1
-        return step(q_lens)
-
-    def unified_impl(*args):
-        if not probe["armed"]:
-            return impl(*args)
-        probe["armed"] = False
-        box = []
-        probe["stacks"] = TCt.sync_stacks(lambda *a: box.append(impl(*a)),
-                                          *args)
-        probe["issues"] = [site for site, _ in probe["stacks"]]
-        return box[0]
-    eng.unified_step, eng._unified_impl = unified_step, unified_impl
+    # (d): the first all-decode and the first mixed step's device-side
+    # body under the sync debug mode
+    probes, restore = _sync_probe(eng, ("decode", "mixed"))
     per_step = {"flash_chunk_paged": AT_LAYERS, "topk_gate": AT_LAYERS,
                 "permute_tokens": AT_LAYERS, "unpermute_tokens": AT_LAYERS,
                 "grouped_gemm": 3 * AT_LAYERS}
     # the process's first serve: its ms a step hold the warm-up and the
-    # step under the sync debug mode, so they are no speed comparison
+    # steps under the sync debug mode, so they are no speed comparison
     tuned = _serve(torch, llm, prompts, AT_NEW, per_step, "",
-                   f"{cfg.name} on the tuned plans (first serve, one step "
+                   f"{cfg.name} on the tuned plans (first serve, two steps "
                    f"under the sync debug mode)")
+    restore()
+    syncs = {f"{cfg.name} paged {k}": v for k, v in probes.items()}
+    for label, stacks in syncs.items():
+        _print_syncs(label, stacks)
     read = {op: AT.lookup(op, key, torch.bfloat16)
             for op, key in keys.items()}
     cached = {op: AT.cache_info().get(AT.cache_key(op, key, "bfloat16"))
@@ -6305,18 +6296,7 @@ def autotune_child():
     check(all(read[op] is not None and read[op] == cached[op]
               for op in keys),
           f"(c): the serve did not run the tuned plans: {cached} / {read}")
-    issues = probe["issues"]
-    check(issues is not None, "(d): no all-decode step was probed")
-    bad = TCt.unaudited(issues)
-    print(f"[autotune] (d) syncs in one decode step's device-side body: "
-          f"{len(issues)} {sorted(set(issues))}; not audited by R2: {bad}")
-    for site, stack in probe["stacks"]:
-        if site in bad:
-            print(f"[autotune] (d) unaudited sync at {site}: {stack}")
-    check(not bad, f"(d): synchronizing lines R2 does not flag with an "
-                   f"audited disable: {bad}")
     # the same serve, the same knobs, no registered plans
-    eng.unified_step, eng._unified_impl = step, impl
     os.environ[AT.ENV] = ""
     AT.clear_cache()
     plain = LLM.from_spec(llm.spec, cfg=cfg, params=eng.params,
@@ -6327,12 +6307,117 @@ def autotune_child():
              for x, y in zip(tuned["streams"], analytic["streams"])]
     print(f"[autotune] (c) streams tuned vs analytic plans: first differing "
           f"token per stream {first}")
+    syncs.update(_sync_probe_serves(torch, plain, prompts))
+    want = [f"{cfg.name} paged decode", f"{cfg.name} paged mixed",
+            f"{cfg.name} dense decode", f"{AT_MLA}-{AT_LAYERS}L paged decode",
+            f"{AT_MLA}-{AT_LAYERS}L dense decode"]
+    check(sorted(syncs) == sorted(want),
+          f"(d): probed {sorted(syncs)}, want {want}")
+    bad = {k: len(v) for k, v in syncs.items() if v}
+    check(not bad, f"(d): host syncs in a step's device-side body: {bad}")
     print(json.dumps({"autotune_child": {
         "provenance": prov, "max_batch": b, "chunk": sq,
         "page": res.kv.page_size, "read": read,
         "steps": tuned["steps"], "launches": tuned["launches"],
         "ms_step": tuned["wall_s"] / tuned["steps"] * 1e3,
-        "syncs": issues, "first_differing_token": first}}))
+        "syncs": {k: [site for site, _ in v] for k, v in syncs.items()},
+        "first_differing_token": first}}))
+
+
+def _print_syncs(label, stacks):
+    """(d)'s lines for one probed step: the count and the sites of its
+    syncs, and the innermost frames of the first three."""
+    sites = [site for site, _ in stacks]
+    print(f"[autotune] (d) syncs in one step's device-side body, {label}: "
+          f"{len(sites)} {sorted(set(sites))}")
+    for site, stack in stacks[:3]:
+        print(f"[autotune] (d)   {site}: {stack}")
+
+
+def _sync_probe(eng, kinds):
+    """Arm ``eng`` so that the first unified step of each kind in
+    ``kinds`` runs its device-side body (``Engine._unified_impl``) under
+    ``trace_contract.sync_stacks``: "decode" (every scheduled slot one
+    decode row) or "mixed" (a slot's prefill chunk beside another slot's
+    decode row).  Returns ({kind: stacks}, filled as the steps run, and a
+    function that disarms the engine)."""
+    import numpy as np
+    from repro_torch.analysis import trace_contract as TCt
+    got: dict = {}
+    armed = [None]
+    impl, step = eng._unified_impl, eng.unified_step
+
+    def kind(q):
+        live = [i for i in range(len(q)) if q[i] > 0]
+        decoding = [eng.slots[i] is not None
+                    and eng._prompt_pos[i] >= len(eng._pending[i])
+                    for i in live]
+        if live and all(decoding):
+            return "decode"
+        if any(decoding) and not all(decoding):
+            return "mixed"
+        return None
+
+    def unified_step(q_lens):
+        k = kind(np.asarray(q_lens))
+        armed[0] = k if k in kinds and k not in got else None
+        return step(q_lens)
+
+    def unified_impl(*args):
+        k, armed[0] = armed[0], None
+        if k is None:
+            return impl(*args)
+        box = []
+        got[k] = TCt.sync_stacks(lambda *a: box.append(impl(*a)), *args)
+        return box[0]
+
+    def restore():
+        eng.unified_step, eng._unified_impl = step, impl
+    eng.unified_step, eng._unified_impl = unified_step, unified_impl
+    return got, restore
+
+
+def _sync_probe_serves(torch, phi, prompts):
+    """(d) beyond (c)'s serve: phi3.5 on kv="dense" on ``phi``'s weights,
+    then deepseek-v2 (MLA, AT_LAYERS layers) paged and on kv="dense", the
+    first all-decode step of each under ``sync_stacks``.  Each serve's
+    launches are exact.  Returns {label: stacks}."""
+    from repro_torch.serving.api import LLM
+    out = {}
+    cfg, params = phi.cfg, phi.engine.params
+    moe = {"topk_gate": 1, "permute_tokens": 1, "unpermute_tokens": 1,
+           "grouped_gemm": 3}
+    runs = [(cfg, params, {k: v * AT_LAYERS for k, v in moe.items()},
+             ("dense",))]
+    ds = _cut(AT_MLA, AT_LAYERS)
+    n_moe = AT_LAYERS - ds.first_dense_layers
+    runs.append((ds, None, {k: v * n_moe for k, v in moe.items()},
+                 ("paged", "dense")))
+    for cfg, params, per_moe, kvs in runs:
+        for kv in kvs:
+            spec = _spec(kv=kv, prompt_len=max(AT_LENS),
+                         max_new_tokens=AT_NEW)
+            llm = LLM.from_spec(spec, cfg=cfg, params=params, device="cuda",
+                                dtype=torch.bfloat16)
+            params = llm.engine.params
+            attn = "flash_chunk_paged" if kv == "paged" \
+                and cfg.attention != "mla" else "flash_chunk"
+            got, restore = _sync_probe(llm.engine, ("decode",))
+            try:
+                _serve(torch, llm, prompts, AT_NEW,
+                       {attn: cfg.n_layers, **per_moe}, "",
+                       f"{cfg.name} kv={kv} (one decode step under the "
+                       f"sync debug mode)")
+            finally:
+                restore()
+            check("decode" in got, f"(d): {cfg.name} kv={kv}: no "
+                                   f"all-decode step was probed")
+            out[f"{cfg.name} {kv} decode"] = got["decode"]
+            _print_syncs(f"{cfg.name} {kv} decode", got["decode"])
+            del llm
+        del params
+        free_memory(torch)
+    return out
 
 
 def phase_autotune(torch, card_line, phi, ds, gm):

@@ -63,7 +63,11 @@ JSON file, ``~/.cache/repro_torch/autotune.json`` (override with
 e.g. ``"flash|4,64,32,8,128,128|bfloat16": {"rows": 128, "n_split": 2}``.
 A file of another version is ignored wholesale (a stale plan is worse than
 the analytic one), a write replaces the file atomically, an in-memory entry
-beats the file's, and analytic plans are never written.  The file and the
+beats the file's, and analytic plans are never written.  The file is best
+effort, as the JAX package's is: an entry this checkout cannot key (an op
+outside ``OPS``, a malformed key) or whose plan is not a dict is skipped,
+and a write that fails with ``OSError`` is dropped (the registration holds
+in the process).  The file and the
 variable are the port's own: the JAX package's cache (``REPRO_AUTOTUNE_CACHE``)
 has another schema and is never read or written here.
 
@@ -77,6 +81,7 @@ arguments.  Nothing else is caught: a CUDA error is sticky and propagates.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import tempfile
@@ -220,9 +225,19 @@ def _key_str(key: KernelKey) -> str:
     return f"{key.op}|{','.join(map(str, key.shape))}|{key.dtype}"
 
 
-def _key_from_str(s: str) -> KernelKey:
-    op, shape, dtype = s.split("|")
-    return cache_key(op, tuple(int(x) for x in shape.split(",") if x), dtype)
+def _key_from_str(s: str) -> Optional[KernelKey]:
+    """The key of a file entry, or None where this checkout cannot use it:
+    not three ``|``-separated fields, a shape that is not integers, or an
+    op outside ``OPS`` (one a later checkout added).  The JAX package
+    skips such entries too."""
+    parts = s.split("|")
+    if len(parts) != 3 or parts[0] not in OPS:
+        return None
+    try:
+        shape = tuple(int(x) for x in parts[1].split(",") if x)
+    except ValueError:
+        return None
+    return KernelKey(parts[0], shape, dtype_name(parts[2]))
 
 
 def _read_persistent() -> dict:
@@ -245,14 +260,16 @@ def _read_persistent() -> dict:
 
 def load_persistent() -> int:
     """Adopt the file's registrations into the in-process cache (in-memory
-    entries win); returns how many it adopted.  An entry the kernel would
-    refuse raises ``ValueError``."""
+    entries win); returns how many it adopted.  An entry this checkout
+    cannot key (``_key_from_str``) or whose plan is not a dict is skipped,
+    as the JAX package skips it; a dict plan of a known op that the kernel
+    would refuse raises ``ValueError``."""
     global _persist_loaded
     _persist_loaded = True
     adopted = 0
     for ks, plan in _read_persistent().items():
         key = _key_from_str(ks)
-        if key in _CACHE:
+        if key is None or key in _CACHE or not isinstance(plan, dict):
             continue
         try:
             _CACHE[key] = check_plan(key.op, key.shape, key.dtype, plan)
@@ -263,18 +280,28 @@ def load_persistent() -> int:
 
 
 def _write_persistent(key: KernelKey, plan: dict) -> None:
+    """Add the key's plan to the file, replacing it atomically.  Best
+    effort, as in the JAX package: an ``OSError`` (a folder that cannot be
+    made, a read-only disk) leaves the file as it was and no temp file."""
     path = cache_path()
     if not path:
         return
     folder = os.path.dirname(path) or "."
-    os.makedirs(folder, exist_ok=True)
-    entries = _read_persistent()
-    entries[_key_str(key)] = plan
-    fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")
-    with os.fdopen(fd, "w") as f:
-        json.dump({"version": CACHE_VERSION, "entries": entries}, f,
-                  indent=1, sort_keys=True)
-    os.replace(tmp, path)
+    tmp = None
+    try:
+        os.makedirs(folder, exist_ok=True)
+        entries = _read_persistent()
+        entries[_key_str(key)] = plan
+        fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")
+        with os.fdopen(fd, "w") as f:
+            json.dump({"version": CACHE_VERSION, "entries": entries}, f,
+                      indent=1, sort_keys=True)
+        os.replace(tmp, path)
+        tmp = None
+    except OSError:
+        if tmp is not None:
+            with contextlib.suppress(OSError):
+                os.remove(tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +311,8 @@ def _write_persistent(key: KernelKey, plan: dict) -> None:
 def register(op: str, shape: tuple, dtype, plan: dict, *,
              persist: bool = True) -> None:
     """Make ``plan`` the key's plan in this process (and, with ``persist``,
-    in the file).  Raises ``ValueError`` for a plan the kernel refuses."""
+    in the file, where it can be written).  Raises ``ValueError`` for a
+    plan the kernel refuses."""
     key = cache_key(op, shape, dtype)
     p = check_plan(op, key.shape, key.dtype, plan)
     _CACHE[key] = p

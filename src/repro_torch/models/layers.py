@@ -287,11 +287,12 @@ def write_cache(buf, new, idx, valid_len=None):
                    dropped, so an idle slot never touches its buffer; with
                    s == 1 and no ``valid_len``, the one-row decode write
 
-    A 0-d tensor offset and the one-row decode write read no value on the
-    host (so they run on the meta device, as the dry run's prefill and
-    decode do): the slice is an ``index_copy_`` at the clamped rows, and a
-    decode slot whose row lies outside the buffer writes its own old row
-    back to the one cell it addresses (every slot a distinct cell).
+    No branch reads a value on the host or takes a shape from the data, so
+    every one runs on the meta device (as the dry run's steps do) and
+    none synchronizes with the card: the slice is an ``index_copy_`` at the
+    clamped rows, and the per-slot rows (the one-row decode write too) are
+    one ``_drop_scatter`` of every row, the JAX package's ``mode="drop"``
+    scatter.
     """
     b, skv = buf.shape[:2]
     s = new.shape[1]
@@ -304,25 +305,40 @@ def write_cache(buf, new, idx, valid_len=None):
         rows = idx.long().clamp(0, skv - s) \
             + torch.arange(s, device=buf.device)
         return buf.index_copy_(1, rows, new)
-    if s == 1 and valid_len is None:        # classic decode: one row a slot
-        rows = idx.long()
-        ok = (rows >= 0) & (rows < skv)
-        bi = torch.arange(b, device=buf.device)
-        rows = rows.clamp(0, skv - 1)
-        ok = ok.reshape((b,) + (1,) * (new.dim() - 2))
-        buf[bi, rows] = torch.where(ok, new[:, 0], buf[bi, rows])
-        return buf
     r = torch.arange(s, device=buf.device)[None]
     rows = idx.long()[:, None] + r                               # (b, s)
     ok = (rows >= 0) & (rows < skv)
     if valid_len is not None:
         ok = ok & (r < valid_len.long()[:, None])
     bi = torch.arange(b, device=buf.device)[:, None].expand(b, s)
-    # the masked write skips idle slots' rows: its boolean reads are
-    # nonzeros, a host sync a layer a step (ROADMAP B, the host)
-    # repro-lint: disable=R2
-    buf.index_put_((bi[ok], rows[ok]), new[ok])
-    return buf
+    return _drop_scatter(buf, (bi, rows), new, ok)
+
+
+def _drop_scatter(dst, index, val, ok):
+    """``dst[index] = val`` for the rows where ``ok``, IN PLACE, as the JAX
+    package's ``mode="drop"`` scatter of rows parked out of bounds; returns
+    ``dst``.
+
+    ``index`` is a tuple of (b, s) integer tensors addressing ``dst``'s
+    leading dims, ``val`` (b, s, ...) and ``ok`` (b, s) bool.  One
+    ``index_put_`` writes every row, at shapes fixed by (b, s), so nothing
+    is read on the host: a dropped row is parked on the first valid row's
+    cell with that row's own value, or, where no row is valid, on cell 0
+    with cell 0's current value.  Every write to a shared cell then carries
+    the same bits, so the order of the duplicates cannot matter.
+    """
+    ok = ok.reshape(-1)
+    index = tuple(i.reshape(-1) for i in index)
+    val = val.reshape((-1,) + tuple(val.shape[2:]))
+    j = ok.to(torch.uint8).argmax().reshape(1)     # first valid row, else 0
+    some = ok.any()
+    park = tuple(torch.where(some, i.index_select(0, j), 0) for i in index)
+    cell0 = dst[(0,) * len(index)][None]
+    park_val = torch.where(some, val.index_select(0, j), cell0)
+    keep = ok.reshape((-1,) + (1,) * (val.dim() - 1))
+    return dst.index_put_(
+        tuple(torch.where(ok, i, p) for i, p in zip(index, park)),
+        torch.where(keep, val, park_val))
 
 
 # ---------------------------------------------------------------------------
@@ -335,8 +351,9 @@ def write_cache_paged(pool, new, idx, block_table, valid_len):
     ``block_table`` (b, max_blocks).  Returns ``pool``.
 
     Rows past ``valid_len[i]`` and rows whose logical block is unallocated
-    (table entry < 0) are filtered out before the write, so an idle slot —
-    or a slot whose pages the host allocator withheld — never touches the
+    (table entry < 0) are dropped by the write (``_drop_scatter``, at
+    shapes fixed by ``(b, s)``, with no host sync), so an idle slot — or a
+    slot whose pages the host allocator withheld — never touches the
     pool.  Shared prefix pages are never written: the host hands a slot a
     cache offset past its shared full blocks.
     """
@@ -348,12 +365,7 @@ def write_cache_paged(pool, new, idx, block_table, valid_len):
     page = torch.gather(block_table.long(), 1, blk)              # (b, s)
     ok = (page >= 0) & (torch.arange(s, device=new.device)[None]
                         < valid_len[:, None].long())
-    # the masked write skips rows past valid_len and unallocated pages:
-    # its boolean reads are nonzeros, a host sync a layer a step (ROADMAP
-    # B, the host)
-    # repro-lint: disable=R2
-    pool.index_put_((page[ok], (pos % ps)[ok]), new[ok].to(pool.dtype))
-    return pool
+    return _drop_scatter(pool, (page, pos % ps), new.to(pool.dtype), ok)
 
 
 def gather_pages(pool, block_table):

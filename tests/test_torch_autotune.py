@@ -211,6 +211,115 @@ def test_port_and_reference_never_read_each_others_file(clean, tmp_path,
 
 
 # ---------------------------------------------------------------------------
+# the file is best effort, as the reference's is
+# ---------------------------------------------------------------------------
+
+FLASH_KEY = (4, 64, 32, 8, 128, 128)
+GOOD = ("topk_gate|64,16|bfloat16", {"warps": 2})     # beside every bad one
+# an entry this checkout cannot use: (key string, plan)
+FOREIGN = {
+    "unknown_op": ("grouped_gemm|8,4096,3200|bfloat16", {"bm": 64}),
+    "one_bar": ("flash|4,64,32,8,128,128", {"rows": 64, "n_split": 2}),
+    "non_integer_shape": ("flash|4,x64,32,8,128,128|bfloat16",
+                          {"rows": 64, "n_split": 2}),
+    "list_plan": ("flash|4,64,32,8,128,128|bfloat16", [64, 2]),
+}
+
+
+def _write_file(path, version, entries):
+    path.write_text(json.dumps({"version": version, "entries": entries}))
+
+
+@pytest.mark.parametrize("case", sorted(FOREIGN))
+def test_a_foreign_or_malformed_entry_is_skipped_by_both(clean, tmp_path,
+                                                         monkeypatch, case):
+    """The same entries in each package's own file: both resolve a serve
+    on it, the port skips the entry and adopts the good one beside it, and
+    the analytic plan serves the key the entry would have named."""
+    ks, plan = FOREIGN[case]
+    entries = dict([(ks, plan), GOOD])
+    t_path, r_path = tmp_path / "port.json", tmp_path / "ref.json"
+    _write_file(t_path, AT.CACHE_VERSION, entries)
+    _write_file(r_path, R_AT.CACHE_VERSION, entries)
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(t_path))
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(r_path))
+    _, t_cl = _clusters("h100x1")
+    r = RSpec(arch="smollm-360m").resolve()
+    t = TSpec(arch="smollm-360m").resolve(cluster=t_cl, device="cpu")
+    assert t.max_batch > 0 and r.max_batch > 0
+    R_AT.clear_cache()
+    assert R_AT.load_persistent() == (1 if case in ("one_bar", "list_plan",
+                                                    "non_integer_shape")
+                                      else 2)
+    AT.clear_cache()
+    assert AT.load_persistent() == 1
+    assert AT.lookup("topk_gate", (64, 16), "bfloat16") == GOOD[1]
+    assert AT.lookup("flash", FLASH_KEY, "bfloat16") is None
+    assert AT.select_plan("flash", FLASH_KEY, "bfloat16") == dict(
+        zip(("rows", "n_split"), ops.flash_plan(*FLASH_KEY)))
+    assert {k.op for k in AT.cache_info()} == {"topk_gate", "flash"}
+
+
+def test_a_refused_plan_of_a_known_op_in_the_file_raises(clean, tmp_path,
+                                                         monkeypatch):
+    """The one entry that is not skipped: a dict plan of a known op that
+    the kernel would refuse is a fault of this schema's writer, named with
+    the file and the entry."""
+    path = tmp_path / "port.json"
+    _write_file(path, AT.CACHE_VERSION, {"topk_gate|64,16|bfloat16":
+                                         {"warps": 3}})
+    _at(path, monkeypatch)
+    with pytest.raises(ValueError, match="topk_gate.64,16.bfloat16"):
+        AT.load_persistent()
+
+
+def test_an_unwritable_path_still_registers_in_both(clean, tmp_path,
+                                                    monkeypatch):
+    """A cache path under a regular file: ``register`` returns in both
+    packages with the plan in the process's cache, ``tune`` returns its
+    winner, and both still resolve a serve."""
+    import jax.numpy as jnp
+    (tmp_path / "file").write_text("not a folder")
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "file" / "port.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE",
+                       str(tmp_path / "file" / "ref.json"))
+    AT.register("topk_gate", (64, 16), torch.bfloat16, {"warps": 2})
+    R_AT.register("moe_gemm", (2, 8, 64, 48), jnp.float32,
+                  {"bc": 8, "bd": 48, "bh": 64})
+    assert AT.cache_info()[AT.cache_key("topk_gate", (64, 16),
+                                        "bfloat16")] == {"warps": 2}
+    assert R_AT.cache_key("moe_gemm", (2, 8, 64, 48), jnp.float32) \
+        in R_AT.cache_info()
+    best = AT.tune("topk_gate", ops.topk_gate, [{"warps": 1}],
+                   torch.zeros(32, 16), 2)
+    assert best == {"warps": 1}
+    assert AT.lookup("topk_gate", (32, 16), torch.float32) == best
+    _, t_cl = _clusters("h100x1")
+    RSpec(arch="smollm-360m").resolve()
+    TSpec(arch="smollm-360m").resolve(cluster=t_cl, device="cpu")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["file"]
+
+
+def test_a_failed_replace_leaves_no_temp_file(clean, tmp_path, monkeypatch):
+    """An ``OSError`` after the temp file is made removes it and leaves
+    the file as it was."""
+    import os
+    path = tmp_path / "autotune.json"
+    _at(path, monkeypatch)
+    AT.register("topk_gate", (64, 16), torch.bfloat16, {"warps": 2})
+    before = path.read_text()
+
+    def refuse(src, dst):
+        raise PermissionError(13, "read-only", dst)
+    monkeypatch.setattr(os, "replace", refuse)
+    AT.register("topk_gate", (64, 16), torch.bfloat16, {"warps": 4})
+    assert AT.lookup("topk_gate", (64, 16), torch.bfloat16) == {"warps": 4}
+    assert path.read_text() == before
+    assert [p.name for p in tmp_path.iterdir()] == ["autotune.json"]
+
+
+# ---------------------------------------------------------------------------
 # the resolver tier
 # ---------------------------------------------------------------------------
 

@@ -1215,3 +1215,43 @@ def test_gate_combine_and_capacity_gemm_bits_do_not_move_with_the_plan(
             bad()
     torch.cuda.synchronize()
     assert not ops.counters
+
+
+def _write_cases(dt):
+    """(write, arguments) on the CPU: the dense per-slot write (a ragged
+    tail, an idle slot, rows past the buffer), its one-row decode with
+    ``valid_len``, the paged write at MLA's latent width (-1 table entries,
+    an idle slot) and both writes with no valid row."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device="cpu").manual_seed(3)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)     # noqa: E731
+    buf = torch.randn(4, 16, 2, 8, generator=g).to(dt)
+    new = torch.randn(4, 8, 2, 8, generator=g).to(dt)
+    pool = torch.randn(9, 4, 512, generator=g).to(dt)
+    newc = torch.randn(3, 6, 512, generator=g).to(dt)
+    bt = torch.tensor([[3, 7, 1, -1], [0, 5, -1, -1], [-1] * 4],
+                      dtype=torch.int32)
+    return [
+        (L.write_cache, (buf, new, i32(2, 12, 5, 0), i32(8, 6, 0, 3))),
+        (L.write_cache, (buf, new, i32(14, 3, 15, 16), i32(8, 8, 2, 1))),
+        (L.write_cache, (buf, new[:, :1], i32(0, 15, 7, 16), i32(1, 1, 0, 1))),
+        (L.write_cache, (buf, new, i32(3, 0, 7, 1), i32(0, 0, 0, 0))),
+        (L.write_cache_paged, (pool, newc, i32(5, 2, 0), bt, i32(6, 6, 0))),
+        (L.write_cache_paged, (pool, newc[:, :1], i32(9, 7, 3), bt,
+                               i32(1, 1, 1))),
+        (L.write_cache_paged, (pool, newc, i32(5, 2, 0), bt, i32(0, 0, 0))),
+    ]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cache_writes_make_no_host_sync_on_card(dev, dtype):
+    """Every KV-cache write of the step synchronizes nothing on the card
+    and writes the same bits as on the CPU."""
+    from repro_torch.analysis import trace_contract as TCt
+    dt = getattr(torch, dtype)
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    for n, (write, args) in enumerate(_write_cases(dt)):
+        want = write(*[a.clone() for a in args])
+        on = [a.to(dev) for a in args]
+        assert TCt.sync_issues(write, *on) == [], n
+        assert torch.equal(on[0].cpu().view(bits), want.view(bits)), n

@@ -30,7 +30,8 @@ def _imports(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_compare.py"],
+    ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
+    ROOT / "tools" / "phi_serve_ab.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [(ln, m) for ln, m in _imports(path)
